@@ -1,0 +1,70 @@
+"""The port's attention against the JAX package's Pallas kernel.
+
+``attention_plain`` and the CPU path of ``fused_attention`` are held against
+``rgbnomore_tpu.ops.pallas.attention.fused_attention`` in interpret mode, on
+the same numpy inputs, at the Pallas test's tolerance (atol 2e-5, rtol 1e-4,
+``tests/test_pallas_attention.py:21-30``).  The CUDA kernel itself runs only
+on a card: ``test_kernel_matches_plain_on_card`` (marker ``cuda``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rgbnomore_tpu.ops.pallas.attention import fused_attention as pallas_attention
+from rgbnomore_tpu_torch.ops.attention import attention_plain, fused_attention
+
+SHAPES = [(196, 64), (49, 32), (128, 128)]
+SCALE = 1.0 / 192**0.5
+
+
+def _inputs(rng, n, d, b=2, h=3):
+    return [rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("fn", [attention_plain, fused_attention],
+                         ids=["plain", "fused_cpu"])
+@pytest.mark.parametrize("n,d", SHAPES)
+def test_matches_pallas_kernel(rng, n, d, fn):
+    q, k, v = _inputs(rng, n, d)
+    want = np.asarray(pallas_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       SCALE, True))
+    got = fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), SCALE)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
+
+
+def test_cpu_path_launches_no_kernel(rng):
+    q, k, v = (torch.from_numpy(a) for a in _inputs(rng, 16, 8))
+    before = fused_attention.launches
+    fused_attention(q, k, v, SCALE)
+    assert fused_attention.launches == before
+
+
+@pytest.mark.parametrize("bad, error", [
+    (lambda q: q[0], ValueError),                        # rank 3
+    (lambda q: q.double(), TypeError),                   # float64
+    (lambda q: q.half(), TypeError),                     # float16
+    (lambda q: q[..., :4], ValueError),                  # shape differs from k, v
+    (lambda q: q.transpose(2, 3).contiguous().transpose(2, 3), ValueError),  # strided
+], ids=["rank", "float64", "float16", "shape", "noncontiguous"])
+def test_refuses_bad_inputs(rng, bad, error):
+    q, k, v = (torch.from_numpy(a) for a in _inputs(rng, 16, 8))
+    with pytest.raises(error):
+        fused_attention(bad(q), k, v, SCALE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [(256, 196, 64), (2, 49, 32), (2, 128, 128), (1, 52, 24)])
+def test_kernel_matches_plain_on_card(b, n, d):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, 3, n, d), generator=gen, device="cuda") for _ in range(3))
+    before = fused_attention.launches
+    with torch.inference_mode():
+        got = fused_attention(q, k, v, SCALE)
+        want = attention_plain(q, k, v, SCALE)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=1e-4)
