@@ -1,1 +1,2 @@
-"""The device half of the input pipeline (the cropped DCT eval path)."""
+"""The device half of the input pipelines (cropped DCT wire, eval and train)
+and the batched DCT RandAugment."""

@@ -1,11 +1,14 @@
-"""The device half of the cropped DCT eval input pipeline.
+"""The device half of the cropped DCT input pipelines, eval and train.
 
-Port of the eval path of ``rgbnomore_tpu/augment/pipeline.py``: re-slice the
-consolidated ``(B, row)`` uint8 buffer into typed fields, unpack the mask16
-wire to dense dequantized coefficients, rescale to [-1, 1].  Every step is
-plain tensor code that runs on the device the buffer lives on; for the same
-row buffer the outputs are bit-exact against the JAX pipeline
-(``tests/test_torch_port_eval.py``).
+Port of the cropped-wire paths of ``rgbnomore_tpu/augment/pipeline.py``:
+re-slice the consolidated ``(B, row)`` uint8 buffer into typed fields,
+unpack the mask16 wire to dense dequantized coefficients, then for eval
+rescale to [-1, 1], and for training run flip -> RandAugment -> ToRange
+through ``ops.augpipe.fused_flip_aug_range`` (the CUDA kernel on the GPU).
+The split and unpack are plain tensor code on the device the buffer lives
+on; for the same row buffer the eval outputs are bit-exact against the JAX
+pipeline (``tests/test_torch_port_eval.py``) and the train outputs within
+2e-6 of it with the same draws (``tests/test_torch_port_augment.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from rgbnomore_tpu_torch.augment.randaugment import RandAugmentDCT
 from rgbnomore_tpu_torch.data.loader import packed_layout
+from rgbnomore_tpu_torch.ops import blocks
+from rgbnomore_tpu_torch.ops.augpipe import fused_flip_aug_range
+from rgbnomore_tpu_torch.ops.photometric import DCT_MAX, DCT_MIN
 
 __all__ = [
     "DCT_MIN",
@@ -26,13 +33,11 @@ __all__ = [
     "unpack_fields",
     "unpack_cropped",
     "to_range",
+    "random_flip",
     "make_cropped_eval_pipeline",
+    "make_cropped_train_pipeline",
+    "CroppedTrainPipeline",
 ]
-
-# the reference's coefficient clamp range, copied from
-# ``rgbnomore_tpu/ops/photometric.py``
-DCT_MIN = -1024.0  # -2**10
-DCT_MAX = 1016.0  # 2**10 - 8
 
 _TORCH_DTYPES = {
     np.dtype(np.int8): torch.int8,
@@ -148,6 +153,14 @@ def to_range(x: torch.Tensor, val_min: float = -1.0, val_max: float = 1.0,
     return val_min + x * (val_max - val_min)
 
 
+def random_flip(y: torch.Tensor, c: torch.Tensor, flip: torch.Tensor):
+    """Horizontal flip of the samples whose ``flip`` bit is set
+    (``custom_transforms.py:913-942``); the bits are drawn by the caller."""
+    sel = flip.to(device=y.device, dtype=torch.bool).reshape(-1, 1, 1, 1, 1, 1)
+    return (torch.where(sel, blocks.flip_dct(y, "horizontal"), y),
+            torch.where(sel, blocks.flip_dct(c, "horizontal"), c))
+
+
 def make_cropped_eval_pipeline(cfg=None, *, target: int = 28, k: int = 16,
                                fmt: str = "mask16") -> Callable:
     """Eval pipeline for the crop-before-pack wire: the host already did the
@@ -162,3 +175,49 @@ def make_cropped_eval_pipeline(cfg=None, *, target: int = 28, k: int = 16,
         return to_range(y), to_range(c), f["labels"], f["weights"]
 
     return pipeline
+
+
+class CroppedTrainPipeline:
+    """Train pipeline for the crop-before-pack wire (``DctCroppedLoader``).
+
+    The host already dequantized, cropped and resized to the target grid, so
+    the device path is unpack -> flip -> RandAugment -> ToRange, the last
+    three in one ``fused_flip_aug_range`` (the CUDA kernel on a CUDA buffer,
+    its plain version on a CPU one).  ``pipe(packed, flip, policy) -> (y,
+    cbcr, labels, weights)`` takes the draws explicitly; ``pipe.draw(
+    generator, batch)`` makes them, as the JAX pipeline does from its key
+    (``pipeline.py:384-389``).
+    """
+
+    def __init__(self, target: int, ops_list, num_ops: int, magnitude: int, k: int,
+                 fmt: str):
+        self.target, self.k, self.fmt = target, k, fmt
+        self.ops_list, self.num_ops, self.magnitude = list(ops_list), num_ops, magnitude
+        self.aug = RandAugmentDCT(ops_list=self.ops_list, num_ops=num_ops,
+                                  magnitude=magnitude, grid=target)
+
+    def draw(self, generator: torch.Generator, batch: int):
+        """``(flip (B,) bool, policy)`` on the generator's device: each
+        sample flips with probability 1/2, then ``draw_policy``."""
+        flip = torch.rand(batch, generator=generator, device=generator.device) < 0.5
+        return flip, self.aug.draw_policy(generator, batch, self.target, self.target)
+
+    def __call__(self, packed_buf: torch.Tensor, flip: torch.Tensor, policy):
+        f = split_packed_batch(packed_buf, self.target, self.k, self.fmt)
+        y, c = unpack_cropped(f, self.fmt)  # dequantized floats
+        y, c = fused_flip_aug_range(y, c, policy, flip, ops_list=self.ops_list,
+                                    num_ops=self.num_ops, magnitude=self.magnitude)
+        return y, c, f["labels"], f["weights"]
+
+
+def make_cropped_train_pipeline(cfg=None, *, target: int = 28, auglist=None,
+                                num_ops: int = 2, magnitude: int = 3, k: int = 16,
+                                fmt: str = "mask16") -> CroppedTrainPipeline:
+    """The cropped-wire train pipeline; ``cfg`` supplies the grid, the op
+    list, the number of rounds and the magnitude."""
+    if cfg is not None:
+        target = cfg.model.dct_blocks
+        auglist = list(cfg.train.auglist)
+        num_ops = cfg.train.num_ops
+        magnitude = cfg.train.augstr
+    return CroppedTrainPipeline(target, list(auglist or []), num_ops, magnitude, k, fmt)

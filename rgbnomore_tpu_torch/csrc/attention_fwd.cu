@@ -1,4 +1,6 @@
-// Fused softmax attention, forward: O = softmax(scale * Q K^T) V, float32.
+// Fused softmax attention, forward: O = softmax(scale * Q K^T) V, float32,
+// and, when asked for, each query row's log-sum-exp of its scaled scores,
+// which the backward kernel (attention_bwd.cu) rebuilds P from.
 //
 // Replaces the TPU kernel rgbnomore_tpu/ops/pallas/attention.py:_fwd_kernel
 // (:39-48), which _attention_impl (:77-95) launches for fused_attention.
@@ -96,7 +98,7 @@ template <int NC>
 __global__ void __launch_bounds__(kThreads, 3)
     attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         int n, int d, int q_tiles, float scale) {
+                         float* __restrict__ lse, int n, int d, int q_tiles, float scale) {
   constexpr int kDp = 16 * NC;
   constexpr int kLq = kDp + 1;
   extern __shared__ float smem[];
@@ -202,7 +204,12 @@ __global__ void __launch_bounds__(kThreads, 3)
     }
   }
 
-  if (tid < kBQ) row_sum[tid] = l_run;
+  if (tid < kBQ) {
+    row_sum[tid] = l_run;
+    // log-sum-exp of the row's scaled scores, for the backward pass
+    if (lse != nullptr && q0 + tid < n)
+      lse[static_cast<size_t>(bh) * n + q0 + tid] = m_run + logf(l_run);
+  }
   __syncthreads();
   if (rows_live) {
 #pragma unroll
@@ -220,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, 3)
 }
 
 template <int NC>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse,
                    long long bh, int n, int d, float scale, cudaStream_t stream) {
   const int bytes = smem_floats<NC>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
@@ -230,32 +237,35 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   const long long blocks = bh * q_tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   attention_fwd_kernel<NC><<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
-      q, k, v, o, n, d, q_tiles, scale);
+      q, k, v, o, lse, n, d, q_tiles, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry for ctypes.  bh = B * H; pointers are device pointers to
-// contiguous (B, H, N, D) float32 tensors; stream is a cudaStream_t.
-// Returns a cudaError_t: 0 when the launch was accepted.
+// C entry for ctypes.  bh = B * H; q, k, v, o are device pointers to
+// contiguous (B, H, N, D) float32 tensors; lse is null, or a (B, H, N)
+// float32 tensor that gets each row's log-sum-exp; stream is a
+// cudaStream_t.  Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* o,
-                             long long bh, int n, int d, float scale, void* stream) {
+                             void* lse, long long bh, int n, int d, float scale,
+                             void* stream) {
   if (bh <= 0 || n <= 0 || d <= 0 || d > 128) return cudaErrorInvalidValue;
   const auto* fq = static_cast<const float*>(q);
   const auto* fk = static_cast<const float*>(k);
   const auto* fv = static_cast<const float*>(v);
   auto* fo = static_cast<float*>(o);
+  auto* fl = static_cast<float*>(lse);
   auto s = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16) {
-    case 1: return launch<1>(fq, fk, fv, fo, bh, n, d, scale, s);
-    case 2: return launch<2>(fq, fk, fv, fo, bh, n, d, scale, s);
-    case 3: return launch<3>(fq, fk, fv, fo, bh, n, d, scale, s);
-    case 4: return launch<4>(fq, fk, fv, fo, bh, n, d, scale, s);
-    case 5: return launch<5>(fq, fk, fv, fo, bh, n, d, scale, s);
-    case 6: return launch<6>(fq, fk, fv, fo, bh, n, d, scale, s);
-    case 7: return launch<7>(fq, fk, fv, fo, bh, n, d, scale, s);
-    default: return launch<8>(fq, fk, fv, fo, bh, n, d, scale, s);
+    case 1: return launch<1>(fq, fk, fv, fo, fl, bh, n, d, scale, s);
+    case 2: return launch<2>(fq, fk, fv, fo, fl, bh, n, d, scale, s);
+    case 3: return launch<3>(fq, fk, fv, fo, fl, bh, n, d, scale, s);
+    case 4: return launch<4>(fq, fk, fv, fo, fl, bh, n, d, scale, s);
+    case 5: return launch<5>(fq, fk, fv, fo, fl, bh, n, d, scale, s);
+    case 6: return launch<6>(fq, fk, fv, fo, fl, bh, n, d, scale, s);
+    case 7: return launch<7>(fq, fk, fv, fo, fl, bh, n, d, scale, s);
+    default: return launch<8>(fq, fk, fv, fo, fl, bh, n, d, scale, s);
   }
 }
 

@@ -1,2 +1,3 @@
-"""Device ops: the attention kernel's wrapper (``attention``), the kernel
+"""Device ops: the kernels' wrappers and plain versions (``attention``,
+``augpipe``), the DCT-domain ops (``photometric``, ``blocks``), the kernel
 build (``cuda_build``) and the numpy DCT basis matrices (``basis``)."""

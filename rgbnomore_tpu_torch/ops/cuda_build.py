@@ -29,7 +29,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel library name -> its source under csrc/
-KERNELS = {"attention_fwd": "attention_fwd.cu"}
+KERNELS = {
+    "attention_fwd": "attention_fwd.cu",
+    "attention_bwd": "attention_bwd.cu",
+    "augpipe": "augpipe.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,1 +1,1 @@
-"""Config, the eval step and the eval half of the trainer."""
+"""Config, mixup and loss, the optimizer and schedule, and the trainer."""

@@ -2,18 +2,25 @@
 
 ``attention_plain`` and the CPU path of ``fused_attention`` are held against
 ``rgbnomore_tpu.ops.pallas.attention.fused_attention`` in interpret mode, on
-the same numpy inputs, at the Pallas test's tolerance (atol 2e-5, rtol 1e-4,
-``tests/test_pallas_attention.py:21-30``).  The CUDA kernel itself runs only
-on a card: ``test_kernel_matches_plain_on_card`` (marker ``cuda``).
+the same numpy inputs, at the Pallas test's tolerances: atol 2e-5, rtol
+1e-4 forward (``tests/test_pallas_attention.py:21-30``); gradients through
+autograd against ``jax.grad`` through the Pallas VJP at atol 5e-4, rtol
+1e-3 (``:33-50``).  The CUDA kernels themselves run only on a card: the
+tests marked ``cuda``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from rgbnomore_tpu.ops.pallas.attention import fused_attention as pallas_attention
-from rgbnomore_tpu_torch.ops.attention import attention_plain, fused_attention
+from rgbnomore_tpu_torch.ops.attention import (
+    attention_bwd_plain,
+    attention_plain,
+    fused_attention,
+)
 
 SHAPES = [(196, 64), (49, 32), (128, 128)]
 SCALE = 1.0 / 192**0.5
@@ -39,6 +46,36 @@ def test_cpu_path_launches_no_kernel(rng):
     before = fused_attention.launches
     fused_attention(q, k, v, SCALE)
     assert fused_attention.launches == before
+
+
+def _grad_inputs(rng, b, h, n, d):
+    return [rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(4)]
+
+
+# the Pallas test's shape and scale, and a ViT-Ti head (scale 1/sqrt(192))
+@pytest.mark.parametrize("shape,scale", [((1, 2, 52, 24), 0.13), ((2, 3, 196, 64), SCALE)],
+                         ids=["pallas_test", "vitti_head"])
+def test_gradients_match_pallas_vjp(rng, shape, scale):
+    """Gradients of sum((attention - t)^2) through the port's autograd
+    Function against jax.grad through the Pallas kernel's custom VJP."""
+    q, k, v, t = _grad_inputs(rng, *shape)
+
+    def loss(q, k, v):
+        return jnp.sum((pallas_attention(q, k, v, scale, True) - jnp.asarray(t)) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    ((fused_attention(*leaves, scale) - torch.from_numpy(t)) ** 2).sum().backward()
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=5e-4, rtol=1e-3)
+
+
+def test_cpu_backward_is_autograd_through_plain(rng):
+    q, k, v, g = (torch.from_numpy(a) for a in _grad_inputs(rng, 2, 3, 20, 8))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fused_attention(*leaves, SCALE).backward(g)
+    for leaf, w in zip(leaves, attention_bwd_plain(q, k, v, g, SCALE)):
+        assert torch.equal(leaf.grad, w)
 
 
 @pytest.mark.parametrize("bad, error", [
@@ -68,3 +105,22 @@ def test_kernel_matches_plain_on_card(b, n, d):
     torch.cuda.synchronize()
     assert fused_attention.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [(256, 196, 64), (1, 52, 24), (2, 49, 32), (2, 128, 128)])
+def test_kernel_gradients_match_plain_on_card(b, n, d):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    from rgbnomore_tpu_torch.ops.attention import fused_attention_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, g = (torch.randn((b, 3, n, d), generator=gen, device="cuda") for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fused_attention_bwd.launches
+    fused_attention(*leaves, SCALE).backward(g)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd.launches == before + 1
+    for leaf, w in zip(leaves, attention_bwd_plain(q, k, v, g, SCALE)):
+        np.testing.assert_allclose(leaf.grad.cpu().numpy(), w.cpu().numpy(), atol=5e-4,
+                                   rtol=1e-3)

@@ -7,6 +7,8 @@
 - ``Trainer.evaluate`` and ``evaluate_model`` give the JAX Trainer's eval
   sums with the same parameters: count and correct exactly, loss_sum to
   rtol 1e-5.
+- ``make_loaders``'s train loader (K=16 mask16, random-resized-crop boxes,
+  shuffled, the last partial batch dropped) writes the JAX one's rows.
 - ``chip_smoke.write_rows``, which feeds the slice on the card, writes rows
   the port's pipeline unpacks to the planes it was given.
 """
@@ -135,6 +137,22 @@ def test_trainer_evaluate_matches_jax(corpus, jax_eval):
     trainer.model.load_state_dict(flax_to_state_dict(params))
     loaders = make_loaders(cfg, corpus, corpus)
     _assert_same_sums(trainer.evaluate(loaders["test"]), want)
+
+
+def test_train_loader_matches_jax(corpus):
+    cfg_jax, cfg = _eval_cfg(jax_generate_config), _eval_cfg(generate_config)
+    cfg_jax.train.batch_size = cfg.train.batch_size = 4
+    want = jax_make_loaders(cfg_jax, corpus, corpus, global_batch=4, transfer="cropped",
+                            num_threads=2)["train"]
+    got = make_loaders(cfg, corpus, corpus, num_threads=2)["train"]
+    assert (got.k, got.fmt, got.mode, got.shuffle, got.drop_last) == (
+        16, "mask16", "train", True, True)
+    for epoch in (0, 1):
+        want.set_epoch(epoch)
+        got.set_epoch(epoch)
+        w_batches, g_batches = _batches(want), _batches(got)
+        assert len(g_batches) == len(w_batches) == 1  # 6 images, batches of 4, drop_last
+        np.testing.assert_array_equal(g_batches[0]["packed"], w_batches[0]["packed"])
 
 
 def test_evaluate_model_matches_jax(corpus, jax_eval, tmp_path):

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,9 +58,12 @@ def _cfg():
     lambda: build_model(_cfg()),
     lambda: example_inputs(_cfg()),
     lambda: Trainer(_cfg()),
+    lambda: Trainer(_cfg()).create_state(1),
+    lambda: Trainer(_cfg()).train_step(torch.zeros((2, 8), dtype=torch.uint8)),
+    lambda: Trainer(_cfg()).train_pipe,
     lambda: evaluate_model(_cfg(), "unused.csv", "unused.csv"),
 ], ids=["resolve_device", "resolve_cuda", "build_model", "example_inputs", "Trainer",
-        "evaluate_model"])
+        "create_state", "train_step", "train_pipe", "evaluate_model"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()
@@ -76,3 +80,22 @@ def test_cpu_runs_when_asked(no_cuda):
 def test_unknown_device_raises():
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_cpu_trains_when_asked(no_cuda, rng):
+    """One full-width train step of a one-block ViT-Ti on the CPU: the
+    pipeline takes its plain path on the CPU buffer, the loss is finite and
+    the parameters move."""
+    import chip_smoke
+    from torch_port_support import settle_inspect_module_walk
+
+    settle_inspect_module_walk()
+    cfg = _cfg()
+    trainer = Trainer(cfg, device="cpu")
+    trainer.create_state(steps_per_epoch=10)
+    y, c = chip_smoke.synthetic_planes(rng, 2, cfg.model.dct_blocks)
+    rows = chip_smoke.write_rows(y, c, np.array([3, 999], np.int32), 16)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    loss = trainer.train_step(trainer.put_batch({"packed": rows})["packed"])
+    assert loss.device.type == "cpu" and np.isfinite(float(loss)) and trainer.step == 1
+    assert all(not torch.equal(a, p) for a, p in zip(before, trainer.model.parameters()))
