@@ -6,39 +6,59 @@ Run from the root of a checkout, on a machine with a card:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from ``rgbnomore_tpu_torch/csrc/``
-with ``nvcc`` for ``sm_90a``, holds each kernel against its plain PyTorch
-version on the card, then drives the port's two paths at full ViT-Ti width:
-evaluation over the cropped DCT wire (K=48 ``mask16`` rows, batch 256)
-through ``Trainer.evaluate``, and the train step over the K=16 train wire
-(batch 256) through ``Trainer.train_step``; it checks that every kernel of
-each path was launched and that what comes out is right.
+with ``nvcc`` for ``sm_90a`` and the host JPEG codec with ``g++``, holds each
+kernel against its plain PyTorch version on the card, then drives the port's
+paths at full width: ViT-Ti evaluation over the cropped DCT wire (K=48
+``mask16`` rows, batch 256) through ``Trainer.evaluate`` and its train step
+over the K=16 wire (batch 256) through ``Trainer.train_step``; then SwinV2-T
+(float32) the same two ways (eval batch 256, train batch 128, 32x32 blocks)
+and JPEG files through the host codec and ``DctCroppedLoader`` into the
+SwinV2 eval.  It checks that every kernel of each path was launched and
+that what comes out is right.
 
 Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
-  2. build: compile the kernels, one ``nvcc`` per source, started together;
-  3. kernels: each kernel (attention forward, attention backward, the fused
-     flip + RandAugment + ToRange stage) against its plain version at the
-     main path's shapes and the JAX package's test shapes, then timed with
-     CUDA events beside its plain version, its bound and, where one exists,
-     a PyTorch library call;
-  4. slice: 512 images through ``Trainer.evaluate`` with launch counts; the
-     pipeline on the card against the CPU, logits of the kernel path against
-     the plain path and against the CPU;
+  2. build: compile the kernels, one ``nvcc`` per source, started together,
+     and the host codec beside them;
+  3. kernels: each kernel (attention forward and backward, the fused flip +
+     RandAugment + ToRange stage, window attention forward and backward)
+     against its plain version at the main paths' shapes and the JAX
+     package's test shapes, then timed with CUDA events beside its plain
+     version, its bound and, where one exists, a PyTorch library call;
+  4. slice: 512 images through the ViT-Ti ``Trainer.evaluate`` with launch
+     counts; the pipeline on the card against the CPU, logits of the kernel
+     path against the plain path and against the CPU;
   5. breakdown: the time of each stage of one eval step, and of each kernel
      of one forward (``torch.profiler``);
-  6. train: 1 + 20 steps of ``Trainer.train_step`` on one repeated batch of
-     256 images (warmup 1, lr 3e-3) with launch counts (1 augmentation, 12
-     attention forward and 12 attention backward launches per step), finite
-     losses and a last loss below the first; one step's loss and gradients
-     on the card against the CPU at 8 images; the time of each stage of a
-     step and of each kernel of one step.
+  6. train: 1 + 20 steps of the ViT-Ti ``Trainer.train_step`` on one
+     repeated batch of 256 images (warmup 1, lr 3e-3) with launch counts (1
+     augmentation, 12 attention forward and 12 attention backward launches
+     per step), finite losses and a last loss below the first; one step's
+     loss and gradients on the card against the CPU at 8 images; the time of
+     each stage of a step and of each kernel of one step;
+  7. swin eval: 512 images of 32x32 blocks through the SwinV2-T
+     ``Trainer.evaluate`` (12 window-attention launches per batch); logits
+     of the kernel path against the plain path and the card against the
+     CPU; img/s and the forward's kernels;
+  8. codec: 256 JPEGs written by the port's codec through
+     ``DctCroppedLoader(mode="full")``: decode held to a closed form, host
+     decode img/s per thread count, one batch through the SwinV2 eval;
+  9. swin train: 1 + 10 steps of the SwinV2-T ``Trainer.train_step`` at
+     batch 128 with drop path (1 augmentation, 12 window forward and 24
+     window backward launches per step: each backward is a per-chunk pass
+     and the reduction of the bias gradient), finite falling losses, the
+     card against the CPU at 4 images, the stages, the kernels and the peak
+     memory.
 
-The host JPEG codec needs libjpeg's headers, which the card machine does not
-have, so both paths are fed rows that this script writes itself in the
-``mask16`` layout of ``DctCroppedLoader`` from seeded synthetic coefficient
-planes (``write_rows``; ``tests/test_torch_port_eval.py`` holds it against
-the port's pipeline).  The last two lines of standard output are the kernel
-report and ``{"ok": true, "device": {...}}``.
+Every comparison of a SwinV2 first sets the scales of its blocks'
+res-post norms, which start at 0 (each block then is the identity and no
+attention reaches the logits), to random values.  The model paths are fed
+rows that this script writes itself in the ``mask16`` layout of
+``DctCroppedLoader`` from seeded synthetic coefficient planes
+(``write_rows``; ``tests/test_torch_port_eval.py`` holds it against the
+port's pipeline); the codec phase reads real JPEG files.  The last two lines
+of standard output are the kernel report and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -49,6 +69,8 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -85,6 +107,25 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# SwinV2-T (generate_config("swinv2", "dct"), float32): 32x32 blocks (256
+# px), patch 4 -> 64x64 tokens, windows of 8x8 = 64 tokens, head dim 32
+SWIN_GRID = 32
+SWIN_EVAL_BATCH = 256
+SWIN_TRAIN_BATCH = 128
+SWIN_TRAIN_STEPS = 10  # counted steps of the swin train phase, after a warm-up
+SWIN_CPU_BATCH = 4
+# (windows per image, heads, shifted-block patterns) of the four stages; the
+# last stage's 8x8 map is one window, so neither of its blocks shifts
+SWIN_STAGES = [(64, 3, 64), (16, 6, 16), (4, 12, 4), (1, 24, None)]
+SWIN_BLOCKS_PER_STAGE = (2, 2, 6, 2)
+WIN_N, WIN_D = 64, 32
+# the Pallas window tests' tolerances (tests/test_pallas_attention.py:97, :120)
+WIN_TOL = dict(atol=2e-5, rtol=1e-5)
+# (bw, h, n, d, P) of the JAX tests (bw 4 / 8 / 12, two pair patterns = four
+# of the port's) checked beside the main path's
+WIN_JAX_CASES = [(4, 2, 16, 8, 4), (8, 2, 16, 8, 4), (12, 2, 16, 8, 4)]
+N_CODEC = 256  # JPEG files of the codec phase
+N_CELL_IMAGES = 16  # of them, constant 16x16 colour cells at quality 100
 
 
 def check(ok: bool, msg: str) -> None:
@@ -204,12 +245,22 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    """The kernels (one ``nvcc`` per source, all at once) and, beside them,
+    the host codec against the port's own libjpeg headers."""
+    from rgbnomore_tpu_torch.native import build as codec_build
     from rgbnomore_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
+    codec = {}
+    worker = threading.Thread(target=lambda: codec.update(path=codec_build.build()))
+    worker.start()
     paths = cuda_build.build()
-    print(f"build: {len(paths)} kernel libraries in {time.perf_counter() - t0:.1f} s "
-          f"(host codec not built: it needs libjpeg headers)", flush=True)
+    kernels_s = time.perf_counter() - t0
+    worker.join()
+    check("path" in codec, "the host codec did not build")
+    print(f"build: {len(paths)} kernel libraries in {kernels_s:.1f} s; host codec "
+          f"{codec['path'].name} linked with {codec_build.jpeg_link_args()}, both in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, path in paths.items():
         # one "template args: registers, spill bytes" entry per compiled kernel
         entries, args = [], "?"
@@ -319,8 +370,9 @@ def kernel_attention_bwd(gen) -> dict:
 def kernel_augpipe() -> dict:
     """The fused flip + RandAugment + ToRange kernel against its plain
     version: each of the 16 ops forced with the explicit policy and flip of
-    ``tests/test_pallas_augpipe.py:56-76`` at its shape, and policies drawn
-    from both presets at the main path's (256, 28x28); then timed there."""
+    ``tests/test_pallas_augpipe.py:56-76`` at its shape, policies drawn
+    from AUGLIST_DCT at SwinV2-T's (128, 32x32) and from both presets at the
+    ViT-Ti's (256, 28x28); then timed at the ViT-Ti's and SwinV2-T's."""
     import torch
 
     from rgbnomore_tpu_torch.augment.randaugment import RandAugmentDCT
@@ -359,16 +411,24 @@ def kernel_augpipe() -> dict:
     print(f"kernels: fused_flip_aug_range, each of {len(SUPPORTED_OPS)} ops forced at "
           f"(3, 12x12): max abs err {max_err:.3e}", flush=True)
     gen = torch.Generator().manual_seed(SEED)
-    for tag, auglist in (("AUGLIST_DCT", AUGLIST_DCT), ("AUGLIST_DCT_VITTI", AUGLIST_DCT_VITTI)):
-        aug = RandAugmentDCT(ops_list=list(auglist), num_ops=2, magnitude=3, grid=GRID)
-        policy = aug.draw_policy(gen, BATCH, GRID, GRID)
-        flip = torch.rand(BATCH, generator=gen) < 0.5
-        y, c = coeffs(BATCH, GRID)
+    for tag, auglist, batch, grid in (
+            ("AUGLIST_DCT", AUGLIST_DCT, SWIN_TRAIN_BATCH, SWIN_GRID),
+            ("AUGLIST_DCT", AUGLIST_DCT, BATCH, GRID),
+            ("AUGLIST_DCT_VITTI", AUGLIST_DCT_VITTI, BATCH, GRID)):
+        aug = RandAugmentDCT(ops_list=list(auglist), num_ops=2, magnitude=3, grid=grid)
+        policy = aug.draw_policy(gen, batch, grid, grid)
+        flip = torch.rand(batch, generator=gen) < 0.5
+        y, c = coeffs(batch, grid)
         kw = dict(ops_list=list(auglist), num_ops=2, magnitude=3)
         err = compare(tag, y, c, policy, flip, **kw)
         max_err = max(max_err, err)
-        print(f"kernels: fused_flip_aug_range {tag} drawn at ({BATCH}, {GRID}x{GRID}): max abs "
+        print(f"kernels: fused_flip_aug_range {tag} drawn at ({batch}, {grid}x{grid}): max abs "
               f"err {err:.3e}", flush=True)
+        if grid == SWIN_GRID:
+            policy_d, flip_d = tuple(p.cuda() for p in policy), flip.cuda()
+            swin_ms = time_ms(lambda: fused_flip_aug_range(y, c, policy_d, flip_d, **kw))
+            print(f"kernels: fused_flip_aug_range ({batch}, {grid}x{grid}) {swin_ms:.4f} ms",
+                  flush=True)
     # timed with the last (the ViT-Ti) policy already on the card
     policy, flip = tuple(p.cuda() for p in policy), flip.cuda()
     ms = time_ms(lambda: fused_flip_aug_range(y, c, policy, flip, **kw))
@@ -391,6 +451,139 @@ def kernel_augpipe() -> dict:
     }
 
 
+def window_cases(batch: int) -> list[tuple]:
+    """(bw, h, n, d, P) of SwinV2-T's window attention at ``batch``: each
+    stage unshifted (P = 1) and, where it shifts, shifted (P = nW)."""
+    cases = []
+    for wins, heads, shifted in SWIN_STAGES:
+        cases.append((batch * wins, heads, WIN_N, WIN_D, 1))
+        if shifted:
+            cases.append((batch * wins, heads, WIN_N, WIN_D, shifted))
+    return cases
+
+
+def window_inputs(gen, case):
+    """q (cosine-normalized, times SwinV2's initial logit scale 10), k
+    (normalized), v, the output gradient and a bias with a shift-mask-like
+    -100 on about a quarter of each pattern's entries."""
+    import torch
+
+    bw, h, n, d, p = case
+    q, k, v, g = (torch.randn((bw, h, n, d), generator=gen, device="cuda") for _ in range(4))
+    q = 10.0 * q / q.norm(dim=-1, keepdim=True)
+    k = k / k.norm(dim=-1, keepdim=True)
+    bias = 16.0 * torch.rand((p, h, n, n), generator=gen, device="cuda")
+    if p > 1:
+        bias = bias - 100.0 * (torch.rand((p, 1, n, n), generator=gen, device="cuda") < 0.25)
+    return q.contiguous(), k.contiguous(), v, g, bias.contiguous()
+
+
+def window_bounds_ms(case) -> tuple[tuple[float, str], tuple[float, str]]:
+    """((forward bound ms, by), (backward bound ms, by)) on the card: q, k, v
+    (and dO) read once, o (dq, dk, dv) written once, the bias read (and its
+    gradient written) once, in float32; against 4 N^2 D (10 N^2 D) float32
+    FLOP per (window, head)."""
+    bw, h, n, d, p = case
+    qkv = bw * h * n * d * 4
+    bias = p * h * n * n * 4
+    out = []
+    for flop, nbytes in ((4 * n * n * d * bw * h, 4 * qkv + bias),
+                         (10 * n * n * d * bw * h, 7 * qkv + 2 * bias)):
+        t_ops, t_bytes = flop / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+        out.append((max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes > t_ops else "operations"))
+    return out[0], out[1]
+
+
+def kernel_window_attention(gen) -> tuple[dict, dict]:
+    """Kernels #3 and #4 against their plain versions at every SwinV2-T
+    stage shape of the train batch (unshifted and shifted) and the JAX
+    tests' shapes, then timed at each stage beside the plain versions, the
+    bounds and SDPA (``attn_mask`` = the bias expanded to every window,
+    ``scale=1``; its backward with the bias requiring grad).  The report's
+    numbers are stage 1, unshifted, the largest launch."""
+    import torch
+    import torch.nn.functional as F
+
+    from rgbnomore_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_bwd,
+        window_attention_bwd_plain,
+        window_attention_plain,
+    )
+
+    fwd_err = bwd_err = 0.0
+    for case in window_cases(SWIN_TRAIN_BATCH) + WIN_JAX_CASES:
+        q, k, v, g, bias = window_inputs(gen, case)
+        with torch.inference_mode():
+            got = window_attention(q, k, v, bias)
+            want = window_attention_plain(q, k, v, bias)
+        grads = window_attention_bwd(q, k, v, bias, g)
+        again = window_attention_bwd(q, k, v, bias, g)
+        wgrads = window_attention_bwd_plain(q, k, v, bias, g)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        fwd_err = max(fwd_err, err)
+        check(torch.allclose(got, want, **WIN_TOL),
+              f"window_attention {case}: max abs err {err} beyond {WIN_TOL}")
+        errs = []
+        for tag, a, b, w in zip("qkvb", grads, again, wgrads):
+            check(torch.equal(a, b), f"window_attention_bwd {case} d{tag} differs between runs")
+            errs.append(float((a - w).abs().max()))
+            check(torch.allclose(a, w, **GRAD_TOL),
+                  f"window_attention_bwd {case} d{tag}: max abs err {errs[-1]} beyond {GRAD_TOL}")
+        bwd_err = max(bwd_err, *errs)
+        print(f"kernels: window_attention {case} fwd max abs err {err:.3e}, bwd dq/dk/dv/db "
+              f"{'/'.join(f'{e:.1e}' for e in errs)}", flush=True)
+        del q, k, v, g, bias, got, want, grads, again, wgrads
+
+    rows = []
+    for case in window_cases(SWIN_TRAIN_BATCH):
+        if case[4] != 1:
+            continue
+        bw, h, n, d, p = case
+        q, k, v, g, bias = window_inputs(gen, case)
+        with torch.inference_mode():
+            ms = time_ms(lambda: window_attention(q, k, v, bias))
+            plain_ms = time_ms(lambda: window_attention_plain(q, k, v, bias), reps=10, warmup=2)
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias.expand(bw, h, n, n), scale=1.0))
+        bwd_ms = time_ms(lambda: window_attention_bwd(q, k, v, bias, g))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+        out = window_attention_plain(*leaves)
+        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+                               reps=10, warmup=2)
+        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3].expand(bw, h, n, n),
+                                             scale=1.0)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+        (fb, fby), (bb, bby) = window_bounds_ms(case)
+        rows.append((case, ms, plain_ms, sdpa_ms, fb, fby, bwd_ms, plain_bwd_ms, sdpa_bwd_ms,
+                     bb, bby))
+        print(f"kernels: window_attention {case}: fwd {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
+              f"{sdpa_ms:.4f}, bound {fb:.4f} {fby}); bwd {bwd_ms:.4f} ms (plain "
+              f"{plain_bwd_ms:.4f}, sdpa {sdpa_bwd_ms:.4f}, bound {bb:.4f} {bby})", flush=True)
+        del q, k, v, g, bias, leaves, out
+    # one train step's 12 forward and 12 backward launches, each shifted
+    # block timed as its stage's unshifted one
+    step = [sum(n_blocks * r[i] for n_blocks, r in zip(SWIN_BLOCKS_PER_STAGE, rows))
+            for i in (1, 2, 3, 4, 6, 7, 8, 9)]
+    print(f"kernels: window_attention per train step of {SWIN_TRAIN_BATCH} (12 launches): fwd "
+          f"{step[0]:.4f} ms (plain {step[1]:.4f}, sdpa {step[2]:.4f}, bound {step[3]:.4f}); bwd "
+          f"{step[4]:.4f} ms (plain {step[5]:.4f}, sdpa {step[6]:.4f}, bound {step[7]:.4f})",
+          flush=True)
+    _, ms, plain_ms, sdpa_ms, fb, fby, bwd_ms, plain_bwd_ms, sdpa_bwd_ms, bb, bby = rows[0]
+    fwd = {"name": "window_attention", "route": "cuda",
+           "source": "rgbnomore_tpu_torch/csrc/window_attention_fwd.cu",
+           "replaces": "rgbnomore_tpu/ops/pallas/attention.py:156",
+           "launches": None, "max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": fb, "bound_by": fby, "library_ms": sdpa_ms}
+    bwd = {"name": "window_attention_bwd", "route": "cuda",
+           "source": "rgbnomore_tpu_torch/csrc/window_attention_bwd.cu",
+           "replaces": "rgbnomore_tpu/ops/pallas/attention.py:170",
+           "launches": None, "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+           "bound_ms": bb, "bound_by": bby, "library_ms": sdpa_bwd_ms}
+    return fwd, bwd
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -398,6 +591,7 @@ def phase_kernels() -> dict:
     report = {"fused_attention": kernel_attention_fwd(gen)}
     report["fused_attention_bwd"] = kernel_attention_bwd(gen)
     report["fused_flip_aug_range"] = kernel_augpipe()
+    report["window_attention"], report["window_attention_bwd"] = kernel_window_attention(gen)
     return report
 
 
@@ -480,7 +674,7 @@ def phase_slice(report: dict):
     return trainer, batches[0]
 
 
-def phase_breakdown(trainer, batch: dict) -> None:
+def phase_breakdown(trainer, batch: dict, tag: str = "breakdown") -> None:
     """Where one eval step's time goes on the card: CUDA-event medians of
     each stage, and the device time of one forward by kernel, from
     ``torch.profiler`` (reported as not measured where it sees none)."""
@@ -489,7 +683,8 @@ def phase_breakdown(trainer, batch: dict) -> None:
 
     from rgbnomore_tpu_torch.train.steps import eval_sums
 
-    model = trainer.model
+    model = trainer.model.eval()
+    n = batch["packed"].shape[0]
     with torch.inference_mode():
         upload_ms = time_ms(lambda: trainer.put_batch(batch), reps=10, warmup=2)
         packed = trainer.put_batch(batch)["packed"]
@@ -498,20 +693,20 @@ def phase_breakdown(trainer, batch: dict) -> None:
         fwd_ms = time_ms(lambda: model(y, c), reps=20, warmup=3)
         logits = model(y, c)
         sums_ms = time_ms(lambda: eval_sums(logits, labels, weights), reps=10, warmup=2)
-        print(f"breakdown: per batch of {BATCH}: upload (pin + copy) {upload_ms:.3f} ms, "
+        print(f"{tag}: per batch of {n}: upload (pin + copy) {upload_ms:.3f} ms, "
               f"pipeline {pipe_ms:.3f} ms, forward {fwd_ms:.3f} ms "
-              f"({BATCH / fwd_ms * 1e3:.1f} img/s), sums {sums_ms:.3f} ms", flush=True)
+              f"({n / fwd_ms * 1e3:.1f} img/s), sums {sums_ms:.3f} ms", flush=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             model(y, c)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in events)
     if not total:
-        print("breakdown: torch.profiler saw no device time, kernels not measured")
+        print(f"{tag}: torch.profiler saw no device time, kernels not measured")
         return
-    print(f"breakdown: forward device time {total / 1e3:.3f} ms in {len(events)} kernels")
+    print(f"{tag}: forward device time {total / 1e3:.3f} ms in {len(events)} kernels")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
-        print(f"breakdown: {e.self_device_time_total / 1e3:8.3f} ms "
+        print(f"{tag}: {e.self_device_time_total / 1e3:8.3f} ms "
               f"{100 * e.self_device_time_total / total:5.1f}% x{e.count:<4d} {e.key[:80]}")
 
 
@@ -569,50 +764,62 @@ def phase_train(report: dict):
 
 
 def phase_train_vs_cpu(rows: np.ndarray) -> None:
-    """One step's loss and gradients on the card (kernels) against the CPU
-    (plain versions), from the same seeded parameters, rows and draws, at
-    full width on 8 images.  Tolerance: float32 sums in other orders (cuBLAS
-    against the CPU's GEMMs, the kernels' tiles against einsum) through 12
-    blocks and back; a parameter is held to GRAD_RTOL of the largest
-    gradient entry in the model, so the key third of each qkv bias, whose
-    gradient is zero in exact arithmetic and rounding noise here, is held
-    to that noise's scale."""
-    import torch
-
+    """One ViT-Ti step's loss and gradients on the card (kernels) against
+    the CPU (plain versions), from the same seeded parameters, rows and
+    draws, at full width on 8 images."""
     from rgbnomore_tpu_torch.train.config import generate_config
-    from rgbnomore_tpu_torch.train.loop import Trainer
 
     cfg = generate_config("vitti", "dct", modelver=1, batchsize=CPU_GRAD_BATCH, seed=SEED)
+    step_card_vs_cpu("train", cfg, rows[:CPU_GRAD_BATCH])
+
+
+def step_card_vs_cpu(tag: str, cfg, rows: np.ndarray, prepare=None) -> None:
+    """One train step's loss and gradients on the card (kernels) against the
+    CPU (plain versions), from the same seeded parameters (then ``prepare``
+    on each model), rows and draws.  Tolerance: float32 sums in other orders
+    (cuBLAS against the CPU's GEMMs, the kernels' tiles against einsum)
+    through every block and back; a parameter is held to GRAD_RTOL of the
+    largest gradient entry in the model, so an entry whose gradient is zero
+    in exact arithmetic and rounding noise here (the key third of each ViT
+    qkv bias) is held to that noise's scale."""
+    import torch
+
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    n = rows.shape[0]
     card, cpu = Trainer(cfg, device="cuda"), Trainer(cfg, device="cpu")
-    rows = rows[:CPU_GRAD_BATCH]
-    draws = cpu.draw(CPU_GRAD_BATCH)
+    if prepare is not None:
+        prepare(card.model)
+        prepare(cpu.model)
+    draws = cpu.draw(n)
     loss_card = float(card.compute_grads(card.put_batch({"packed": rows})["packed"], draws))
     loss_cpu = float(cpu.compute_grads(torch.from_numpy(rows), draws))
-    grads_card = {n: p.grad.cpu() for n, p in card.model.named_parameters()}
-    grads_cpu = {n: p.grad for n, p in cpu.model.named_parameters()}
+    grads_card = {k: p.grad.cpu() for k, p in card.model.named_parameters()}
+    grads_cpu = {k: p.grad for k, p in cpu.model.named_parameters()}
     norm_card = float(torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(g) for g in grads_card.values()])))
     norm_cpu = float(torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(g) for g in grads_cpu.values()])))
     gmax = max(float(g.abs().max()) for g in grads_cpu.values())
-    worst = max(((float((grads_card[n] - g).abs().max()) / gmax, n)
-                 for n, g in grads_cpu.items()))
-    rel = {n: float((grads_card[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
-           for n, g in grads_cpu.items()}
-    worst_own = max((v, n) for n, v in rel.items() if not n.endswith("qkv.bias"))
-    print(f"train: card vs CPU at {CPU_GRAD_BATCH} images: loss {loss_card:.7f} vs "
+    worst = max(((float((grads_card[k] - g).abs().max()) / gmax, k)
+                 for k, g in grads_cpu.items()))
+    rel = {k: float((grads_card[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+           for k, g in grads_cpu.items()}
+    worst_own = max((v, k) for k, v in rel.items() if not k.endswith("qkv.bias"))
+    print(f"{tag}: card vs CPU at {n} images: loss {loss_card:.7f} vs "
           f"{loss_cpu:.7f}, grad norm {norm_card:.7f} vs {norm_cpu:.7f}, worst gradient "
           f"err {worst[0]:.3e} of the largest entry ({worst[1]}), worst relative to its own "
           f"largest entry {worst_own[0]:.3e} ({worst_own[1]})", flush=True)
     check(abs(loss_card - loss_cpu) <= LOSS_RTOL * abs(loss_cpu),
-          f"loss card {loss_card} vs CPU {loss_cpu} beyond rtol {LOSS_RTOL}")
+          f"{tag}: loss card {loss_card} vs CPU {loss_cpu} beyond rtol {LOSS_RTOL}")
     check(abs(norm_card - norm_cpu) <= GRAD_RTOL * norm_cpu,
-          f"grad norm card {norm_card} vs CPU {norm_cpu} beyond rtol {GRAD_RTOL}")
+          f"{tag}: grad norm card {norm_card} vs CPU {norm_cpu} beyond rtol {GRAD_RTOL}")
     check(worst[0] <= GRAD_RTOL,
-          f"gradient of {worst[1]}: err {worst[0]} of the largest entry, beyond {GRAD_RTOL}")
+          f"{tag}: gradient of {worst[1]}: err {worst[0]} of the largest entry, beyond "
+          f"{GRAD_RTOL}")
 
 
-def phase_train_breakdown(trainer, packed) -> None:
+def phase_train_breakdown(trainer, packed, tag: str = "breakdown") -> None:
     """Where one train step's time goes on the card: CUDA-event medians of
     its stages (as ``Trainer.train_step`` runs them), and the device time of
     one step by kernel from ``torch.profiler``."""
@@ -624,14 +831,17 @@ def phase_train_breakdown(trainer, packed) -> None:
     stages = ("pipeline", "forward", "backward", "optimizer")
     times = {s: [] for s in stages}
     classes = trainer.cfg.model.classes
+    batch = packed.shape[0]
+    trainer.model.train()
     for _ in range(10):
-        draws = trainer.draw(BATCH)
+        draws = trainer.draw(batch)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
         y, c, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy)
+        extra = {} if draws.drop_keep is None else {"drop_keep": draws.drop_keep.cuda()}
         ev[1].record()
         (y, c), targets = mixup_batch((y, c), labels, classes, draws.lam)
-        loss = softmax_cross_entropy(trainer.model(y, c), targets)
+        loss = softmax_cross_entropy(trainer.model(y, c, **extra), targets)
         ev[2].record()
         trainer.model.zero_grad(set_to_none=True)
         loss.backward()
@@ -643,21 +853,254 @@ def phase_train_breakdown(trainer, packed) -> None:
             times[s].append(ev[i].elapsed_time(ev[i + 1]))
     med = {s: statistics.median(v) for s, v in times.items()}
     total = sum(med.values())
-    print("breakdown: train step of " + str(BATCH) + ": " + ", ".join(
+    print(f"{tag}: train step of {batch}: " + ", ".join(
         f"{s} {med[s]:.3f} ms" for s in stages) + f"; sum {total:.3f} ms "
-        f"({BATCH / total * 1e3:.1f} img/s)", flush=True)
+        f"({batch / total * 1e3:.1f} img/s)", flush=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.train_step(packed)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     dev_total = sum(e.self_device_time_total for e in events)
     if not dev_total:
-        print("breakdown: torch.profiler saw no device time, kernels not measured")
+        print(f"{tag}: torch.profiler saw no device time, kernels not measured")
         return
-    print(f"breakdown: train step device time {dev_total / 1e3:.3f} ms in {len(events)} kernels")
+    print(f"{tag}: train step device time {dev_total / 1e3:.3f} ms in {len(events)} kernels")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]:
-        print(f"breakdown: {e.self_device_time_total / 1e3:8.3f} ms "
+        print(f"{tag}: {e.self_device_time_total / 1e3:8.3f} ms "
               f"{100 * e.self_device_time_total / dev_total:5.1f}% x{e.count:<4d} {e.key[:80]}")
+
+
+def swin_config(batch: int, **kw):
+    """SwinV2-T as the repo presets it (``generate_config("swinv2", "dct")``:
+    embed 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24), window 8, drop path
+    0.2, 32x32 blocks, 1000 classes), in float32: the preset's AMP is the
+    port's next slice."""
+    from rgbnomore_tpu_torch.train.config import generate_config
+
+    cfg = generate_config("swinv2", "dct", batchsize=batch, seed=SEED, **kw)
+    cfg.train.amp = False
+    return cfg
+
+
+def perturb_norms(model, seed: int = SEED) -> None:
+    """Set the scales of every SwinV2 block's norm1 and norm2 to U(0.5, 1.5)
+    and their biases to N(0, 0.1^2), from a seeded generator: at their init
+    of 0 every block is the identity and no attention reaches the logits."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.endswith((".norm1", ".norm2")):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+
+
+def phase_swin_eval(report: dict):
+    """512 images of 32x32 blocks on the K=48 wire through the SwinV2-T
+    ``Trainer.evaluate`` (norms perturbed), 12 window-attention launches per
+    batch; logits of the kernel path against the plain path, and the card
+    against the CPU at 4 images."""
+    import copy
+
+    import torch
+
+    from rgbnomore_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_plain,
+    )
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    cfg = swin_config(SWIN_EVAL_BATCH)
+    trainer = Trainer(cfg, device="cuda")
+    perturb_norms(trainer.model)
+    check(trainer.packed_k_eval == K_EVAL and trainer.eval_fmt == "mask16",
+          f"swin eval wire is K={trainer.packed_k_eval} {trainer.eval_fmt}")
+    rng = np.random.default_rng(SEED + 2)
+    y, c = synthetic_planes(rng, N_IMAGES, SWIN_GRID)
+    labels = (np.arange(N_IMAGES) % cfg.model.classes).astype(np.int32)
+    rows = write_rows(y, c, labels, K_EVAL)
+    batches = [{"packed": rows[i:i + SWIN_EVAL_BATCH]}
+               for i in range(0, N_IMAGES, SWIN_EVAL_BATCH)]
+
+    trainer.evaluate(batches)  # warm-up
+    window_attention.launches = 0
+    t0 = time.perf_counter()
+    res = trainer.evaluate(batches)
+    eval_s = time.perf_counter() - t0
+    launches = window_attention.launches
+    report["window_attention"]["launches"] = launches
+    check(res["count"] == N_IMAGES, f"swin eval counted {res['count']} images")
+    check(math.isfinite(res["loss"]) and math.isfinite(res["accuracy"]),
+          f"swin eval sums not finite: {res}")
+    check(launches == 12 * len(batches),
+          f"window_attention launched {launches} times, want {12 * len(batches)}")
+    print(f"swin eval: {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + forward, "
+          f"rows premade) | window_attention launches {launches}", flush=True)
+
+    model = trainer.model
+    cpu_model = copy.deepcopy(model).cpu()
+    attns = [b.attn for b in model.blocks()]
+    with torch.inference_mode():
+        yd, cd, _, _ = trainer.eval_pipe(trainer.put_batch(batches[0])["packed"])
+        got = model(yd, cd)
+        for a in attns:
+            a.attention = window_attention_plain
+        want = model(yd, cd)
+        for a in attns:
+            a.attention = window_attention
+        cpu_logits = cpu_model(yd[:SWIN_CPU_BATCH].cpu(), cd[:SWIN_CPU_BATCH].cpu())
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **LOGIT_TOL),
+          f"swin logits kernel vs plain: max abs err {err} beyond {LOGIT_TOL}")
+    cpu_err = float((got[:SWIN_CPU_BATCH].cpu() - cpu_logits).abs().max())
+    check(torch.allclose(got[:SWIN_CPU_BATCH].cpu(), cpu_logits, **LOGIT_TOL),
+          f"swin logits card vs CPU: max abs err {cpu_err} beyond {LOGIT_TOL}")
+    check(bool(torch.isfinite(got).all()) and got.shape == (SWIN_EVAL_BATCH, cfg.model.classes),
+          f"swin logits {tuple(got.shape)} not finite or not (batch, classes)")
+    print(f"swin eval: logits kernel vs plain max abs err {err:.3e} (logits up to "
+          f"{float(want.abs().max()):.3f}), card vs CPU {cpu_err:.3e}", flush=True)
+    return trainer, batches[0]
+
+
+def cell_image(rng: np.random.Generator, size: int = 256):
+    """RGB uint8 (3, size, size) of constant 16x16 cells, and each cell's
+    colour (size/16, size/16, 3): every 8x8 luma block and, after 4:2:0
+    subsampling, every chroma block is constant, so a JPEG of it at quality
+    100 has no AC terms and DCs of 8 * (level - 128)."""
+    cells = rng.integers(0, 256, (size // 16, size // 16, 3)).astype(np.uint8)
+    img = np.repeat(np.repeat(cells, 16, axis=0), 16, axis=1)
+    return np.ascontiguousarray(img.transpose(2, 0, 1)), cells.astype(np.float64)
+
+
+def phase_codec(trainer) -> None:
+    """JPEG files through the host codec: 256 files written by the port's
+    codec (16 of constant colour cells at quality 100, 240 photo-like ones
+    of 500x375 or 375x500 at quality 90), read by ``DctCroppedLoader``
+    (the SwinV2 eval: whole-image resize to 32x32 blocks, K=48) at 1, 2, 4
+    and 8 decode threads.  The cell images' DC planes are held to JFIF's
+    colour conversion within one level and their AC masks to empty; one
+    batch then runs through the SwinV2 eval."""
+    from rgbnomore_tpu_torch import codec
+    from rgbnomore_tpu_torch.data.index import load_index
+    from rgbnomore_tpu_torch.data.loader import DctCroppedLoader, row_views
+    from rgbnomore_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    rng = np.random.default_rng(SEED + 3)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lines, cells = ["Filepath,Label"], []
+        t0 = time.perf_counter()
+        for i in range(N_CODEC):
+            path = f"{tmp}/img{i:03d}.jpg"
+            if i < N_CELL_IMAGES:
+                img, colours = cell_image(rng)
+                cells.append(colours)
+                codec.write_tensor(path, img, quality=100)
+            else:
+                h, w = (375, 500) if i % 2 else (500, 375)
+                ys, xs = np.mgrid[0:h, 0:w]
+                f = 0.01 + 0.05 * rng.random(3)
+                img = np.stack([(128 + 90 * np.sin(ys * f[ch] + ch) * np.cos(xs * f[2 - ch])
+                                 + 12 * rng.standard_normal((h, w))).clip(0, 255)
+                                for ch in range(3)]).astype(np.uint8)
+                codec.write_tensor(path, img, quality=90)
+            lines.append(f"{path},{i % 1000}")
+        with open(f"{tmp}/index.csv", "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+        print(f"codec: wrote {N_CODEC} JPEGs in {time.perf_counter() - t0:.1f} s", flush=True)
+        ds = load_index(f"{tmp}/index.csv")
+        rates = {}
+        for threads in (1, 2, 4, 8):
+            ldr = DctCroppedLoader(ds, SWIN_EVAL_BATCH, target=SWIN_GRID, k=K_EVAL,
+                                   mode="full", num_threads=threads)
+            t0 = time.perf_counter()
+            batches = list(ldr)
+            rates[threads] = N_CODEC / (time.perf_counter() - t0)
+        print("codec: host decode + full resize + pack to 32x32 blocks, K=48: " + ", ".join(
+            f"{t} threads {r:.1f} img/s" for t, r in rates.items()), flush=True)
+    check(len(batches) == 1 and batches[0]["weights"].sum() == N_CODEC,
+          f"loader gave {len(batches)} batches")
+    rows = batches[0]["packed"]
+    worst = 0.0
+    for i, colours in enumerate(cells):
+        v = row_views(rows[i], ldr.layout)
+        r, g, b = colours[..., 0], colours[..., 1], colours[..., 2]
+        luma = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+        cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+        want_y = np.repeat(np.repeat(luma, 2, axis=0), 2, axis=1)  # 2x2 blocks per cell
+        got = [v["dy"][0], v["dc"][0], v["dc"][1]]
+        for plane, want in zip(got, (want_y, cb, cr)):
+            err = float(np.abs(plane / 8.0 + 128.0 - want).max())
+            worst = max(worst, err)
+            check(err <= 1.0, f"codec: image {i} DC off by {err} levels from the closed form")
+        check(not v["iy"].any() and not v["ic"].any(),
+              f"codec: image {i} of constant blocks kept AC terms")
+    print(f"codec: {len(cells)} cell images: DCs within {worst:.3f} levels of the closed "
+          f"form, no AC terms", flush=True)
+    res = trainer.evaluate(batches)
+    check(res["count"] == N_CODEC and math.isfinite(res["loss"]),
+          f"codec: swin eval of the decoded batch gave {res}")
+    print(f"codec: one batch of {N_CODEC} decoded JPEGs through the SwinV2-T eval: {res}",
+          flush=True)
+
+
+def phase_swin_train(report: dict):
+    """The SwinV2-T train step at batch 128 with drop path 0.2: launch counts
+    (1 augmentation, 12 window forward, 24 window backward: 12 per-chunk
+    passes and 12 reductions), finite losses falling over 1 + 10 steps on one
+    repeated batch (warmup 1, lr 3e-3), and the peak device memory."""
+    import torch
+
+    from rgbnomore_tpu_torch.ops.augpipe import fused_flip_aug_range
+    from rgbnomore_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
+    from rgbnomore_tpu_torch.train.config import AUGLIST_DCT
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    cfg = swin_config(SWIN_TRAIN_BATCH, epochs=1, warmup_steps=1, lr=3e-3)
+    trainer = Trainer(cfg, device="cuda")
+    pipe = trainer.train_pipe
+    check(pipe.k == K_TRAIN and pipe.fmt == "mask16" and pipe.num_ops == 2
+          and pipe.magnitude == 3 and pipe.ops_list == list(AUGLIST_DCT)
+          and pipe.target == SWIN_GRID,
+          f"swin train wire K={pipe.k} {pipe.fmt}, {pipe.num_ops} ops at {pipe.magnitude}")
+    check(abs(trainer.model.drop_path_rates[-1] - 0.2) < 1e-9, "swin drop path is not 0.2")
+    trainer.create_state(steps_per_epoch=SWIN_TRAIN_STEPS + 1)
+    rng = np.random.default_rng(SEED + 4)
+    y, c = synthetic_planes(rng, SWIN_TRAIN_BATCH, SWIN_GRID)
+    labels = (np.arange(SWIN_TRAIN_BATCH) % cfg.model.classes).astype(np.int32)
+    rows = write_rows(y, c, labels, K_TRAIN)
+    packed = trainer.put_batch({"packed": rows})["packed"]
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(packed)]  # warm-up
+    torch.cuda.synchronize()
+    wrappers = {"fused_flip_aug_range": fused_flip_aug_range,
+                "window_attention": window_attention, "window_attention_bwd": window_attention_bwd}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(SWIN_TRAIN_STEPS):
+        losses.append(trainer.train_step(packed))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name, count in launches.items():
+        report[name]["launches"] = count
+    want = {"fused_flip_aug_range": SWIN_TRAIN_STEPS, "window_attention": 12 * SWIN_TRAIN_STEPS,
+            "window_attention_bwd": 24 * SWIN_TRAIN_STEPS}
+    check(launches == want, f"swin train launches {launches}, want {want}")
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"swin train losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"swin loss did not fall over {SWIN_TRAIN_STEPS} steps: {losses}")
+    print(f"swin train: {SWIN_TRAIN_STEPS} steps of {SWIN_TRAIN_BATCH} in {train_s:.3f} s, "
+          f"{SWIN_TRAIN_STEPS * SWIN_TRAIN_BATCH / train_s:.1f} img/s (pipeline + step, one "
+          f"resident batch) | launches {launches} | loss {losses[0]:.4f} -> {losses[-1]:.4f} | "
+          f"peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
+    print(f"swin train: losses {[round(v, 4) for v in losses]}", flush=True)
+    return trainer, packed, rows
 
 
 def main() -> int:
@@ -680,6 +1123,15 @@ def main() -> int:
     trainer, packed, rows = phase_train(report)
     phase_train_vs_cpu(rows)
     phase_train_breakdown(trainer, packed)
+    del trainer, packed
+    trainer, batch = phase_swin_eval(report)
+    phase_breakdown(trainer, batch, "swin breakdown")
+    phase_codec(trainer)
+    del trainer, batch
+    trainer, packed, rows = phase_swin_train(report)
+    step_card_vs_cpu("swin train", swin_config(SWIN_CPU_BATCH), rows[:SWIN_CPU_BATCH],
+                     perturb_norms)
+    phase_train_breakdown(trainer, packed, "swin breakdown")
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

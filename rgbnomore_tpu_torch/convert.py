@@ -1,11 +1,21 @@
-"""Carry the JAX package's ViT parameters into the port's ``state_dict``.
+"""Carry the JAX package's ViT and SwinV2 parameters into the port's
+``state_dict``.
 
-The flax tree and the torch modules share their names (``patchembed/
-projection``, ``encoder_{i}/{ln1, mha/qkv, mha/projection, ln2, mlp1, mlp2}``,
-``head/{ln, linear1, linear2}``), so each leaf maps to one key:
-a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in), a
-LayerNorm ``scale`` becomes ``weight``, a ``bias`` stays ``bias``.  The qkv
-kernel keeps the JAX layout of contiguous thirds (q | k | v), which the
+The flax tree and the torch modules share their names (ViT: ``patchembed/
+projection``, ``encoder_{i}/{ln1, mha/qkv, mha/projection, ln2, mlp1,
+mlp2}``, ``head/{ln, linear1, linear2}``; SwinV2: ``patch_embed/{projection,
+norm}``, ``layer{i}_block{d}/{attn/{qkv, cpb_mlp1, cpb_mlp2, proj}, norm1,
+mlp1, mlp2, norm2}``, ``layer{i}_downsample/{reduction, norm}``, ``norm``,
+``head``), so each leaf maps to one key:
+
+- a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
+- SwinV2's ``qkv_kernel`` (C, 3C) becomes the ``weight`` of the attention's
+  ``qkv`` Linear, transposed likewise (contiguous thirds q | k | v);
+- a LayerNorm ``scale`` becomes ``weight``, a ``bias`` stays ``bias``;
+- SwinV2's ``logit_scale`` (H, 1, 1), ``q_bias`` and ``v_bias`` are
+  parameters of the same name and shape.
+
+The ViT's qkv kernel keeps the JAX layout of contiguous thirds, which the
 port's ``MultiHeadAttention`` splits the same way — not the interleaved
 layout of the reference's checkpoints (``train/torch_import.py:38-46``).
 """
@@ -18,6 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["flax_to_state_dict"]
+
+_SAME_NAME = ("logit_scale", "q_bias", "v_bias")
 
 
 def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
@@ -32,15 +44,18 @@ def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
                 continue
             arr = np.asarray(value, dtype=np.float32)
             module = ".".join(prefix)
-            if name == "kernel":
+            if name in ("kernel", "qkv_kernel"):
                 if arr.ndim != 2:
                     raise NotImplementedError(
                         f"{module}: {arr.ndim}-D kernels (convolutions) are not "
                         "ported yet")
-                out[f"{module}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.T))
+                key = "qkv.weight" if name == "qkv_kernel" else "weight"
+                out[".".join(prefix + (key,))] = torch.from_numpy(np.ascontiguousarray(arr.T))
             elif name in ("scale", "bias"):
                 key = "weight" if name == "scale" else "bias"
                 out[f"{module}.{key}"] = torch.from_numpy(arr.copy())
+            elif name in _SAME_NAME:
+                out[".".join(prefix + (name,))] = torch.from_numpy(arr.copy())
             else:
                 raise KeyError(f"unexpected flax parameter {module}/{name}")
 

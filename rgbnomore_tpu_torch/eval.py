@@ -16,8 +16,11 @@ __all__ = ["evaluate_model"]
 
 def evaluate_model(cfg: Config, index_train: str, index_val: str, loadpath: str = "",
                    *, device=None, num_threads: int = 4) -> dict:
-    """Evaluate a ViT on the test (``index_val``), minival and trainval
-    splits over the cropped DCT wire.
+    """Evaluate the config's model (the ViT or SwinV2) on the test
+    (``index_val``), minival and trainval splits over the cropped DCT wire:
+    the K=48 mask16 rows of the center crop for the ViT, of the whole-image
+    resize for SwinV2 (``make_loaders``).  The model runs in float32, so a
+    SwinV2 config sets ``cfg.train.amp = False``.
 
     ``loadpath`` names a ``state_dict`` saved with ``torch.save`` (see
     ``convert.py`` for weights trained by the JAX package); without it the

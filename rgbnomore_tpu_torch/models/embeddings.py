@@ -2,8 +2,9 @@
 
 Port of ``sincos_position_embedding`` and ``PatchEmbeddingDCTGroup`` from
 ``rgbnomore_tpu/models/embeddings.py`` (the reference's
-``models/plainvit.py:90-218``).  The separate (2) and concatenated (3)
-embeddings and the RGB embedding are still to be ported.
+``models/plainvit.py:90-218``), with SwinV2's patch 4 (sub-blocks), no
+sincos and a LayerNorm.  The separate (2) and concatenated (3) embeddings
+and the RGB embedding are still to be ported.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from rgbnomore_tpu_torch.models.subblock import apply_subblock, group_blocks, patch_conversion
+from rgbnomore_tpu_torch.models.subblock import (
+    apply_subblock,
+    group_blocks,
+    patch_conversion,
+    ungroup_blocks,
+)
 
 __all__ = ["sincos_position_embedding", "PatchEmbeddingDCTGroup"]
 
@@ -42,39 +48,53 @@ def sincos_position_embedding(h: int, w: int, e: int, *, dtype=torch.float32,
 
 class PatchEmbeddingDCTGroup(nn.Module):
     """embed_type 1 — grouped: merge the Y and CbCr coefficients of one
-    spatial patch and project them with a single Linear, then add the sincos
-    position embedding (``plainvit.py:157-218``).
+    spatial patch and project them with a single Linear
+    (``plainvit.py:157-218``).
+
+    A patch above 8 combines neighbouring blocks into one larger basis; a
+    patch below 8 splits each block into sub-blocks (SwinV2's patch 4: luma
+    sub-blocks of 4x4, chroma of 2x2).  ``add_sincos`` adds the sincos
+    position embedding (the ViT); ``use_norm`` follows the projection with a
+    LayerNorm of eps 1e-5 (SwinV2, ``swinv2.py:547-554``).
 
     ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8))`` returns
-    tokens (B, H*W/pd^2, emb_size).
+    tokens (B, L, emb_size), L = (8H / patch_size)^2.
     """
 
     def __init__(self, patch_size: int = 16, emb_size: int = 768,
-                 use_subblock: bool = True, chroma_scale: int = 2):
+                 use_subblock: bool = True, chroma_scale: int = 2,
+                 add_sincos: bool = True, use_norm: bool = False):
         super().__init__()
-        conv_y, self.pd_y, comb_y = patch_conversion(patch_size, use_subblock)
-        conv_c, self.pd_c, comb_c = patch_conversion(patch_size // chroma_scale,
-                                                     use_subblock)
-        if not (comb_y and comb_c):
-            raise NotImplementedError(
-                f"patch_size {patch_size} splits blocks into sub-blocks; that "
-                "path is still to be ported (ROADMAP.md, port queue: other "
-                "transfers and embeddings)")
+        conv_y, self.pd_y, self.comb_y = patch_conversion(patch_size, use_subblock)
+        conv_c, self.pd_c, self.comb_c = patch_conversion(patch_size // chroma_scale,
+                                                          use_subblock)
         for name, conv in (("conv_y", conv_y), ("conv_c", conv_c)):
             buf = None if conv is None else torch.from_numpy(np.array(conv, np.float32))
             self.register_buffer(name, buf, persistent=False)
-        in_features = (self.pd_y * 8) ** 2 + 2 * (self.pd_c * 8) ** 2
+        # coefficients per patch: patch_size^2 luma, (patch_size/chroma_scale)^2
+        # per chroma channel
+        in_features = patch_size ** 2 + 2 * (patch_size // chroma_scale) ** 2
         self.projection = nn.Linear(in_features, emb_size)
+        self.add_sincos = add_sincos
+        self.norm = nn.LayerNorm(emb_size, eps=1e-5) if use_norm else None
+
+    @staticmethod
+    def _patches(x: torch.Tensor, conv, pd: int, combine: bool) -> torch.Tensor:
+        if combine:
+            return apply_subblock(group_blocks(x, pd), conv)
+        return ungroup_blocks(apply_subblock(x, conv, combine=False), pd)
 
     def forward(self, y: torch.Tensor, cbcr: torch.Tensor) -> torch.Tensor:
-        y = apply_subblock(group_blocks(y, self.pd_y), self.conv_y)
-        cbcr = apply_subblock(group_blocks(cbcr, self.pd_c), self.conv_c)
+        y = self._patches(y, self.conv_y, self.pd_y, self.comb_y)
+        cbcr = self._patches(cbcr, self.conv_c, self.pd_c, self.comb_c)
         # "b c h w i j -> b h w (c i j)"
         b, _, h, w = y.shape[:4]
         y = y.permute(0, 2, 3, 1, 4, 5).reshape(b, h, w, -1)
         cbcr = cbcr.permute(0, 2, 3, 1, 4, 5).reshape(b, h, w, -1)
         feats = self.projection(torch.cat([y, cbcr], dim=-1))
         e = feats.shape[-1]
-        feats = feats + sincos_position_embedding(h, w, e, dtype=feats.dtype,
-                                                  device=feats.device)
-        return feats.reshape(b, h * w, e)
+        if self.add_sincos:
+            feats = feats + sincos_position_embedding(h, w, e, dtype=feats.dtype,
+                                                      device=feats.device)
+        feats = feats.reshape(b, h * w, e)
+        return feats if self.norm is None else self.norm(feats)

@@ -1,10 +1,11 @@
 """Subblock conversion helpers for the DCT patch embedding.
 
-Port of ``patch_conversion``, ``apply_subblock`` and ``group_blocks`` from
-``rgbnomore_tpu/models/subblock.py`` (the reference's ``patch2subblock`` /
-``apply_subblock`` / ``patch2rearrange``, ``models/plainvit.py:19-88``): a
-patch larger than the 8x8 JPEG block is formed by *combining* adjacent blocks
-into one larger DCT basis.
+Port of ``patch_conversion``, ``apply_subblock``, ``group_blocks`` and
+``ungroup_blocks`` from ``rgbnomore_tpu/models/subblock.py`` (the
+reference's ``patch2subblock`` / ``apply_subblock`` / ``patch2rearrange``,
+``models/plainvit.py:19-88``): a patch larger than the 8x8 JPEG block is
+formed by *combining* adjacent blocks into one larger DCT basis; a smaller
+patch by *decomposing* each 8x8 block into sub-blocks.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from rgbnomore_tpu_torch.ops.basis import conversion_matrix
 
-__all__ = ["patch_conversion", "apply_subblock", "group_blocks"]
+__all__ = ["patch_conversion", "apply_subblock", "group_blocks", "ungroup_blocks"]
 
 
 def patch_conversion(patch_size: int, use_subblock: bool = True):
@@ -62,3 +63,14 @@ def group_blocks(coeff: torch.Tensor, patch_dim: int) -> torch.Tensor:
     x = x.permute(0, 1, 2, 4, 3, 6, 5, 7)
     return x.reshape(b, c, hp // pd, wp // pd, pd * k1, pd * k2)
 
+
+def ungroup_blocks(coeff: torch.Tensor, patch_dim: int) -> torch.Tensor:
+    """(B, C, H, W, pd*k, pd*k) -> (B, C, H*pd, W*pd, k, k): split each block
+    into a pd x pd grid of sub-blocks (``plainvit.py:86``).  A sub-block's
+    coefficient (p1, p2) sits at row ``p1 * pd + i`` and column ``p2 * pd +
+    j`` of the block, for the sub-block (i, j) of the grid."""
+    b, c, h, w, k1, k2 = coeff.shape
+    pd = patch_dim
+    x = coeff.reshape(b, c, h, w, k1 // pd, pd, k2 // pd, pd)
+    x = x.permute(0, 1, 2, 5, 3, 7, 4, 6)
+    return x.reshape(b, c, h * pd, w * pd, k1 // pd, k2 // pd)

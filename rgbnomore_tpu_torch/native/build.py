@@ -5,6 +5,13 @@ host tag and its lock into the port's build directory
 (``rgbnomore_tpu_torch/_build/``, listed in ``.gitignore``) rather than next
 to the source.  Usage: ``python -m rgbnomore_tpu_torch.native.build`` (or it
 is invoked automatically on first ``import rgbnomore_tpu_torch.codec``).
+
+It needs no libjpeg development files: it compiles against the libjpeg-turbo
+2.1.5 headers kept in ``native/include/`` (``JPEG_LIB_VERSION`` 62) and links
+the system's ``-ljpeg`` where that links, or else, by its full path and with
+an rpath, the version-62 libjpeg-turbo that Pillow bundles
+(``pillow.libs/libjpeg-*.so.62*``).  :func:`jpeg_link_args` picks the
+library; :func:`compile_extension` builds one variant into any path.
 """
 
 from __future__ import annotations
@@ -16,7 +23,70 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 SRC = HERE / "dctcodec.cpp"
+INCLUDE = HERE / "include"  # libjpeg-turbo 2.1.5's headers
 BUILD_DIR = HERE.parent / "_build"
+
+
+def _links(args: list[str]) -> bool:
+    """Whether g++ links an empty shared object with ``args``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run(["g++", "-shared", "-fPIC", "-x", "c++", "/dev/null", *args,
+                              "-o", str(Path(tmp) / "probe.so")], capture_output=True)
+    return res.returncode == 0
+
+
+def _pillow_libjpeg() -> Path | None:
+    """The version-62 libjpeg that Pillow bundles, if Pillow is installed
+    with one (found without importing Pillow)."""
+    import importlib.util
+
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or spec.origin is None:
+        return None
+    libs = sorted((Path(spec.origin).parent.parent / "pillow.libs").glob("libjpeg-*.so.62*"))
+    return libs[0] if libs else None
+
+
+def jpeg_link_args(which: str | None = None) -> list[str]:
+    """The linker arguments of a libjpeg: ``which="system"`` (``-ljpeg``),
+    ``"pillow"`` (Pillow's bundled copy by its full path, with an rpath to
+    its directory), or ``None`` for the system's where it links, else
+    Pillow's.  Raises ``RuntimeError`` when the asked-for one is missing."""
+    if which in (None, "system") and _links(["-ljpeg"]):
+        return ["-ljpeg"]
+    if which in (None, "pillow"):
+        lib = _pillow_libjpeg()
+        if lib is not None:
+            return [str(lib), f"-Wl,-rpath,{lib.parent}"]
+    raise RuntimeError(f"no libjpeg to link ({which or 'system or pillow'}): the host codec "
+                       "needs libjpeg (-ljpeg) or Pillow's bundled libjpeg")
+
+
+def compile_extension(out: Path, link_args: list[str], native: bool = True) -> None:
+    """Compile ``dctcodec.cpp`` against ``native/include/`` and link it with
+    ``link_args`` into ``out``; ``native`` adds ``-march=native``.  Raises
+    ``subprocess.CalledProcessError`` when g++ fails."""
+    include = sysconfig.get_paths()["include"]
+    cmd = [
+        "g++",
+        "-O3",
+        *(["-march=native"] if native else []),  # the crop+resize f32 loops need AVX
+        "-funroll-loops",
+        "-ffp-contract=fast",
+        "-fopenmp-simd",  # `omp simd` pragmas only — no OpenMP runtime dep
+        "-std=c++17",
+        "-shared",
+        "-fPIC",
+        f"-I{INCLUDE}",
+        f"-I{include}",
+        str(SRC),
+        *link_args,
+        "-o",
+        str(out),
+    ]
+    subprocess.run(cmd, check=True)
 
 
 def _host_cpu_tag() -> str:
@@ -86,30 +156,13 @@ def build(force: bool = False) -> Path:
             pass
         if _is_fresh(out, tag) and not force:  # another process built it
             return out
-        include = sysconfig.get_paths()["include"]
         tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-        cmd = [
-            "g++",
-            "-O3",
-            "-march=native",  # the crop+resize f32 loops need AVX to keep up
-            "-funroll-loops",
-            "-ffp-contract=fast",
-            "-fopenmp-simd",  # `omp simd` pragmas only — no OpenMP runtime dep
-            "-std=c++17",
-            "-shared",
-            "-fPIC",
-            f"-I{include}",
-            str(SRC),
-            "-ljpeg",
-            "-o",
-            str(tmp),
-        ]
+        link = jpeg_link_args()
         try:
             try:
-                subprocess.run(cmd, check=True)
+                compile_extension(tmp, link)
             except subprocess.CalledProcessError:
-                cmd.remove("-march=native")  # exotic hosts: portable fallback
-                subprocess.run(cmd, check=True)
+                compile_extension(tmp, link, native=False)  # exotic hosts: portable fallback
             os.replace(tmp, out)
         finally:
             if tmp.exists():

@@ -33,6 +33,8 @@ KERNELS = {
     "attention_fwd": "attention_fwd.cu",
     "attention_bwd": "attention_bwd.cu",
     "augpipe": "augpipe.cu",
+    "window_attention_fwd": "window_attention_fwd.cu",
+    "window_attention_bwd": "window_attention_bwd.cu",
 }
 
 NVCC_FLAGS = (

@@ -246,27 +246,44 @@ def build_model(cfg: Config, device=None):
     """Instantiate the torch model for a config (reference: get_model,
     ``pipeline_utils.py:325-373``) on ``device`` (default ``cuda``), with
     every parameter drawn from a ``torch.Generator`` seeded with
-    ``cfg.seed`` in the ``cfg.model.bias_init`` family."""
-    from rgbnomore_tpu_torch.models import ViT
+    ``cfg.seed`` in the ``cfg.model.bias_init`` family.  Runs in float32:
+    a config with ``cfg.train.amp`` raises (the SwinV2 preset turns AMP on,
+    so a SwinV2 config sets ``cfg.train.amp = False``)."""
+    from rgbnomore_tpu_torch.models import SwinTransformerV2, ViT
 
     dev = resolve_device(device)
-    if cfg.model.arch == "swinv2":
-        raise NotImplementedError(
-            "SwinV2 is still to be ported (ROADMAP.md, port queue: SwinV2)")
     if cfg.train.amp:
         raise NotImplementedError(
             "mixed precision is still to be ported (ROADMAP.md, port queue: AMP)")
-    model = ViT(
-        patch_size=cfg.model.patch_size,
-        emb_size=cfg.model.embed_size,
-        depth=int(cfg.model.depth),
-        num_heads=int(cfg.model.heads),
-        head_size=cfg.model.head_size,
-        n_classes=cfg.model.classes,
-        pixel_space=cfg.model.domain,
-        ver=cfg.model.version,
-        use_subblock=cfg.model.subblock,
-    )
+    if cfg.model.arch == "swinv2":
+        model = SwinTransformerV2(
+            img_size=cfg.model.input_size,
+            num_classes=cfg.model.classes,
+            embed_dim=cfg.model.embed_size,
+            depths=tuple(cfg.model.depth),
+            num_heads=tuple(cfg.model.heads),
+            window_size=cfg.model.window_size,
+            mlp_ratio=float(cfg.model.mlp_ratio),
+            qkv_bias=cfg.model.qkv_bias,
+            drop_rate=cfg.train.drop,
+            drop_path_rate=cfg.model.drop_path,
+            ape=cfg.model.ape,
+            patch_norm=cfg.model.patch_norm,
+            pretrained_window_sizes=tuple(cfg.model.pretrained_window_sizes),
+            pixel_space=cfg.model.domain,
+        )
+    else:
+        model = ViT(
+            patch_size=cfg.model.patch_size,
+            emb_size=cfg.model.embed_size,
+            depth=int(cfg.model.depth),
+            num_heads=int(cfg.model.heads),
+            head_size=cfg.model.head_size,
+            n_classes=cfg.model.classes,
+            pixel_space=cfg.model.domain,
+            ver=cfg.model.version,
+            use_subblock=cfg.model.subblock,
+        )
     gen = torch.Generator().manual_seed(cfg.seed)
     model.init_weights(gen, cfg.model.bias_init)
     return model.to(dev)

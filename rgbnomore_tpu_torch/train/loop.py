@@ -1,16 +1,18 @@
 """Training and evaluation orchestration: ``rgbnomore_tpu/train/loop.py`` on
 one device.
 
-``Trainer`` owns the model, the input pipelines, and once ``create_state``
-has run, the optimizer and the step count.  ``train_step`` takes one
-uploaded ``(B, row)`` uint8 batch of the cropped K=16 mask16 train wire
-through pipeline (``fused_flip_aug_range``) -> mixup -> ViT forward ->
-softmax cross-entropy -> backward -> global-norm clip -> AdamW, the body of
-the JAX ``Trainer._train_body`` (``loop.py:246-303``) without its fp16
-loss-scaling branch (ROADMAP.md, port queue: AMP).  ``evaluate`` uploads
-each K=48 eval batch in one pinned, non-blocking copy and runs pipeline ->
-ViT -> weighted sums on the device.  ``make_loaders`` builds the cropped DCT
-loaders.  Checkpoints, ``train_and_eval`` and multi-GPU data parallelism
+``Trainer`` owns the model (the ViT or SwinV2), the input pipelines, and
+once ``create_state`` has run, the optimizer and the step count.
+``train_step`` takes one uploaded ``(B, row)`` uint8 batch of the cropped
+K=16 mask16 train wire through pipeline (``fused_flip_aug_range``) -> mixup
+-> forward (in train mode: SwinV2's drop path) -> softmax cross-entropy ->
+backward -> global-norm clip -> AdamW, the body of the JAX
+``Trainer._train_body`` (``loop.py:246-303``) without its fp16 loss-scaling
+branch (ROADMAP.md, port queue: AMP).  ``evaluate`` uploads each K=48 eval
+batch in one pinned, non-blocking copy and runs pipeline -> model (in eval
+mode) -> weighted sums on the device.  ``make_loaders`` builds the cropped
+DCT loaders: the ViT's eval crop is the center crop, SwinV2's the
+whole-image resize.  Checkpoints, ``train_and_eval`` and multi-GPU data parallelism
 come with later slices (ROADMAP.md, port queue).
 """
 
@@ -60,12 +62,14 @@ def cropped_eval_defaults(domain: str) -> tuple[int, str]:
 @dataclasses.dataclass
 class StepDraws:
     """The random decisions of one train step: the flip bits (B,), the
-    RandAugment policy (``RandAugmentDCT.draw_policy``) and the mixup
-    lambda."""
+    RandAugment policy (``RandAugmentDCT.draw_policy``), the mixup lambda
+    and, for SwinV2, the drop-path keep masks (blocks, 2, B) bool (None for
+    the ViT)."""
 
     flip: torch.Tensor
     policy: tuple
     lam: float
+    drop_keep: torch.Tensor | None = None
 
 
 class Trainer:
@@ -77,8 +81,9 @@ class Trainer:
     ``cfg.seed``; ``model.load_state_dict`` replaces them.  The input is the
     cropped DCT wire (the JAX Trainer's ``transfer="cropped"``): K=16
     mask16 rows for training, ``cropped_eval_defaults`` for eval.  The
-    step's random draws come from a ``torch.Generator`` (flip, policy) and a
-    numpy generator (the mixup lambda), both seeded from ``cfg.seed``.
+    step's random draws come from a ``torch.Generator`` (flip, policy, the
+    drop-path keep masks) and a numpy generator (the mixup lambda), both
+    seeded from ``cfg.seed``.
     """
 
     def __init__(self, cfg: Config, device=None):
@@ -129,9 +134,17 @@ class Trainer:
         return self.optimizer.count if self.optimizer is not None else 0
 
     def draw(self, batch: int) -> StepDraws:
-        """The next step's draws from the Trainer's generators."""
+        """The next step's draws from the Trainer's generators.  SwinV2's
+        block ``i`` keeps each sample's branch with probability ``1 -
+        drop_path_rates[i]`` (always, at rate 0)."""
         flip, policy = self.train_pipe.draw(self.generator, batch)
-        return StepDraws(flip, policy, draw_mixup_lambda(self.rng, self.cfg.train.mixup_alpha))
+        keep = None
+        rates = getattr(self.model, "drop_path_rates", None)
+        if rates is not None:
+            u = torch.rand((len(rates), 2, batch), generator=self.generator)
+            keep = u >= torch.tensor(rates, dtype=u.dtype)[:, None, None]
+        return StepDraws(flip, policy, draw_mixup_lambda(self.rng, self.cfg.train.mixup_alpha),
+                         keep)
 
     def compute_grads(self, packed: torch.Tensor, draws: StepDraws) -> torch.Tensor:
         """Pipeline -> mixup -> forward -> loss -> backward on an uploaded
@@ -144,7 +157,10 @@ class Trainer:
         else:
             targets = torch.nn.functional.one_hot(
                 labels.to(torch.int64), num_classes).to(torch.float32)
-        loss = softmax_cross_entropy(self.model(y, c), targets)
+        self.model.train()
+        extra = {} if draws.drop_keep is None else {
+            "drop_keep": draws.drop_keep.to(self.device, non_blocking=True)}
+        loss = softmax_cross_entropy(self.model(y, c, **extra), targets)
         self.model.zero_grad(set_to_none=True)
         loss.backward()
         return loss.detach()
@@ -163,7 +179,9 @@ class Trainer:
 
     # ------------------------------------------------------------------ eval
     def eval_step(self, packed: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Pipeline -> model -> weighted sums for one uploaded batch."""
+        """Pipeline -> model (in eval mode) -> weighted sums for one
+        uploaded batch."""
+        self.model.eval()
         y, c, labels, weights = self.eval_pipe(packed)
         return eval_sums(self.model(y, c), labels, weights)
 
@@ -202,27 +220,30 @@ def make_loaders(cfg: Config, index_train: str, index_val: str, *, num_threads: 
     transfer (``datasets.py:445-582``; the JAX ``make_loaders`` :453-470):
     batches of ``cfg.train.batch_size``; train: the random-resized-crop
     boxes, the K=16 mask16 wire, shuffled, the last partial batch dropped;
-    eval: the deterministic center crop to ``cfg.model.dct_blocks`` blocks
-    on the ``cropped_eval_defaults`` wire, in order, padded."""
+    eval: to ``cfg.model.dct_blocks`` blocks by the deterministic center
+    crop (ViT, ``datasets.py:364``) or the whole-image resize (SwinV2,
+    ``datasets.py:381``) on the ``cropped_eval_defaults`` wire, in order,
+    padded."""
     # imported here: the loader's codec needs libjpeg, the rest of this
     # module does not
     from rgbnomore_tpu_torch.data.loader import DctCroppedLoader
 
-    if cfg.model.arch == "swinv2" or cfg.model.domain != "DCT":
+    if cfg.model.domain != "DCT":
         raise NotImplementedError(
-            "only the ViT's cropped DCT loaders are ported so far (ROADMAP.md, port queue)")
+            "only the cropped DCT loaders are ported so far (ROADMAP.md, port queue)")
     train_all = load_index(index_train)
     test_ds = load_index(index_val)
     train_ds, minival_ds, trainval_ds = split_train_minival(
         train_all, split=cfg.train.split, seed=cfg.seed
     )
     k_eval, fmt_eval = cropped_eval_defaults("DCT")
+    eval_mode = "full" if cfg.model.arch == "swinv2" else "center"
 
     def mk(ds, train: bool):
         return DctCroppedLoader(
             ds, cfg.train.batch_size, target=cfg.model.dct_blocks,
             k=TRAIN_K if train else k_eval, fmt=TRAIN_FMT if train else fmt_eval,
-            mode="train" if train else "center", shuffle=train, drop_last=train,
+            mode="train" if train else eval_mode, shuffle=train, drop_last=train,
             seed=cfg.seed, num_threads=num_threads,
         )
 

@@ -52,6 +52,13 @@ def _cfg():
     return cfg
 
 
+def _swin_cfg():
+    """SwinV2-T as the preset gives it, in float32."""
+    cfg = generate_config("swinv2", "dct")
+    cfg.train.amp = False
+    return cfg
+
+
 @pytest.mark.parametrize("entry", [
     lambda: resolve_device(),
     lambda: resolve_device("cuda"),
@@ -62,8 +69,13 @@ def _cfg():
     lambda: Trainer(_cfg()).train_step(torch.zeros((2, 8), dtype=torch.uint8)),
     lambda: Trainer(_cfg()).train_pipe,
     lambda: evaluate_model(_cfg(), "unused.csv", "unused.csv"),
+    lambda: build_model(_swin_cfg()),
+    lambda: example_inputs(_swin_cfg()),
+    lambda: Trainer(_swin_cfg()),
+    lambda: evaluate_model(_swin_cfg(), "unused.csv", "unused.csv"),
 ], ids=["resolve_device", "resolve_cuda", "build_model", "example_inputs", "Trainer",
-        "create_state", "train_step", "train_pipe", "evaluate_model"])
+        "create_state", "train_step", "train_pipe", "evaluate_model", "swin_build_model",
+        "swin_example_inputs", "swin_Trainer", "swin_evaluate_model"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()
@@ -75,6 +87,28 @@ def test_cpu_runs_when_asked(no_cuda):
     with torch.inference_mode():
         logits = model(*example_inputs(_cfg(), batch=1, device="cpu"))
     assert logits.shape == (1, 1000) and next(model.parameters()).device.type == "cpu"
+
+
+def test_cpu_runs_swin_when_asked(no_cuda):
+    """Full-width SwinV2-T builds and runs on the CPU when asked: a forward
+    of one image of 32x32 blocks, and a Trainer whose pipelines and model
+    live on the CPU."""
+    cfg = _swin_cfg()
+    model = build_model(cfg, device="cpu")
+    with torch.inference_mode():
+        logits = model.eval()(*example_inputs(cfg, batch=1, device="cpu"))
+    assert logits.shape == (1, 1000) and torch.isfinite(logits).all()
+    assert sum(p.numel() for p in model.parameters()) > 27e6  # SwinV2-T: 28.3M
+    trainer = Trainer(cfg, device="cpu")
+    assert trainer.device.type == "cpu" and trainer.train_pipe.target == 32
+    assert len(trainer.draw(2).drop_keep) == 12
+
+
+def test_swin_refuses_amp(no_cuda):
+    """The SwinV2 preset turns AMP on; the port runs float32 until its AMP
+    slice and says so."""
+    with pytest.raises(NotImplementedError, match="mixed precision"):
+        build_model(generate_config("swinv2", "dct"), device="cpu")
 
 
 def test_unknown_device_raises():

@@ -20,8 +20,7 @@ import pytest
 import torch
 
 import chip_smoke
-from torch_port_support import settle_inspect_module_walk
-from rgbnomore_tpu.augment.randaugment import RandAugmentDCT as JaxRandAugmentDCT
+from torch_port_support import jax_step_draws, settle_inspect_module_walk
 from rgbnomore_tpu.train.config import generate_config as jax_generate_config
 from rgbnomore_tpu.train.loop import Trainer as JaxTrainer
 from rgbnomore_tpu.train.optim import kernel_mask, warmup_cosine_schedule as jax_schedule
@@ -29,7 +28,7 @@ from rgbnomore_tpu.train.steps import mixup_batch as jax_mixup
 from rgbnomore_tpu.train.steps import softmax_cross_entropy as jax_ce
 from rgbnomore_tpu_torch.convert import flax_to_state_dict
 from rgbnomore_tpu_torch.train.config import generate_config
-from rgbnomore_tpu_torch.train.loop import StepDraws, Trainer
+from rgbnomore_tpu_torch.train.loop import Trainer
 from rgbnomore_tpu_torch.train.optim import (
     clip_by_global_norm,
     decay_parameter_names,
@@ -131,24 +130,6 @@ def test_clip_matches_optax(rng):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-8)
 
 
-def _jax_draws(trainer, base_rng, step, batch, grid):
-    """The draws of the JAX step ``step`` (``loop.py:247-263``,
-    ``pipeline.py:399-404``): fold the step into the base key, split it in
-    three (augment, mixup, dropout), split the augment key in two (flip,
-    policy)."""
-    k_aug, k_mix, _ = jax.random.split(jax.random.fold_in(base_rng, step), 3)
-    k_flip, k_pol = jax.random.split(k_aug)
-    flip = jax.random.bernoulli(k_flip, 0.5, (batch,))
-    cfg = trainer.cfg
-    aug = JaxRandAugmentDCT(ops_list=list(cfg.train.auglist), num_ops=cfg.train.num_ops,
-                            magnitude=cfg.train.augstr, grid=grid)
-    policy = aug.draw_policy(k_pol, batch, grid, grid)
-    u = jax.random.beta(k_mix, cfg.train.mixup_alpha, cfg.train.mixup_alpha)
-    return StepDraws(torch.from_numpy(np.array(flip)),
-                     tuple(torch.from_numpy(np.array(p)) for p in policy),
-                     float(jnp.maximum(u, 1.0 - u)))
-
-
 # Losses agree to float32 rounding: 1.4e-6 relative over these 3 steps.
 # Parameters move by up to 7.5e-3 in them; they agree to 6e-6, because every
 # Adam step moves a parameter by about lr * g / (|g| + eps), which is the
@@ -186,7 +167,7 @@ def test_train_steps_lockstep_with_jax(jax_trainer):
     schedule = warmup_cosine_schedule(cfg.train.lr, cfg.train.warmup, 10)
     state = jax.tree.map(jnp.copy, jt.state)  # the step donates its state
     for step in range(3):
-        draws = _jax_draws(jt, base_rng, step, b, grid)
+        draws = jax_step_draws(jt, base_rng, step, b, grid)
         state, metrics = step_fn(state, jt.put_batch({"packed": rows}), base_rng)
         loss = trainer.train_step(torch.from_numpy(rows), draws)
         np.testing.assert_allclose(float(loss), float(metrics["loss"]), rtol=LOSS_RTOL)

@@ -21,3 +21,107 @@ def settle_inspect_module_walk() -> None:
         inspect.getmodule(sys._getframe(), "<settle>")
     except AttributeError:
         pass
+
+
+def jax_step_draws(trainer, base_rng, step, batch, grid):
+    """The draws of the JAX Trainer's step ``step`` (``loop.py:247-263``,
+    ``pipeline.py:399-404``) as the port's ``StepDraws``: fold the step into
+    the base key, split it in three (augment, mixup, dropout), split the
+    augment key in two (flip, policy).  The dropout key is not used: the
+    tests run without drop path."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from rgbnomore_tpu.augment.randaugment import RandAugmentDCT
+    from rgbnomore_tpu_torch.train.loop import StepDraws
+
+    k_aug, k_mix, _ = jax.random.split(jax.random.fold_in(base_rng, step), 3)
+    k_flip, k_pol = jax.random.split(k_aug)
+    flip = jax.random.bernoulli(k_flip, 0.5, (batch,))
+    cfg = trainer.cfg
+    aug = RandAugmentDCT(ops_list=list(cfg.train.auglist), num_ops=cfg.train.num_ops,
+                         magnitude=cfg.train.augstr, grid=grid)
+    policy = aug.draw_policy(k_pol, batch, grid, grid)
+    u = jax.random.beta(k_mix, cfg.train.mixup_alpha, cfg.train.mixup_alpha)
+    return StepDraws(torch.from_numpy(np.array(flip)),
+                     tuple(torch.from_numpy(np.array(p)) for p in policy),
+                     float(jnp.maximum(u, 1.0 - u)))
+
+
+def tiny_swin_cfg(gen, batch=4, classes=10, drop_path=0.0):
+    """A SwinV2 config that reaches every branch at a tiny size, from
+    ``gen`` (the JAX package's or the port's ``generate_config``): depths
+    (2, 2, 2), heads (2, 4, 8), embed 32, window 4, an 8x8 block grid (16x16
+    tokens: 16 windows, then 4, each stage's odd block shifted, stage 3
+    clamped to one window), in float32."""
+    cfg = gen("swinv2", "dct", batchsize=batch, epochs=1, warmup_steps=2, seed=5)
+    cfg.model.depth, cfg.model.heads = (2, 2, 2), (2, 4, 8)
+    cfg.model.embed_size, cfg.model.window_size = 32, 4
+    cfg.model.pretrained_window_sizes = (0, 0, 0)
+    cfg.model.drop_path, cfg.model.classes = drop_path, classes
+    cfg.model.dct_blocks, cfg.model.input_size = 8, 64
+    cfg.train.amp = False  # the port runs float32
+    return cfg
+
+
+def perturb_norms(params, rng):
+    """A copy of a flax parameter tree with every LayerNorm scale drawn from
+    U(0.5, 1.5) and its bias from N(0, 0.1^2).  SwinV2's init starts norm1
+    and norm2 at scale 0, where every block is the identity and no attention
+    reaches the logits."""
+    import numpy as np
+
+    out = {}
+    for name, value in params.items():
+        if isinstance(value, dict):
+            out[name] = perturb_norms(value, rng)
+        else:
+            out[name] = np.asarray(value)
+    if "scale" in out:
+        out["scale"] = rng.uniform(0.5, 1.5, out["scale"].shape).astype(np.float32)
+        out["bias"] = (rng.standard_normal(out["bias"].shape) * 0.1).astype(np.float32)
+    return out
+
+
+def jax_swin_trainer():
+    """The JAX Trainer (``transfer="cropped"``) at :func:`tiny_swin_cfg`, its
+    LayerNorms perturbed.  Its ``model.init`` runs under ``jax.jit`` (10 s
+    here, 30 s eagerly; the same parameters)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import pytest
+
+    from rgbnomore_tpu.train import loop
+    from rgbnomore_tpu.train.config import generate_config
+    from rgbnomore_tpu.train.steps import TrainState
+
+    def create_train_state(model, cfg, tx, rng, example_batch):
+        params = jax.jit(model.init)(rng, *example_batch)["params"]
+        return TrainState.create(apply_fn=model.apply, params=params, tx=tx)
+
+    trainer = loop.Trainer(tiny_swin_cfg(generate_config), devices=jax.devices()[:1],
+                           transfer="cropped", fused_aug=False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop, "create_train_state", create_train_state)
+        trainer.create_state(steps_per_epoch=10)
+    params = perturb_norms(jax.tree.map(np.asarray, trainer.state.params),
+                           np.random.default_rng(3))
+    trainer.state = trainer.state.replace(params=jax.tree.map(jnp.asarray, params))
+    return trainer
+
+
+def port_swin_trainer(jax_trainer, cfg):
+    """The port's CPU Trainer for ``cfg`` with the JAX trainer's parameters."""
+    import jax
+    import numpy as np
+
+    from rgbnomore_tpu_torch.convert import flax_to_state_dict
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, device="cpu")
+    trainer.model.load_state_dict(
+        flax_to_state_dict(jax.tree.map(np.asarray, jax_trainer.state.params)))
+    return trainer
