@@ -24,7 +24,13 @@ Phases, each raising on failure (the script then exits non-zero):
      RandAugment + ToRange stage, window attention forward and backward)
      against its plain version at the main paths' shapes and the JAX
      package's test shapes, then timed with CUDA events beside its plain
-     version, its bound and, where one exists, a PyTorch library call;
+     version, its bound and, where one exists, a PyTorch library call.  The
+     ViT attention kernels compute in 3xTF32 on the tensor cores: their
+     report adds that bound beside the float32 CUDA cores' (``bound_ms`` is
+     the tensor cores', the least time for the work as they do it), each
+     bound's share, and their device time without the host's launch
+     overhead from ``torch.profiler``; two runs of the backward at the
+     ViT-Ti shape must give the same bits;
   4. slice: 512 images through the ViT-Ti ``Trainer.evaluate`` with launch
      counts; the pipeline on the card against the CPU, logits of the kernel
      path against the plain path and against the CPU;
@@ -104,9 +110,11 @@ GRAD_RTOL = 1e-5  # of the largest gradient entry in the model
 # plain path's (and than the CPU's)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
-# float32 FLOP/s outside the tensor cores
+# float32 FLOP/s outside the tensor cores, dense TF32 FLOP/s of the tensor
+# cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 # SwinV2-T (generate_config("swinv2", "dct"), float32): 32x32 blocks (256
 # px), patch 4 -> 64x64 tokens, windows of 8x8 = 64 tokens, head dim 32
 SWIN_GRID = 32
@@ -226,12 +234,57 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def attention_bound_ms(b: int, h: int, n: int, d: int) -> tuple[float, str]:
-    """Least time for softmax(QKᵀ)V on the card: q, k, v read and o written
-    once in float32, against 4*N^2*D*B*H float32 FLOP (QKᵀ and PV)."""
-    t_bytes = 4 * b * h * n * d * 4 / PEAK_BYTES_PER_S
-    t_ops = 4 * n * n * d * b * h / PEAK_F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+def ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def device_ms(fn, reps: int = 10) -> float | None:
+    """The device time of one ``fn()``: the kernels it launches, summed by
+    ``torch.profiler`` over ``reps`` calls after a warm-up, divided by
+    ``reps``; the host's launch overhead, which ``time_ms`` counts, is left
+    out.  None where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    return total / reps / 1e3 if total else None
+
+
+def product_bounds_ms(flop: float, nbytes: float) -> dict:
+    """The least times, in ms, of a kernel that does ``flop`` float32 FLOP
+    of matrix products and moves ``nbytes``: ``f32`` with the products on
+    the CUDA cores, ``tc`` with them in 3xTF32 on the tensor cores (three
+    TF32 products per float32 product), each against the bytes; each with
+    what bounds it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    out = {}
+    for tag, t_ops in (("f32", flop / PEAK_F32_FLOP_PER_S),
+                       ("tc", 3 * flop / PEAK_TF32_FLOP_PER_S)):
+        out[tag] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
+    return out
+
+
+def attention_bound_ms(b: int, h: int, n: int, d: int) -> dict:
+    """Least times for softmax(QKᵀ)V on the card (``product_bounds_ms``):
+    q, k, v read and o written once in float32, against 4*N^2*D*B*H FLOP
+    (QKᵀ and PV)."""
+    return product_bounds_ms(4 * n * n * d * b * h, 4 * b * h * n * d * 4)
+
+
+def product_kernel_entry(ms: float, bounds: dict) -> dict:
+    """The bound keys of a kernel that computes its products in 3xTF32:
+    ``bound_ms`` is the least time for the work as it does it (the tensor
+    cores' bound), ``bound_f32_ms`` the bound of float32 CUDA cores beside
+    it, each with its share of ``ms``."""
+    (tc, tc_by), (f32, f32_by) = bounds["tc"], bounds["f32"]
+    return {"bound_ms": tc, "bound_by": tc_by, "bound_tc_ms": tc, "bound_f32_ms": f32,
+            "bound_f32_by": f32_by, "bound_share": tc / ms, "bound_f32_share": f32 / ms}
 
 
 # ---------------------------------------------------------------- phases
@@ -299,15 +352,24 @@ def kernel_attention_fwd(gen) -> dict:
         plain_ms = time_ms(lambda: attention_plain(q, k, v, ATTN_SCALE))
         library_ms = time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, scale=ATTN_SCALE))
-    bound_ms, bound_by = attention_bound_ms(b, h, n, d)
+        dev_ms = device_ms(lambda: fused_attention(q, k, v, ATTN_SCALE))
+        dev_library_ms = device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=ATTN_SCALE))
+    bounds = product_kernel_entry(ms, attention_bound_ms(b, h, n, d))
     print(f"kernels: fused_attention {ATTN_SHAPES[0]} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"sdpa {library_ms:.4f} ms; device time {ms_text(dev_ms)}, sdpa's "
+          f"{ms_text(dev_library_ms)}; "
+          f"bound 3xTF32 {bounds['bound_tc_ms']:.4f} ms "
+          f"({bounds['bound_by']}, {100 * bounds['bound_share']:.1f}% of it), float32 "
+          f"{bounds['bound_f32_ms']:.4f} ms ({bounds['bound_f32_by']}, "
+          f"{100 * bounds['bound_f32_share']:.1f}%)", flush=True)
     return {
         "name": "fused_attention", "route": "cuda",
         "source": "rgbnomore_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "rgbnomore_tpu/ops/pallas/attention.py:39",
         "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        **bounds, "library_ms": library_ms, "device_ms": dev_ms,
+        "library_device_ms": dev_library_ms,
     }
 
 
@@ -344,6 +406,13 @@ def kernel_attention_bwd(gen) -> dict:
     b, h, n, d = BWD_CASES[0][0]
     q, k, v, g = (torch.randn((b, h, n, d), generator=gen, device="cuda") for _ in range(4))
     out, lse = fused_attention_fwd(q, k, v, ATTN_SCALE, with_lse=True)
+    # every sum runs in a fixed order: two runs give the same bits
+    first = fused_attention_bwd(q, k, v, out, lse, g, ATTN_SCALE)
+    again = fused_attention_bwd(q, k, v, out, lse, g, ATTN_SCALE)
+    for tag, a, b_ in zip("qkv", first, again):
+        check(torch.equal(a, b_), f"fused_attention_bwd {(b, h, n, d)} d{tag} differs between runs")
+    print(f"kernels: fused_attention_bwd {(b, h, n, d)}: two runs bit-identical", flush=True)
+    del first, again
     ms = time_ms(lambda: fused_attention_bwd(q, k, v, out, lse, g, ATTN_SCALE))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     plain_out = attention_plain(*leaves, ATTN_SCALE)
@@ -351,19 +420,26 @@ def kernel_attention_bwd(gen) -> dict:
                        reps=10, warmup=2)
     sdpa_out = F.scaled_dot_product_attention(*leaves, scale=ATTN_SCALE)
     library_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
-    # the five products of the VJP in float32; q, k, v, out, dout and lse
-    # read once, dq, dk, dv written once
-    t_ops = 10 * n * n * d * b * h / PEAK_F32_FLOP_PER_S
-    t_bytes = (8 * q.numel() + lse.numel()) * 4 / PEAK_BYTES_PER_S
-    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    dev_ms = device_ms(lambda: fused_attention_bwd(q, k, v, out, lse, g, ATTN_SCALE))
+    dev_library_ms = device_ms(
+        lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+    # the five products of the VJP; q, k, v, out, dout and lse read once,
+    # dq, dk, dv written once
+    bounds = product_kernel_entry(ms, product_bounds_ms(
+        10 * n * n * d * b * h, (8 * q.numel() + lse.numel()) * 4))
     print(f"kernels: fused_attention_bwd {(b, h, n, d)} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"sdpa backward {library_ms:.4f} ms; device time {ms_text(dev_ms)}, sdpa backward's "
+          f"{ms_text(dev_library_ms)}; bound 3xTF32 {bounds['bound_tc_ms']:.4f} ms "
+          f"({bounds['bound_by']}, {100 * bounds['bound_share']:.1f}% of it), float32 "
+          f"{bounds['bound_f32_ms']:.4f} ms ({bounds['bound_f32_by']}, "
+          f"{100 * bounds['bound_f32_share']:.1f}%)", flush=True)
     return {
         "name": "fused_attention_bwd", "route": "cuda",
         "source": "rgbnomore_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "rgbnomore_tpu/ops/pallas/attention.py:51",
         "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        **bounds, "library_ms": library_ms, "device_ms": dev_ms,
+        "library_device_ms": dev_library_ms,
     }
 
 

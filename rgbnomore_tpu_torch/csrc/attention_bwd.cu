@@ -10,377 +10,361 @@
 // Replaces the TPU kernel rgbnomore_tpu/ops/pallas/attention.py:_bwd_kernel
 // (:51-69), which _bwd (:112-135) launches as fused_attention's VJP.  Same
 // gradients for q, k, v (B, H, N, D) float32, contiguous, any N >= 1 and
-// D <= 128.  The TPU kernel kept one whole (padded) head in VMEM and rebuilt
-// P from scratch; a head's K, V, dK and dV alone (200 KB at N=196, D=64) do
-// not fit a block's shared memory beside the tiles it works on, and dK, dV
-// are sums over every query row.
+// D <= 128.  The TPU kernel kept one whole (padded) head in VMEM; on Hopper a
+// head's Q, dO and dQ alone (150 KB at N = 196, D = 64) leave no room in a
+// block's shared memory for the tiles it works on, and dK, dV are sums over
+// every query row while dQ is a sum over every key.
 //
-// Bound on an H100 SXM, at the ViT-Ti train shape (256, 3, 196, 64):
+// Bounds on an H100 SXM, at the ViT-Ti train shape (256, 3, 196, 64):
 //   operations: the five products of the VJP (QK^T, dO V^T, P^T dO, dS K,
-//          dS^T Q), 10*N^2*D*B*H = 18.9 GFLOP of float32 multiply-adds,
-//          0.282 ms at the 67 TFLOP/s of the float32 CUDA cores (the tensor
-//          cores take float32 only as TF32, which would not keep the
-//          reference's precision);
+//          dS^T Q), 10*N^2*D*B*H = 18.9 GFLOP: 0.282 ms at the 67 TFLOP/s
+//          of the float32 CUDA cores, or 3 * 18.9 GFLOP at the tensor cores'
+//          495 TFLOP/s in 3xTF32 (tf32_mma.cuh) = 0.115 ms;
 //   bytes: q, k, v, o, dO, lse read once, dq, dk, dv written once, 309 MB,
 //          0.092 ms at 3.35 TB/s.
-// So the kernel is bound by float32 operations.
+// In 3xTF32 the kernel is bound by operations, 1.2x above its bytes bound.
 //
-// What the design does about that bound (flash-attention style tiles, as
-// the forward kernel):
-//   - P is rebuilt tile by tile from the saved lse, so no pass needs a
-//     running max, and the (N, N) matrix P never reaches device memory.
-//   - Key-tile-major blocks (one per batch*head and 64 keys) loop over the
-//     head's query tiles: they rebuild S and dP, accumulate dK and dV in
-//     registers, and store dS (the kernel's scratch: N rows of
-//     ceil(N/64)*64 per head, 154 MB at the ViT-Ti shape).  Query-tile-major
-//     blocks (one per batch*head and 64 query rows) then compute
-//     dQ = scale * dS K as a tiled product.  No atomics, so every sum runs
-//     in a fixed order, and the work is the bound's 10*N^2*D: dS costs
-//     about 0.1 ms of device memory traffic where rebuilding S and dP a
-//     second time costs 4*N^2*D.
-//   - delta = rowsum(dO * O) is a small kernel of its own, one warp a row.
-//   - The register tiling of the forward kernel: 256 threads, each owns
-//     4 rows x 4 columns of a score tile, or 4 rows x D/16 columns of an
-//     output tile, so each word read from shared memory feeds 4 FMAs; the
-//     key-indexed tiles are stored transposed with a padded stride (no bank
-//     conflicts).  Row groups past N skip their arithmetic, and the last
-//     key tile computes only its live 16-column groups.
-// Left for later work: vector shared-memory loads and wider per-thread
-// tiles, and bf16 tensor cores (wgmma) under AMP.
+// Design: three kernels in order on the stream, the two large ones on the
+// tensor cores in 3xTF32 (mma.sync m16n8k8, 16 rows per warp, as the
+// forward kernel), with no atomics:
+//   - delta_kernel: delta = rowsum(dO * O), one warp a row.  It stays a
+//     kernel of its own: folded into dkdv_kernel, every key block of a head
+//     would load O and sum every row's delta again (four times a head at
+//     N = 196), which measured slower on the H100 than this pass's one read
+//     of O and dO.
+//   - dkdv_kernel, key-major: each warp owns 16 keys, whose K and V rows stay
+//     in shared memory.  Over 16-row tiles of Q, dO, lse and delta (a
+//     two-stage cp.async ring, as the forward kernel's, one barrier a tile)
+//     each warp builds S^T and dP^T in registers, P^T from the lse and
+//     dS^T = P^T (dP^T - delta), accumulates dV += P^T dO and dK += dS^T Q
+//     with P^T and dS^T fed from the accumulators as the A operand
+//     (tf32_mma.cuh's k permutation), and stores dS into the scratch ds
+//     (B, H, N, N).
+//   - dq_kernel, query-major: each warp owns 16 query rows; over 32-key
+//     tiles of dS and K (a two-stage cp.async ring) it accumulates
+//     dQ += dS K.
+//   The dS round trip is 2 * 4 N^2 B H bytes (308 MB at the ViT-Ti shape,
+//   0.092 ms at 3.35 TB/s) and costs no product.  Rebuilding S and dP in
+//   the dQ pass instead costs two more products (7 of N^2 D in place of 5);
+//   that version measured slower on the H100.
+//   Every sum runs in a fixed order (each output element has one owning
+//   lane, and its k loop is sequential), so two runs give bit-identical
+//   dq, dk, dv.
+//   - Tiles of 16 keys (rows) per warp spread over the blocks of a head as
+//     in the forward kernel; the ragged last tile of a loop computes only
+//     its live 8-wide groups, and every other tile runs without live tests.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <math.h>
+#include <type_traits>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kB = 64;         // query rows or keys per tile
-constexpr int kTM = 4;         // rows per thread
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kLd = kB + 1;    // padded stride of the key- or row-indexed arrays
+constexpr int kBQ = 16;        // query rows per tile of dkdv_kernel
+constexpr int kNQ = kBQ / 8;   // their 8-row groups
+constexpr int kBK = 32;        // keys per tile of dq_kernel
+constexpr int kNK = kBK / 8;   // their 8-key groups
+constexpr int kStages = 2;  // tile j + 1 is copied while the warps compute on tile j
+constexpr int kLdS = kBK + 8;  // row stride of a dS tile: 64-bit fragment loads, no conflicts
+constexpr int kMaxThreads = 32 * tf32::kMaxWarps;
 
-// delta[row] = sum_c dO[row, c] * O[row, c], one warp per row.
+// Shared memory, in floats, of dkdv_kernel: K and V [16 W][ld], and per
+// stage Q, dO [kBQ][ld], lse and delta [kBQ].
+template <int NK>
+int dkdv_smem_floats(int warps) {
+  return 2 * 16 * warps * (16 * NK + 4) + kStages * (2 * kBQ * (16 * NK + 4) + 2 * kBQ);
+}
+
+// delta[row] = sum_c dO[row, c] * O[row, c], one warp per row: lanes stride
+// the row, a butterfly adds their sums in a fixed order.
 __global__ void delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                              float* __restrict__ delta, long long rows, int d) {
   const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;  // whole warps: every lane of a warp shares its row
   const float* a = o + row * d;
-  const float* g = dout + row * d;
+  const float* b = dout + row * d;
   float s = 0.f;
-  for (int c = lane; c < d; c += 32) s = fmaf(a[c], g[c], s);
+  for (int c = lane; c < d; c += 32) s = fmaf(a[c], b[c], s);
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
 }
 
-// Row-major tile [kB][Dp + 1] of rows r0.. of a (n, d) matrix; zeros past n, d.
-template <int NC>
-__device__ __forceinline__ void load_rows(float* __restrict__ dst, const float* __restrict__ src,
-                                          int r0, int n, int d) {
-  constexpr int kDp = 16 * NC;
-  for (int i = threadIdx.x; i < kB * kDp; i += kThreads) {
-    const int r = i / kDp, c = i % kDp;
-    dst[r * (kDp + 1) + c] =
-        (r0 + r < n && c < d) ? src[static_cast<size_t>(r0 + r) * d + c] : 0.f;
-  }
+// Shared memory, in floats, of dq_kernel: per stage dS [16 W][kLdS] and K
+// [kBK][ld].
+template <int NK>
+int dq_smem_floats(int warps) {
+  return kStages * (16 * warps * kLdS + kBK * (16 * NK + 4));
 }
 
-// Transposed tile [Dp][kLd] of rows r0.. of a (n, d) matrix; zeros past n, d.
-template <int NC>
-__device__ __forceinline__ void load_cols(float* __restrict__ dst, const float* __restrict__ src,
-                                          int r0, int n, int d) {
-  constexpr int kDp = 16 * NC;
-  for (int i = threadIdx.x; i < kB * kDp; i += kThreads) {
-    const int j = i / kDp, c = i % kDp;
-    dst[c * kLd + j] = (r0 + j < n && c < d) ? src[static_cast<size_t>(r0 + j) * d + c] : 0.f;
-  }
-}
-
-// For this thread's 4 rows x JG column groups: the scaled scores, rebuilt
-// as P, and dS = P * (dP - delta), where S = Q K^T and dP = dO V^T come
-// from the row-major tiles qs, dos and the transposed tiles kt, vt.  Rows
-// and keys outside the head (row >= qn, key >= kn) get P = dS = 0.
-template <int NC, int JG>
-__device__ __forceinline__ void p_and_ds(const float* __restrict__ qs,
-                                         const float* __restrict__ dos,
-                                         const float* __restrict__ kt,
-                                         const float* __restrict__ vt,
-                                         const float* __restrict__ lse_s,
-                                         const float* __restrict__ delta_s, int r0, int tc,
-                                         int qn, int kn, float scale, float p[kTM][4],
-                                         float ds[kTM][4]) {
-  constexpr int kDp = 16 * NC;
-  constexpr int kLq = kDp + 1;
-  float s[kTM][JG], dp[kTM][JG];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < JG; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < kDp; ++c) {
-    float qv[kTM], gv[kTM], kv[JG], vv[JG];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      qv[i] = qs[(r0 + i) * kLq + c];
-      gv[i] = dos[(r0 + i) * kLq + c];
-    }
-#pragma unroll
-    for (int j = 0; j < JG; ++j) {
-      kv[j] = kt[c * kLd + tc + 16 * j];
-      vv[j] = vt[c * kLd + tc + 16 * j];
-    }
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < JG; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = r0 + i;
-    const bool row_live = r < qn;
-    const float l = lse_s[r], dl = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j < JG && row_live && tc + 16 * j < kn) {
-        p[i][j] = expf(s[i][j] * scale - l);
-        ds[i][j] = p[i][j] * (dp[i][j] - dl);
-      } else {
-        p[i][j] = ds[i][j] = 0.f;
-      }
-    }
-  }
-}
-
-template <int NC>
-__device__ __forceinline__ void p_and_ds_live(const float* qs, const float* dos, const float* kt,
-                                              const float* vt, const float* lse_s,
-                                              const float* delta_s, int r0, int tc, int qn,
-                                              int kn, float scale, float p[kTM][4],
-                                              float ds[kTM][4]) {
-  switch ((kn + 15) / 16) {
-    case 1: p_and_ds<NC, 1>(qs, dos, kt, vt, lse_s, delta_s, r0, tc, qn, kn, scale, p, ds); break;
-    case 2: p_and_ds<NC, 2>(qs, dos, kt, vt, lse_s, delta_s, r0, tc, qn, kn, scale, p, ds); break;
-    case 3: p_and_ds<NC, 3>(qs, dos, kt, vt, lse_s, delta_s, r0, tc, qn, kn, scale, p, ds); break;
-    default: p_and_ds<NC, 4>(qs, dos, kt, vt, lse_s, delta_s, r0, tc, qn, kn, scale, p, ds); break;
-  }
-}
-
-// Shared memory, in floats, of the dK/dV pass and of the dQ pass.
-template <int NC>
-constexpr int dkdv_smem_floats() {
-  return 2 * 16 * NC * kLd + 2 * kB * (16 * NC + 1) + 2 * kB * kLd + 2 * kB;
-}
-template <int NC>
-constexpr int dq_smem_floats() {
-  return 16 * NC * kLd + kB * kLd;
-}
-
-// dK and dV of 64 keys of one head: loop over the head's query tiles.
-template <int NC>
-__global__ void __launch_bounds__(kThreads, 2)
+// dK, dV and dS of 16 W keys of one head.
+// At D <= 64, 16-row query tiles and a cap of 168 registers (no spill) let
+// three blocks share an SM, which ran markedly faster on the H100 than two
+// blocks of 32-row tiles; wider heads keep the registers they need.
+template <int NK>
+__global__ void __launch_bounds__(kMaxThreads, NK <= 4 ? 3 : 1)
     dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ ds_out,
-                int n, int d, int k_tiles, float scale) {
-  constexpr int kDp = 16 * NC;
-  constexpr int kLq = kDp + 1;
+                float* __restrict__ ds, float* __restrict__ dk, float* __restrict__ dv, int n,
+                int d, int k_tiles, float scale, float scale_log2) {
+  constexpr int kDp = 16 * NK;
+  constexpr int kLd = 16 * NK + 4;
+  constexpr int kDT = kDp / 8;
+  constexpr int kStage = 2 * kBQ * kLd + 2 * kBQ;  // Q, dO, lse, delta
   extern __shared__ float smem[];
-  float* kt = smem;                 // [kDp][kLd]
-  float* vt = kt + kDp * kLd;       // [kDp][kLd]
-  float* qs = vt + kDp * kLd;       // [kB][kLq]
-  float* dos = qs + kB * kLq;       // [kB][kLq]
-  float* ps = dos + kB * kLq;       // [kB][kLd]
-  float* dss = ps + kB * kLd;       // [kB][kLd]
-  float* lse_s = dss + kB * kLd;    // [kB]
-  float* delta_s = lse_s + kB;      // [kB]
+  const int warps = blockDim.x / 32;
+  const int bk = 16 * warps;
+  float* kks = smem;              // [bk][kLd]
+  float* vvs = kks + bk * kLd;    // [bk][kLd]
+  float* ring = vvs + bk * kLd;   // stage s at ring + s kStage
 
   const int bh = blockIdx.x / k_tiles;
-  const int k0 = (blockIdx.x % k_tiles) * kB;
-  const int kn = min(kB, n - k0);
+  const int k0 = (blockIdx.x % k_tiles) * bk;
   const size_t head = static_cast<size_t>(bh) * n * d;
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16, r0 = tr * kTM;
-  const bool keys_live = r0 < kn;  // this thread's 4 keys in dK, dV
-  const int ld = k_tiles * kB;     // row stride of dS
-  float* ds_head = ds_out + static_cast<size_t>(bh) * n * ld;
+  const float* qh = q + head;
+  const float* gh = dout + head;
+  const float* lh = lse + static_cast<size_t>(bh) * n;
+  const float* dh = delta + static_cast<size_t>(bh) * n;
+  float* dsh = ds + static_cast<size_t>(bh) * n * n;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wk = 16 * warp;
+  const bool warp_live = k0 + wk < n;
+  const int q_tiles = (n + kBQ - 1) / kBQ;
 
-  load_cols<NC>(kt, k + head, k0, n, d);
-  load_cols<NC>(vt, v + head, k0, n, d);
-  float dk_acc[kTM][NC], dv_acc[kTM][NC];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  auto load_stage = [&](int i) {
+    float* st = ring + (i % kStages) * kStage;
+    tf32::load_tile_async<kDp>(st, qh, i * kBQ, kBQ, n, d, tid, nthreads);
+    tf32::load_tile_async<kDp>(st + kBQ * kLd, gh, i * kBQ, kBQ, n, d, tid, nthreads);
+    tf32::load_vec_async(st + 2 * kBQ * kLd, lh, i * kBQ, kBQ, n, tid, nthreads);
+    tf32::load_vec_async(st + 2 * kBQ * kLd + kBQ, dh, i * kBQ, kBQ, n, tid, nthreads);
+  };
+  tf32::load_tile_async<kDp>(kks, k + head, k0, bk, n, d, tid, nthreads);
+  tf32::load_tile_async<kDp>(vvs, v + head, k0, bk, n, d, tid, nthreads);
+  load_stage(0);
+  tf32::cp_commit();
 
-  for (int q0 = 0; q0 < n; q0 += kB) {
-    const int qn = min(kB, n - q0);
-    __syncthreads();  // the previous tile's qs, dos, ps, dss are no longer read
-    load_rows<NC>(qs, q + head, q0, n, d);
-    load_rows<NC>(dos, dout + head, q0, n, d);
-    if (tid < kB) {
-      const bool live = tid < qn;
-      lse_s[tid] = live ? lse[static_cast<size_t>(bh) * n + q0 + tid] : 0.f;
-      delta_s[tid] = live ? delta[static_cast<size_t>(bh) * n + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    if (r0 < qn) {
-      float p[kTM][4], ds[kTM][4];
-      p_and_ds_live<NC>(qs, dos, kt, vt, lse_s, delta_s, r0, tc, qn, kn, scale, p, ds);
+  float dk_acc[kDT][4], dv_acc[kDT][4];
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) {
+  for (int c = 0; c < kDT; ++c)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ps[(r0 + i) * kLd + tc + 16 * j] = p[i][j];
-          dss[(r0 + i) * kLd + tc + 16 * j] = ds[i][j];
-        }
-        if (r0 + i < qn) {  // dS of the live rows, every column of the tile
-          float* row = ds_head + static_cast<size_t>(q0 + r0 + i) * ld + k0 + tc;
+    for (int e = 0; e < 4; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
+
+  for (int it = 0; it < q_tiles; ++it) {
+    tf32::cp_wait<0>();  // tile it has landed, for every thread, and tile
+    __syncthreads();     // it - 1 is consumed
+    if (it + 1 < q_tiles) load_stage(it + 1);
+    tf32::cp_commit();
+
+    const float* qs = ring + (it % kStages) * kStage;
+    const float* dos = qs + kBQ * kLd;
+    const float* lse_s = dos + kBQ * kLd;
+    const float* delta_s = lse_s + kBQ;
+    const int q0 = it * kBQ;
+    const int qn = min(kBQ, n - q0);  // live query rows of the tile
+    // one tile; a full one has no live-row tests (see attention_fwd.cu)
+    auto tile = [&](auto full) {
+      constexpr bool kFull = decltype(full)::value;
+      const int live_nt = kFull ? kNQ : (qn + 7) / 8;
+
+      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys
+      float s[kNQ][4], dp[kNQ][4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) row[16 * j] = ds[i][j];
+      for (int j = 0; j < kNQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks8 = 0; ks8 < kDT; ++ks8) {
+        const tf32::AFrag ak = tf32::a_frag_rows(kks, kLd, wk, 8 * ks8, g, t);
+        const tf32::AFrag av = tf32::a_frag_rows(vvs, kLd, wk, 8 * ks8, g, t);
+        tf32::BFrag b[kNQ];
+        tf32::b_frags_t(b, qs, kLd, 8 * ks8, g, t, live_nt);
+        tf32::mma3(s, ak, b, live_nt);
+        tf32::b_frags_t(b, dos, kLd, 8 * ks8, g, t, live_nt);
+        tf32::mma3(dp, av, b, live_nt);
+      }
+      // P^T from the lse of each column's query row, dS^T = P^T (dP^T -
+      // delta); query rows past N get 0.  dS goes to the scratch for the
+      // dQ pass.
+#pragma unroll
+      for (int j = 0; j < kNQ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const bool live = kFull || (j < live_nt && col < qn);
+          const float p =
+              live ? exp2f(s[j][e] * scale_log2 - lse_s[col] * tf32::kLog2e) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - delta_s[col]);
+          const int key = k0 + wk + g + 8 * (e / 2);
+          if ((kFull || col < qn) && key < n)
+            dsh[static_cast<size_t>(q0 + col) * n + key] = dp[j][e];
         }
       }
-    }
-    __syncthreads();
-    if (keys_live) {
-#pragma unroll 4
-      for (int i = 0; i < qn; ++i) {
-        float pv[kTM], gv[kTM], dov[NC], qv[NC];
+      // dV += P^T dO, dK += dS^T Q
 #pragma unroll
-        for (int kk = 0; kk < kTM; ++kk) {
-          pv[kk] = ps[i * kLd + r0 + kk];
-          gv[kk] = dss[i * kLd + r0 + kk];
+      for (int j = 0; j < kNQ; ++j) {
+        if (j < live_nt) {
+          const tf32::AFrag ap = tf32::a_frag_perm(s[j]);
+          const tf32::AFrag ad = tf32::a_frag_perm(dp[j]);
+          tf32::BFrag b[kDT];
+          tf32::b_frags_perm(b, dos, kLd, 8 * j, g, t);
+          tf32::mma3(dv_acc, ap, b, kDT);
+          tf32::b_frags_perm(b, qs, kLd, 8 * j, g, t);
+          tf32::mma3(dk_acc, ad, b, kDT);
         }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dov[c] = dos[i * kLq + tc + 16 * c];
-          qv[c] = qs[i * kLq + tc + 16 * c];
-        }
-#pragma unroll
-        for (int kk = 0; kk < kTM; ++kk)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv_acc[kk][c] = fmaf(pv[kk], dov[c], dv_acc[kk][c]);
-            dk_acc[kk][c] = fmaf(gv[kk], qv[c], dk_acc[kk][c]);
-          }
       }
+    };
+    if (warp_live) {
+      if (qn == kBQ)
+        tile(std::true_type{});
+      else
+        tile(std::false_type{});
     }
   }
+  tf32::cp_wait<0>();
 
-  if (keys_live) {
+  if (!warp_live) return;
 #pragma unroll
-    for (int kk = 0; kk < kTM; ++kk) {
-      const int key = k0 + r0 + kk;
-      if (key >= n) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + wk + g + 8 * r;
+    if (key >= n) continue;
+    float* dkr = dk + head + static_cast<size_t>(key) * d;
+    float* dvr = dv + head + static_cast<size_t>(key) * d;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tc + 16 * c;
-        if (col < d) {
-          dk[head + static_cast<size_t>(key) * d + col] = dk_acc[kk][c] * scale;
-          dv[head + static_cast<size_t>(key) * d + col] = dv_acc[kk][c];
-        }
+    for (int c = 0; c < kDT; ++c) {
+      const int col = 8 * c + 2 * t;
+      if (col < d) {
+        dkr[col] = dk_acc[c][2 * r] * scale;
+        dvr[col] = dv_acc[c][2 * r];
+      }
+      if (col + 1 < d) {
+        dkr[col + 1] = dk_acc[c][2 * r + 1] * scale;
+        dvr[col + 1] = dv_acc[c][2 * r + 1];
       }
     }
   }
 }
 
-// dQ = scale * dS K for 64 query rows of one head: loop over the head's key
-// tiles, reading the dS the dK/dV pass stored.
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-    dq_kernel(const float* __restrict__ k, const float* __restrict__ ds_in,
+// dQ = scale * dS K for 16 W query rows of one head.
+template <int NK>
+__global__ void __launch_bounds__(kMaxThreads)
+    dq_kernel(const float* __restrict__ k, const float* __restrict__ ds,
               float* __restrict__ dq, int n, int d, int q_tiles, float scale) {
-  constexpr int kDp = 16 * NC;
+  constexpr int kDp = 16 * NK;
+  constexpr int kLd = 16 * NK + 4;
+  constexpr int kDT = kDp / 8;
   extern __shared__ float smem[];
-  float* kt = smem;              // [kDp][kLd]
-  float* dss = kt + kDp * kLd;   // [kB][kLd]
+  const int warps = blockDim.x / 32;
+  const int bq = 16 * warps;
+  const int stage = bq * kLdS + kBK * kLd;  // dS [bq][kLdS], then K [kBK][kLd]
+  float* ring = smem;
 
   const int bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * kB;
-  const int qn = min(kB, n - q0);
-  const int ld = q_tiles * kB;  // row stride of dS
+  const int q0 = (blockIdx.x % q_tiles) * bq;
   const size_t head = static_cast<size_t>(bh) * n * d;
-  const float* ds_head = ds_in + static_cast<size_t>(bh) * n * ld;
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16, r0 = tr * kTM;
-  const bool rows_live = r0 < qn;
+  const float* kh = k + head;
+  const float* dsh = ds + static_cast<size_t>(bh) * n * n;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = 16 * warp;
+  const bool warp_live = q0 + wr < n;
+  const int k_tiles = (n + kBK - 1) / kBK;
 
-  float acc[kTM][NC];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  auto load_stage = [&](int kt) {
+    float* st = ring + (kt % kStages) * stage;
+    tf32::load_block_async<kBK, kLdS>(st, dsh, n, q0, kt * kBK, bq, n, n, tid, nthreads);
+    tf32::load_tile_async<kDp>(st + bq * kLdS, kh, kt * kBK, kBK, n, d, tid, nthreads);
+  };
+  load_stage(0);
+  tf32::cp_commit();
 
-  for (int k0 = 0; k0 < n; k0 += kB) {
-    const int kn = min(kB, n - k0);
-    __syncthreads();  // the previous tile's kt, dss are no longer read
-    load_cols<NC>(kt, k + head, k0, n, d);
-    for (int i = tid; i < kB * kB; i += kThreads) {
-      const int r = i / kB, j = i % kB;
-      dss[r * kLd + j] =
-          (r < qn && j < kn) ? ds_head[static_cast<size_t>(q0 + r) * ld + k0 + j] : 0.f;
-    }
+  float acc[kDT][4];
+#pragma unroll
+  for (int c = 0; c < kDT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    tf32::cp_wait<0>();
     __syncthreads();
-    if (rows_live) {
-#pragma unroll 4
-      for (int j = 0; j < kn; ++j) {
-        float gv[kTM], kv[NC];
+    if (kt + 1 < k_tiles) load_stage(kt + 1);
+    tf32::cp_commit();
+
+    const float* dss = ring + (kt % kStages) * stage;
+    const float* ks = dss + bq * kLdS;
+    const int kn = min(kBK, n - kt * kBK);
+    auto tile = [&](auto full) {
+      constexpr bool kFull = decltype(full)::value;
+      const int live_nt = kFull ? kNK : (kn + 7) / 8;
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) gv[i] = dss[(r0 + i) * kLd + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) kv[c] = kt[(tc + 16 * c) * kLd + j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(gv[i], kv[c], acc[i][c]);
+      for (int j = 0; j < kNK; ++j) {
+        if (j < live_nt) {
+          // dS with the k permutation: columns 2t and 2t + 1 of the group
+          const float* p = dss + (wr + g) * kLdS + 8 * j + 2 * t;
+          const float2 top = *reinterpret_cast<const float2*>(p);               // row g
+          const float2 bottom = *reinterpret_cast<const float2*>(p + 8 * kLdS);  // row g + 8
+          const tf32::AFrag a = tf32::a_frag(top.x, bottom.x, top.y, bottom.y);
+          tf32::BFrag b[kDT];
+          tf32::b_frags_perm(b, ks, kLd, 8 * j, g, t);
+          tf32::mma3(acc, a, b, kDT);
+        }
       }
+    };
+    if (warp_live) {
+      if (kn == kBK)
+        tile(std::true_type{});
+      else
+        tile(std::false_type{});
     }
   }
+  tf32::cp_wait<0>();
 
-  if (rows_live) {
+  if (!warp_live) return;
+  float* dqh = dq + head;
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int r = q0 + r0 + i;
-      if (r >= n) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
+    if (row >= n) continue;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tc + 16 * c;
-        if (col < d) dq[head + static_cast<size_t>(r) * d + col] = acc[i][c] * scale;
-      }
+    for (int c = 0; c < kDT; ++c) {
+      const int col = 8 * c + 2 * t;
+      if (col < d) dqh[static_cast<size_t>(row) * d + col] = acc[c][2 * r] * scale;
+      if (col + 1 < d) dqh[static_cast<size_t>(row) * d + col + 1] = acc[c][2 * r + 1] * scale;
     }
   }
 }
 
-template <int NC>
+template <int NK>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
                    const float* dout, const float* lse, float* delta, float* ds, float* dq,
                    float* dk, float* dv, long long bh, int n, int d, float scale,
                    cudaStream_t stream) {
+  const tf32::Tiling tl = tf32::tiling(n);
+  const long long blocks = bh * tl.tiles;
   const long long rows = bh * n;
-  const long long delta_blocks = (rows * 32 + kThreads - 1) / kThreads;
-  const int tiles = (n + kB - 1) / kB;
-  const long long blocks = bh * tiles;
+  const long long delta_blocks = (rows * 32 + 255) / 256;
   if (blocks > INT_MAX || delta_blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  const int dkdv_bytes = dkdv_smem_floats<NC>() * static_cast<int>(sizeof(float));
-  const int dq_bytes = dq_smem_floats<NC>() * static_cast<int>(sizeof(float));
+  const int dkdv_bytes = dkdv_smem_floats<NK>(tl.warps) * static_cast<int>(sizeof(float));
+  const int dq_bytes = dq_smem_floats<NK>(tl.warps) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
+      dkdv_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(dq_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dq_bytes);
   if (err != cudaSuccess) return err;
-  delta_kernel<<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(o, dout, delta,
-                                                                             rows, d);
+  delta_kernel<<<static_cast<unsigned>(delta_blocks), 256, 0, stream>>>(o, dout, delta, rows, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<NC><<<static_cast<unsigned>(blocks), kThreads, dkdv_bytes, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, ds, n, d, tiles, scale);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  dkdv_kernel<NK><<<grid, 32 * tl.warps, dkdv_bytes, stream>>>(
+      q, k, v, dout, lse, delta, ds, dk, dv, n, d, tl.tiles, scale, scale * tf32::kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<NC><<<static_cast<unsigned>(blocks), kThreads, dq_bytes, stream>>>(
-      k, ds, dq, n, d, tiles, scale);
+  dq_kernel<NK><<<grid, 32 * tl.warps, dq_bytes, stream>>>(k, ds, dq, n, d, tl.tiles, scale);
   return cudaGetLastError();
 }
 
@@ -389,9 +373,9 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 // C entry for ctypes.  bh = B * H; q, k, v, o (the forward's output), dout,
 // dq, dk, dv are device pointers to contiguous (B, H, N, D) float32 tensors;
 // lse (the forward's log-sum-exp) and delta (scratch) are (B, H, N)
-// float32; ds (scratch) is (B, H, N, ceil(N/64)*64) float32; stream is a
-// cudaStream_t.  Launches three kernels in order on the stream.  Returns a
-// cudaError_t: 0 when every launch was accepted.
+// float32; ds (scratch) is (B, H, N, N) float32; stream is a cudaStream_t.
+// Launches three kernels in order on the stream.  Returns a cudaError_t: 0
+// when every launch was accepted.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const void* lse, void* delta, void* ds,
                              void* dq, void* dk, void* dv, long long bh, int n, int d,

@@ -7,237 +7,244 @@
 // Same function, same call contract: q, k, v, o are (B, H, N, D) float32,
 // contiguous, with any N >= 1 and D <= 128.  The TPU version padded N to 256
 // and D to 128 for its tiles and masked the padded keys; here nothing is
-// padded in device memory, and only keys >= N are left out of the softmax.
+// padded in device memory: D is zero-padded in shared memory to a multiple
+// of 16, and keys >= N are left out of the softmax.
 //
-// Bound on an H100 SXM, at the ViT-Ti eval shape (256, 3, 196, 64):
+// Bounds on an H100 SXM, at the ViT-Ti shape (256, 3, 196, 64):
 //   bytes: q, k, v read once and o written once, 4 * 256*3*196*64 * 4 B
-//          = 154 MB, 46 us at 3.35 TB/s;
-//   operations: QK^T and PV, 2 * 2*N*N*D per (batch, head), 7.55 GFLOP of
-//          float32 multiply-adds, 113 us at the 67 TFLOP/s of the float32
-//          CUDA cores (the tensor cores take float32 only as TF32, which
-//          would not keep the reference's precision).
-// So the kernel is bound by float32 operations, not by bytes.
+//          = 154 MB, 0.046 ms at 3.35 TB/s;
+//   operations: QK^T and PV, 2 * 2*N*N*D per (batch, head), 7.55 GFLOP:
+//          0.113 ms at the 67 TFLOP/s of the float32 CUDA cores, or, in
+//          3xTF32 (three TF32 products per float32 product, tf32_mma.cuh),
+//          3 * 7.55 GFLOP at the tensor cores' 495 TFLOP/s = 0.046 ms.
+// In 3xTF32 the two bounds meet: the kernel is bound by operations and
+// bytes alike, and both are 2.5x below the CUDA cores' float32 bound.
 //
-// What the design does about that bound:
-//   - The (N, N) scores never reach device memory: each block streams the
-//     head's keys and values through shared memory in 64-key tiles and keeps
-//     a running max and sum per query row (the online softmax), so device
-//     memory sees q, k, v once per query tile and o once.
-//   - One block per (batch*head, 64 query rows), 256 threads.  Each thread
-//     owns 4 query rows x 4 key columns of a score tile and 4 query rows x
-//     D/16 output columns, so every value read from shared memory feeds 4
-//     multiply-adds; column lanes read neighbouring words (no bank
-//     conflicts), and the key tile is stored transposed with a padded stride
-//     for the same reason.
-//   - Work past the edges is skipped, not masked: row groups past N do no
-//     arithmetic, and the last key tile computes only its live 16-column
-//     groups (N = 196 leaves 4 keys in the last tile).
-//   - About 67 KB of shared memory at D = 64 lets three blocks share an SM.
-// Left for later work: the exp of the online softmax runs on 64 threads of
-// the block, and bf16/TF32 tensor-core (wgmma) and TMA versions.
+// Design:
+//   - Both products on the tensor cores in 3xTF32, which keeps float32's
+//     precision (the tests hold the kernel to the reference's tolerances).
+//     Route: mma.sync m16n8k8 by inline PTX, each warp owning 16 query
+//     rows (the FlashAttention-2 layout).  wgmma would reach the full rate,
+//     but for TF32 it wants both operands K-major in shared memory (V as
+//     V^T) behind descriptors, and the split operands would have to be
+//     staged there too; mma.sync keeps the scores in the registers of the
+//     warp that owns their rows and splits each operand as it is loaded.
+//     wgmma belongs with the bf16 kernels of the AMP slice.
+//   - Softmax in registers: the scores of a 16 x 32 tile stay in the mma
+//     accumulators; each row's running max and sum live in the four lanes
+//     that hold the row, reduced with __shfl_xor_sync.  The scores then feed
+//     the PV product as its A operand with no shuffle (the k permutation of
+//     tf32_mma.cuh), so no warp waits on another between the two products.
+//   - K and V arrive in 32-key tiles through a ring of two shared-memory
+//     stages by cp.async: the copy of tile j + 1 is issued right after the
+//     barrier that opens tile j, into the stage tile j - 1 left, and is in
+//     flight while the warps compute on tile j; one barrier a tile.  Q stays
+//     in shared memory for the whole loop.  Every operand is split into its
+//     high and low parts as its fragment is loaded (splitting Q once into a
+//     second shared array cost a block an SM and ran slower).
+//   - Every tile but a ragged last one runs without live-key tests, so its
+//     loads, splits and products are one basic block for the scheduler.
+//   - Query tiles of 16 rows per warp, spread evenly over the blocks of a
+//     head (tf32::tiling): N = 196 takes four blocks of 4 warps, 13 of whose
+//     16 warps hold live rows, and the last key tile computes only its live
+//     8-key groups.  Rows computed 208 of 196, keys 200 of 196: 8.3% of the
+//     products fall past N.
+//   - About 52 KB of shared memory and 125 registers at D = 64: four blocks
+//     of 4 warps an SM.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <math.h>
+#include <type_traits>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kTM = 4;         // query rows per thread
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kLd = kBK + 1;   // padded stride of the key-indexed arrays
+constexpr int kBK = 32;        // keys per tile
+constexpr int kNT = kBK / 8;   // 8-key groups per tile
+constexpr int kStages = 2;     // K, V ring
+constexpr int kMaxThreads = 32 * tf32::kMaxWarps;
 
-// Shared memory, in floats, for D <= 16 * NC.
-template <int NC>
-constexpr int smem_floats() {
-  return kBQ * (16 * NC + 1)  // query tile        [kBQ][Dp + 1]
-         + 16 * NC * kLd      // key tile, K^T    [Dp][kLd]
-         + kBK * 16 * NC      // value tile       [kBK][Dp]
-         + kBQ * kLd          // scores, then P   [kBQ][kLd]
-         + 2 * kBQ;           // row rescale and row sums
+// Shared memory, in floats: Q [16 W][ld], then each stage's K and V
+// [kBK][ld].
+template <int NK>
+int smem_floats(int warps) {
+  return (16 * warps + 2 * kStages * kBK) * (16 * NK + 4);
 }
 
-// Scores of this thread's 4 rows x JG column groups of one key tile,
-// scaled, into ps.  JG is the number of 16-wide column groups that hold a
-// live key, so the last, partial tile does only the work it needs.
-template <int NC, int JG>
-__device__ __forceinline__ void score_tile(const float* __restrict__ qs,
-                                           const float* __restrict__ kt,
-                                           float* __restrict__ ps, int r0,
-                                           int tc, float scale) {
-  constexpr int kDp = 16 * NC;
-  constexpr int kLq = kDp + 1;
-  float s[kTM][JG];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < JG; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < kDp; ++c) {
-    float qv[kTM], kv[JG];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) qv[i] = qs[(r0 + i) * kLq + c];
-#pragma unroll
-    for (int j = 0; j < JG; ++j) kv[j] = kt[c * kLd + tc + 16 * j];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < JG; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < JG; ++j) ps[(r0 + i) * kLd + tc + 16 * j] = s[i][j] * scale;
-}
-
-// at least 3 resident blocks: that caps registers at 80 a thread, which the
-// D <= 64 instantiations would otherwise cut to 64 with spills
-template <int NC>
-__global__ void __launch_bounds__(kThreads, 3)
+template <int NK>
+__global__ void __launch_bounds__(kMaxThreads)
     attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int n, int d, int q_tiles, float scale) {
-  constexpr int kDp = 16 * NC;
-  constexpr int kLq = kDp + 1;
+                         float* __restrict__ lse, int n, int d, int q_tiles, float scale_log2) {
+  constexpr int kDp = 16 * NK;
+  constexpr int kLd = 16 * NK + 4;
+  constexpr int kDT = kDp / 8;  // 8-wide column groups of the head dim
   extern __shared__ float smem[];
-  float* qs = smem;                   // [kBQ][kLq]
-  float* kt = qs + kBQ * kLq;         // [kDp][kLd]
-  float* vs = kt + kDp * kLd;         // [kBK][kDp]
-  float* ps = vs + kBK * kDp;         // [kBQ][kLd]
-  float* row_scale = ps + kBQ * kLd;  // [kBQ]
-  float* row_sum = row_scale + kBQ;   // [kBQ]
+  const int warps = blockDim.x / 32;
+  const int bq = 16 * warps;
+  float* qs = smem;                // [bq][kLd]
+  float* ring = qs + bq * kLd;    // stage s: K at ring + 2 s kBK kLd, V after it
 
   // query tiles of one head are neighbouring blocks, so the head's keys and
-  // values are read from device memory about once and from L2 after that
+  // values come from device memory about once and from L2 after that
   const int bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * kBQ;
+  const int q0 = (blockIdx.x % q_tiles) * bq;
   const size_t head = static_cast<size_t>(bh) * n * d;
-  const float* qh = q + head;
   const float* kh = k + head;
   const float* vh = v + head;
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = 16 * warp;             // the warp's first row in the tile
+  const bool warp_live = q0 + wr < n;
+  const int k_tiles = (n + kBK - 1) / kBK;
+
+  // the ring: K and V of tile j in stage j % 2; tile j + 1 is copied while
+  // the warps compute on tile j, into the stage that tile j - 1 left
+  auto load_stage = [&](int j) {
+    float* st = ring + (j % kStages) * 2 * kBK * kLd;
+    tf32::load_tile_async<kDp>(st, kh, j * kBK, kBK, n, d, tid, nthreads);
+    tf32::load_tile_async<kDp>(st + kBK * kLd, vh, j * kBK, kBK, n, d, tid, nthreads);
+  };
+  tf32::load_tile_async<kDp>(qs, q + head, q0, bq, n, d, tid, nthreads);
+  load_stage(0);
+  tf32::cp_commit();
+
+  float acc[kDT][4];
+#pragma unroll
+  for (int c = 0; c < kDT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  // running max (log2 units) and this lane's part of the running sum, of
+  // rows g and g + 8 of the warp's 16
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    tf32::cp_wait<0>();  // tile kt has landed
+    __syncthreads();     // ... for every thread, and tile kt - 1 is consumed
+    if (kt + 1 < k_tiles) load_stage(kt + 1);
+    tf32::cp_commit();
+
+    const float* ks = ring + (kt % kStages) * 2 * kBK * kLd;
+    const float* vs = ks + kBK * kLd;
+    const int kn = min(kBK, n - kt * kBK);  // live keys of the tile
+    // one tile; a full one (every tile but a ragged last) has no live-key
+    // tests, so its loads, splits and products form one basic block that
+    // the compiler schedules as a whole
+    auto tile = [&](auto full) {
+      constexpr bool kFull = decltype(full)::value;
+      const int live_nt = kFull ? kNT : (kn + 7) / 8;
+
+      // S = Q K^T for the warp's 16 rows, live 8-key groups only
+      float s[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int ks8 = 0; ks8 < kDT; ++ks8) {
+        const tf32::AFrag a = tf32::a_frag_rows(qs, kLd, wr, 8 * ks8, g, t);
+        tf32::BFrag b[kNT];
+        tf32::b_frags_t(b, ks, kLd, 8 * ks8, g, t, live_nt);
+        tf32::mma3(s, a, b, live_nt);
+      }
+
+      // online softmax in log2 units: scale, mask keys past N, fold the
+      // tile into each row's max, rescale what was summed under the old one
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = kFull || (j < live_nt && 8 * j + 2 * t + (e & 1) < kn);
+          s[j][e] = live ? s[j][e] * scale_log2 : -INFINITY;
+          mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        alpha[r] = exp2f(m_run[r] - mx[r]);  // 0 on the first tile
+        m_run[r] = mx[r];
+        l_run[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f(s[j][e] - m_run[e / 2]);
+          l_run[e / 2] += s[j][e];
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kDT; ++c) {
+        acc[c][0] *= alpha[0];
+        acc[c][1] *= alpha[0];
+        acc[c][2] *= alpha[1];
+        acc[c][3] *= alpha[1];
+      }
+
+      // O += P V, P straight from the score registers
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (j < live_nt) {
+          const tf32::AFrag a = tf32::a_frag_perm(s[j]);
+          tf32::BFrag b[kDT];
+          tf32::b_frags_perm(b, vs, kLd, 8 * j, g, t);
+          tf32::mma3(acc, a, b, kDT);
+        }
+      }
+    };
+    if (warp_live) {
+      if (kn == kBK)
+        tile(std::true_type{});
+      else
+        tile(std::false_type{});
+    }
+  }
+  tf32::cp_wait<0>();
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
   float* oh = o + head;
-
-  const int tid = threadIdx.x;
-  const int tr = tid / 16;          // row group
-  const int tc = tid % 16;          // column lane
-  const int r0 = tr * kTM;          // this thread's first row in the tile
-  const bool rows_live = q0 + r0 < n;
-
-  for (int i = tid; i < kBQ * kDp; i += kThreads) {
-    const int r = i / kDp, c = i % kDp;
-    qs[r * kLq + c] =
-        (q0 + r < n && c < d) ? qh[static_cast<size_t>(q0 + r) * d + c] : 0.f;
-  }
-
-  float acc[kTM][NC];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + 8 * r;
+    if (row >= n) continue;
+    const float inv = 1.f / l_run[r];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  // running max and sum of row `tid`, kept by the first kBQ threads
-  float m_run = -INFINITY;
-  float l_run = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    const int kn = min(kBK, n - k0);
-    __syncthreads();  // the previous tile's P and V are no longer read
-    for (int i = tid; i < kBK * kDp; i += kThreads) {
-      const int j = i / kDp, c = i % kDp;
-      const bool live = j < kn && c < d;
-      const size_t g = static_cast<size_t>(k0 + j) * d + c;
-      kt[c * kLd + j] = live ? kh[g] : 0.f;
-      vs[j * kDp + c] = live ? vh[g] : 0.f;
+    for (int c = 0; c < kDT; ++c) {
+      const int col = 8 * c + 2 * t;
+      if (col < d) oh[static_cast<size_t>(row) * d + col] = acc[c][2 * r] * inv;
+      if (col + 1 < d) oh[static_cast<size_t>(row) * d + col + 1] = acc[c][2 * r + 1] * inv;
     }
-    __syncthreads();
-
-    if (rows_live) {
-      switch ((kn + 15) / 16) {
-        case 1: score_tile<NC, 1>(qs, kt, ps, r0, tc, scale); break;
-        case 2: score_tile<NC, 2>(qs, kt, ps, r0, tc, scale); break;
-        case 3: score_tile<NC, 3>(qs, kt, ps, r0, tc, scale); break;
-        default: score_tile<NC, 4>(qs, kt, ps, r0, tc, scale); break;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: fold this tile's keys into row tid's max and sum,
-    // turn its scores into exp(s - max), and leave the factor that rescales
-    // the output accumulated so far under the old max
-    if (tid < kBQ) {
-      float* prow = ps + tid * kLd;
-      float m_new = m_run;
-      for (int j = 0; j < kn; ++j) m_new = fmaxf(m_new, prow[j]);
-      float sum = 0.f;
-      for (int j = 0; j < kn; ++j) {
-        const float p = expf(prow[j] - m_new);
-        prow[j] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_run - m_new);  // 0 on the first tile
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      row_scale[tid] = alpha;
-    }
-    __syncthreads();
-
-    if (rows_live) {
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const float a = row_scale[r0 + i];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] *= a;
-      }
-#pragma unroll 4
-      for (int j = 0; j < kn; ++j) {
-        float pv[kTM], vv[NC];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) pv[i] = ps[(r0 + i) * kLd + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) vv[c] = vs[j * kDp + tc + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-      }
-    }
-  }
-
-  if (tid < kBQ) {
-    row_sum[tid] = l_run;
     // log-sum-exp of the row's scaled scores, for the backward pass
-    if (lse != nullptr && q0 + tid < n)
-      lse[static_cast<size_t>(bh) * n + q0 + tid] = m_run + logf(l_run);
-  }
-  __syncthreads();
-  if (rows_live) {
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int r = q0 + r0 + i;
-      if (r >= n) continue;
-      const float inv = 1.f / row_sum[r0 + i];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tc + 16 * c;
-        if (col < d) oh[static_cast<size_t>(r) * d + col] = acc[i][c] * inv;
-      }
-    }
+    if (lse != nullptr && t == 0)
+      lse[static_cast<size_t>(bh) * n + row] = (m_run[r] + log2f(l_run[r])) * tf32::kLn2;
   }
 }
 
-template <int NC>
+template <int NK>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse,
                    long long bh, int n, int d, float scale, cudaStream_t stream) {
-  const int bytes = smem_floats<NC>() * static_cast<int>(sizeof(float));
+  const tf32::Tiling tl = tf32::tiling(n);
+  const int bytes = smem_floats<NK>(tl.warps) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attention_fwd_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const int q_tiles = (n + kBQ - 1) / kBQ;
-  const long long blocks = bh * q_tiles;
+  const long long blocks = bh * tl.tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  attention_fwd_kernel<NC><<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
-      q, k, v, o, lse, n, d, q_tiles, scale);
+  attention_fwd_kernel<NK><<<static_cast<unsigned>(blocks), 32 * tl.warps, bytes, stream>>>(
+      q, k, v, o, lse, n, d, tl.tiles, scale * tf32::kLog2e);
   return cudaGetLastError();
 }
 

@@ -8,7 +8,10 @@ forward ``_fwd_kernel`` :39-48 and its VJP ``_bwd_kernel`` :51-69).
 
 - On CUDA tensors the forward launches ``csrc/attention_fwd.cu`` (with the
   per-row log-sum-exp when a gradient will be needed) and the backward
-  launches ``csrc/attention_bwd.cu``; a refused launch raises.
+  launches ``csrc/attention_bwd.cu``; a refused launch raises.  Both compute
+  their products in 3xTF32 on the tensor cores (``csrc/tf32_mma.cuh``),
+  which keeps float32's precision: the card holds them to the Pallas
+  tests' tolerances.
 - On CPU tensors the forward is :func:`attention_plain`, the einsum path of
   the JAX ViT (``models/vit.py:69-73``), and the backward is autograd
   through it (:func:`attention_bwd_plain`).  The tests and ``chip_smoke.py``
@@ -26,7 +29,7 @@ from rgbnomore_tpu_torch.ops import cuda_build
 __all__ = ["attention_bwd_plain", "attention_plain", "fused_attention",
            "fused_attention_bwd", "fused_attention_fwd"]
 
-_MAX_HEAD_DIM = 128  # the kernels keep D/16 output columns per thread in registers
+_MAX_HEAD_DIM = 128  # the kernels keep a warp's 16 x D output tile in registers
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -130,10 +133,10 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be contiguous float32 ({b}, {h}, {n}) on {q.device}")
     lib = _library("attention_bwd")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # the kernel's scratch: rowsum(dout * out), and dS with rows padded to
-    # whole 64-key tiles
+    # the kernel's scratch: rowsum(dout * out), and dS from its dK/dV pass
+    # to its dQ pass
     delta = torch.empty_like(lse)
-    ds = torch.empty((b, h, n, -(-n // 64) * 64), dtype=torch.float32, device=q.device)
+    ds = torch.empty((b, h, n, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -4,9 +4,10 @@ Each source under ``rgbnomore_tpu_torch/csrc/`` compiles on its own into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), for ``sm_90a``, into the build directory
 ``rgbnomore_tpu_torch/_build/`` that ``.gitignore`` lists.  A library's file
-name carries a hash of its source and of the flags, so a changed source is
-never served a stale build.  ``build()`` starts one ``nvcc`` per stale source,
-all at once, and waits for them together.
+name carries a hash of its source, of the headers beside it (``*.cuh``) and
+of the flags, so a changed source is never served a stale build.
+``build()`` starts one ``nvcc`` per stale source, all at once, and waits for
+them together.
 
 Nothing is compiled or loaded at import time: the first launch of a kernel
 builds it (``load``), and ``chip_smoke.py`` builds every kernel up front.
@@ -60,6 +61,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of kernel ``name`` lives once built."""
     src = (CSRC / KERNELS[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # headers
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -124,3 +124,21 @@ def test_kernel_gradients_match_plain_on_card(b, n, d):
     for leaf, w in zip(leaves, attention_bwd_plain(q, k, v, g, SCALE)):
         np.testing.assert_allclose(leaf.grad.cpu().numpy(), w.cpu().numpy(), atol=5e-4,
                                    rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_kernel_backward_is_deterministic_on_card():
+    """The backward kernel sums in a fixed order, with no atomics: two runs
+    at the ViT-Ti shape give bit-identical dq, dk, dv."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    from rgbnomore_tpu_torch.ops.attention import fused_attention_bwd, fused_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, g = (torch.randn((256, 3, 196, 64), generator=gen, device="cuda") for _ in range(4))
+    out, lse = fused_attention_fwd(q, k, v, SCALE, with_lse=True)
+    first = fused_attention_bwd(q, k, v, out, lse, g, SCALE)
+    again = fused_attention_bwd(q, k, v, out, lse, g, SCALE)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
