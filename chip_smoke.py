@@ -25,12 +25,15 @@ Phases, each raising on failure (the script then exits non-zero):
      against its plain version at the main paths' shapes and the JAX
      package's test shapes, then timed with CUDA events beside its plain
      version, its bound and, where one exists, a PyTorch library call.  The
-     ViT attention kernels compute in 3xTF32 on the tensor cores: their
-     report adds that bound beside the float32 CUDA cores' (``bound_ms`` is
-     the tensor cores', the least time for the work as they do it), each
-     bound's share, and their device time without the host's launch
-     overhead from ``torch.profiler``; two runs of the backward at the
-     ViT-Ti shape must give the same bits;
+     attention and window attention kernels compute in 3xTF32 on the tensor
+     cores: their report adds that bound beside the float32 CUDA cores'
+     (``bound_ms`` is the tensor cores', the least time for the work as
+     they do it), each bound's share, and their device time without the
+     host's launch overhead from ``torch.profiler``; two runs of each
+     backward must give the same bits.  The window kernels are timed at
+     every SwinV2-T stage, unshifted and shifted, summed over one train
+     step and one eval batch, and reported with their ``ptxas`` registers
+     and spills;
   4. slice: 512 images through the ViT-Ti ``Trainer.evaluate`` with launch
      counts; the pipeline on the card against the CPU, logits of the kernel
      path against the plain path and against the CPU;
@@ -134,6 +137,9 @@ WIN_TOL = dict(atol=2e-5, rtol=1e-5)
 WIN_JAX_CASES = [(4, 2, 16, 8, 4), (8, 2, 16, 8, 4), (12, 2, 16, 8, 4)]
 N_CODEC = 256  # JPEG files of the codec phase
 N_CELL_IMAGES = 16  # of them, constant 16x16 colour cells at quality 100
+# kernel library -> {kernel<template args>: "registers, spill bytes"}, from
+# the build logs' ptxas lines
+PTXAS: dict[str, dict[str, str]] = {}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -239,21 +245,29 @@ def ms_text(ms: float | None) -> str:
 
 
 def device_ms(fn, reps: int = 10) -> float | None:
-    """The device time of one ``fn()``: the kernels it launches, summed by
-    ``torch.profiler`` over ``reps`` calls after a warm-up, divided by
-    ``reps``; the host's launch overhead, which ``time_ms`` counts, is left
-    out.  None where the profiler sees no device time."""
+    """The device time of one ``fn()``: for each kernel that ``torch.profiler``
+    sees over ``reps`` calls after a warm-up, its mean time per launch times
+    its launches per call (its count over ``reps``, rounded), summed; the
+    host's launch overhead, which ``time_ms`` counts, is left out.  The
+    profiler drops a launch now and then on the H100 (8 of 10
+    counted), so a plain sum over ``reps`` would read low, and now and then
+    sees nothing at all: that window is taken again, up to three times.
+    None where the profiler sees no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages())
-    return total / reps / 1e3 if total else None
+    for _ in range(3):  # a window where the profiler saw nothing is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
+                    for e in prof.key_averages() if e.count and e.self_device_time_total > 0)
+        if total:
+            return total / 1e3
+    return None
 
 
 def product_bounds_ms(flop: float, nbytes: float) -> dict:
@@ -316,16 +330,19 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, path in paths.items():
         # one "template args: registers, spill bytes" entry per compiled kernel
-        entries, args = [], "?"
+        entries, args = {}, "?"
         for line in path.with_name(path.name + ".log").read_text().splitlines():
             if "Compiling entry function" in line:
-                args = ",".join(re.findall(r"Li(\d+)E", line)) or "-"
+                kernel = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)", line)
+                args = (kernel.group(1) if kernel else line.split("'")[1]) + "<" + ",".join(
+                    re.findall(r"Li(\d+)E", line)) + ">"
             elif "spill stores" in line:
                 spills = re.findall(r"(\d+) bytes spill", line)
             elif "Used" in line and "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                entries.append(f"<{args}> {regs} regs, spills {'/'.join(spills)} B")
-        print(f"build: {name}: " + "; ".join(entries), flush=True)
+                entries[args] = f"{regs} regs, spills {'/'.join(spills)} B"
+        PTXAS[name] = entries
+        print(f"build: {name}: " + "; ".join(f"{k} {v}" for k, v in entries.items()), flush=True)
 
 
 def kernel_attention_fwd(gen) -> dict:
@@ -554,29 +571,52 @@ def window_inputs(gen, case):
     return q.contiguous(), k.contiguous(), v, g, bias.contiguous()
 
 
-def window_bounds_ms(case) -> tuple[tuple[float, str], tuple[float, str]]:
-    """((forward bound ms, by), (backward bound ms, by)) on the card: q, k, v
-    (and dO) read once, o (dq, dk, dv) written once, the bias read (and its
-    gradient written) once, in float32; against 4 N^2 D (10 N^2 D) float32
-    FLOP per (window, head)."""
+def window_bounds_ms(case) -> tuple[dict, dict]:
+    """(forward, backward) bounds on the card (``product_bounds_ms``): q, k,
+    v (and dO) read once, o (dq, dk, dv) written once, the bias read (and
+    its gradient written) once, in float32; against 4 N^2 D (10 N^2 D) FLOP
+    of products per (window, head)."""
     bw, h, n, d, p = case
     qkv = bw * h * n * d * 4
     bias = p * h * n * n * 4
+    return (product_bounds_ms(4 * n * n * d * bw * h, 4 * qkv + bias),
+            product_bounds_ms(10 * n * n * d * bw * h, 7 * qkv + 2 * bias))
+
+
+def window_blocks(batch: int) -> list[tuple[tuple, int]]:
+    """(case, blocks) of one SwinV2-T pass at ``batch``: each stage's even
+    blocks unshifted, its odd ones shifted (stage 4, one window, never
+    shifts)."""
     out = []
-    for flop, nbytes in ((4 * n * n * d * bw * h, 4 * qkv + bias),
-                         (10 * n * n * d * bw * h, 7 * qkv + 2 * bias)):
-        t_ops, t_bytes = flop / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
-        out.append((max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes > t_ops else "operations"))
-    return out[0], out[1]
+    for (wins, heads, shifted), n_blocks in zip(SWIN_STAGES, SWIN_BLOCKS_PER_STAGE):
+        n_shift = n_blocks // 2 if shifted else 0
+        out.append(((batch * wins, heads, WIN_N, WIN_D, 1), n_blocks - n_shift))
+        if n_shift:
+            out.append(((batch * wins, heads, WIN_N, WIN_D, shifted), n_shift))
+    return out
+
+
+def sdpa_mask(bias, bw: int):
+    """The (P, H, N, N) bias as SDPA's (BW, H, N, N) ``attn_mask``, window w
+    on pattern w % P: a broadcast view where P = 1, a copy otherwise."""
+    p, h, n, _ = bias.shape
+    if p == 1:
+        return bias.expand(bw, h, n, n)
+    return bias.expand(bw // p, p, h, n, n).reshape(bw, h, n, n)
 
 
 def kernel_window_attention(gen) -> tuple[dict, dict]:
     """Kernels #3 and #4 against their plain versions at every SwinV2-T
     stage shape of the train batch (unshifted and shifted) and the JAX
-    tests' shapes, then timed at each stage beside the plain versions, the
-    bounds and SDPA (``attn_mask`` = the bias expanded to every window,
-    ``scale=1``; its backward with the bias requiring grad).  The report's
-    numbers are stage 1, unshifted, the largest launch."""
+    tests' shapes, with two backward runs bit-identical; then timed at each
+    stage, unshifted and shifted, beside the plain versions, the bounds and
+    SDPA (``attn_mask`` = the bias expanded to every window, ``scale=1``;
+    its backward with the bias requiring grad), with the kernels' device
+    time from ``torch.profiler``; the forward also at the eval batch.  The
+    sums over one train step (12 forward, 12 backward calls) and one eval
+    batch (12 forward calls) take each block's own case.  The report's
+    numbers are stage 1, unshifted, the largest launch, with the sums and
+    the main path's ``ptxas`` lines beside them."""
     import torch
     import torch.nn.functional as F
 
@@ -612,51 +652,94 @@ def kernel_window_attention(gen) -> tuple[dict, dict]:
               f"{'/'.join(f'{e:.1e}' for e in errs)}", flush=True)
         del q, k, v, g, bias, got, want, grads, again, wgrads
 
-    rows = []
-    for case in window_cases(SWIN_TRAIN_BATCH):
-        if case[4] != 1:
-            continue
-        bw, h, n, d, p = case
-        q, k, v, g, bias = window_inputs(gen, case)
+    def forward_times(case) -> dict:
+        q, k, v, _, bias = window_inputs(gen, case)
+        mask = sdpa_mask(bias, case[0])
         with torch.inference_mode():
-            ms = time_ms(lambda: window_attention(q, k, v, bias))
-            plain_ms = time_ms(lambda: window_attention_plain(q, k, v, bias), reps=10, warmup=2)
-            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias.expand(bw, h, n, n), scale=1.0))
-        bwd_ms = time_ms(lambda: window_attention_bwd(q, k, v, bias, g))
+            out = {"ms": time_ms(lambda: window_attention(q, k, v, bias)),
+                   "device": device_ms(lambda: window_attention(q, k, v, bias)),
+                   "plain": time_ms(lambda: window_attention_plain(q, k, v, bias),
+                                    reps=10, warmup=2),
+                   "sdpa": time_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask, scale=1.0)),
+                   "sdpa_device": device_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask, scale=1.0))}
+        out["bound"] = window_bounds_ms(case)[0]
+        return out
+
+    def backward_times(case) -> dict:
+        q, k, v, g, bias = window_inputs(gen, case)
+        out = {"ms": time_ms(lambda: window_attention_bwd(q, k, v, bias, g)),
+               "device": device_ms(lambda: window_attention_bwd(q, k, v, bias, g))}
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
-        out = window_attention_plain(*leaves)
-        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+        res = window_attention_plain(*leaves)
+        out["plain"] = time_ms(lambda: torch.autograd.grad(res, leaves, g, retain_graph=True),
                                reps=10, warmup=2)
-        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3].expand(bw, h, n, n),
+        res = F.scaled_dot_product_attention(*leaves[:3], attn_mask=sdpa_mask(leaves[3], case[0]),
                                              scale=1.0)
-        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
-        (fb, fby), (bb, bby) = window_bounds_ms(case)
-        rows.append((case, ms, plain_ms, sdpa_ms, fb, fby, bwd_ms, plain_bwd_ms, sdpa_bwd_ms,
-                     bb, bby))
-        print(f"kernels: window_attention {case}: fwd {ms:.4f} ms (plain {plain_ms:.4f}, sdpa "
-              f"{sdpa_ms:.4f}, bound {fb:.4f} {fby}); bwd {bwd_ms:.4f} ms (plain "
-              f"{plain_bwd_ms:.4f}, sdpa {sdpa_bwd_ms:.4f}, bound {bb:.4f} {bby})", flush=True)
-        del q, k, v, g, bias, leaves, out
-    # one train step's 12 forward and 12 backward launches, each shifted
-    # block timed as its stage's unshifted one
-    step = [sum(n_blocks * r[i] for n_blocks, r in zip(SWIN_BLOCKS_PER_STAGE, rows))
-            for i in (1, 2, 3, 4, 6, 7, 8, 9)]
-    print(f"kernels: window_attention per train step of {SWIN_TRAIN_BATCH} (12 launches): fwd "
-          f"{step[0]:.4f} ms (plain {step[1]:.4f}, sdpa {step[2]:.4f}, bound {step[3]:.4f}); bwd "
-          f"{step[4]:.4f} ms (plain {step[5]:.4f}, sdpa {step[6]:.4f}, bound {step[7]:.4f})",
-          flush=True)
-    _, ms, plain_ms, sdpa_ms, fb, fby, bwd_ms, plain_bwd_ms, sdpa_bwd_ms, bb, bby = rows[0]
-    fwd = {"name": "window_attention", "route": "cuda",
-           "source": "rgbnomore_tpu_torch/csrc/window_attention_fwd.cu",
-           "replaces": "rgbnomore_tpu/ops/pallas/attention.py:156",
-           "launches": None, "max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": fb, "bound_by": fby, "library_ms": sdpa_ms}
-    bwd = {"name": "window_attention_bwd", "route": "cuda",
-           "source": "rgbnomore_tpu_torch/csrc/window_attention_bwd.cu",
-           "replaces": "rgbnomore_tpu/ops/pallas/attention.py:170",
-           "launches": None, "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
-           "bound_ms": bb, "bound_by": bby, "library_ms": sdpa_bwd_ms}
+        out["sdpa"] = time_ms(lambda: torch.autograd.grad(res, leaves, g, retain_graph=True))
+        out["sdpa_device"] = device_ms(
+            lambda: torch.autograd.grad(res, leaves, g, retain_graph=True))
+        out["bound"] = window_bounds_ms(case)[1]
+        return out
+
+    def line(tag, case, r) -> str:
+        (tc, tc_by), (f32, _) = r["bound"]["tc"], r["bound"]["f32"]
+        return (f"kernels: {tag} {case}: {r['ms']:.4f} ms (device {ms_text(r['device'])}), plain "
+                f"{r['plain']:.4f}, sdpa {r['sdpa']:.4f} (device {ms_text(r['sdpa_device'])}); "
+                f"bound 3xTF32 {tc:.4f} ({tc_by}, {100 * tc / r['ms']:.1f}%), float32 "
+                f"{f32:.4f} ({100 * f32 / r['ms']:.1f}%)")
+
+    def sums(rows: dict, blocks) -> dict:
+        """Sums over one pass's 12 calls, each block at its own case."""
+        total = {}
+        for key in ("ms", "device", "plain", "sdpa", "sdpa_device"):
+            vals = [rows[case][key] for case, _ in blocks]
+            total[key] = (None if any(x is None for x in vals)
+                          else sum(nb * x for x, (_, nb) in zip(vals, blocks)))
+        for key in ("tc", "f32"):
+            total[key] = sum(nb * rows[case]["bound"][key][0] for case, nb in blocks)
+        return total
+
+    train, fwd_rows, bwd_rows = window_blocks(SWIN_TRAIN_BATCH), {}, {}
+    for case, _ in train:
+        fwd_rows[case] = forward_times(case)
+        print(line("window_attention", case, fwd_rows[case]), flush=True)
+        bwd_rows[case] = backward_times(case)
+        print(line("window_attention_bwd", case, bwd_rows[case]), flush=True)
+    evals, eval_rows = window_blocks(SWIN_EVAL_BATCH), {}
+    for case, _ in evals:
+        eval_rows[case] = forward_times(case)
+        print(line("window_attention", case, eval_rows[case]), flush=True)
+    step = {"fwd": sums(fwd_rows, train), "bwd": sums(bwd_rows, train),
+            "eval": sums(eval_rows, evals)}
+    for tag, what in (("fwd", f"per train step of {SWIN_TRAIN_BATCH}, forward"),
+                      ("bwd", f"per train step of {SWIN_TRAIN_BATCH}, backward"),
+                      ("eval", f"per eval batch of {SWIN_EVAL_BATCH}, forward")):
+        t = step[tag]
+        print(f"kernels: window_attention {what} (12 calls): {t['ms']:.4f} ms (device "
+              f"{ms_text(t['device'])}), plain {t['plain']:.4f}, sdpa {t['sdpa']:.4f} (device "
+              f"{ms_text(t['sdpa_device'])}); bound 3xTF32 {t['tc']:.4f}, float32 "
+              f"{t['f32']:.4f}", flush=True)
+
+    def entry(name, source, replaces, err, r, lib, kernel, per_pass):
+        bounds = product_kernel_entry(r["ms"], r["bound"])
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": None, "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain"],
+                **bounds, "library_ms": r["sdpa"], "device_ms": r["device"],
+                "library_device_ms": r["sdpa_device"],
+                "ptxas": {k: v for k, v in PTXAS.get(lib, {}).items() if kernel in k},
+                "per_pass": per_pass}
+
+    main = train[0][0]  # stage 1, unshifted
+    fwd = entry("window_attention", "rgbnomore_tpu_torch/csrc/window_attention_fwd.cu",
+                "rgbnomore_tpu/ops/pallas/attention.py:156", fwd_err, fwd_rows[main],
+                "window_attention_fwd", f"<{(WIN_D + 15) // 16},{(WIN_N + 15) // 16}>",
+                {"train_step": step["fwd"], "eval_batch": step["eval"]})
+    bwd = entry("window_attention_bwd", "rgbnomore_tpu_torch/csrc/window_attention_bwd.cu",
+                "rgbnomore_tpu/ops/pallas/attention.py:170", bwd_err, bwd_rows[main],
+                "window_attention_bwd", f"<{(WIN_D + 15) // 16},{(WIN_N + 15) // 16}>",
+                {"train_step": step["bwd"]})
     return fwd, bwd
 
 

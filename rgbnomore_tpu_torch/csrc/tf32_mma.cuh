@@ -1,6 +1,7 @@
-// Tile pieces shared by the ViT attention kernels (attention_fwd.cu,
-// attention_bwd.cu): float32 products in 3xTF32 on the tensor cores, and
-// cp.async tile copies from device memory into shared memory.
+// Tile pieces shared by the attention kernels (attention_fwd.cu,
+// attention_bwd.cu, window_attention_fwd.cu, window_attention_bwd.cu):
+// float32 products in 3xTF32 on the tensor cores, and cp.async tile copies
+// from device memory into shared memory.
 //
 // 3xTF32.  The tensor cores take float32 operands as TF32 (8 exponent bits,
 // 10 mantissa bits).  Each float32 operand x is split into a high part
@@ -103,6 +104,16 @@ __device__ __forceinline__ BFrag b_frag_perm(const float* s, int ld, int k0, int
                                              int t) {
   const float* p = s + (k0 + 2 * t) * ld + n0 + g;
   return b_frag(p[0], p[ld]);
+}
+
+// A fragment of the 16 x 8 block at (row m0, k block k0) of the transpose
+// of a row-major tile, A[m][k] = tile[k0 + perm(k)][m0 + m], with the k
+// permutation of b_frag_perm (P^T and dS^T of a window's keys, read from
+// the query-major tiles): free of bank conflicts for ld = 4 mod 16
+__device__ __forceinline__ AFrag a_frag_t_perm(const float* s, int ld, int k0, int m0, int g,
+                                               int t) {
+  const float* p = s + (k0 + 2 * t) * ld + m0 + g;
+  return a_frag(p[0], p[8], p[ld], p[ld + 8]);
 }
 
 // b[j] = b_frag_t(tile, ld, 8 j, k0) for the first `live` j: B^T's rows

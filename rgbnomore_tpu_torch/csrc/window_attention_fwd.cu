@@ -6,231 +6,234 @@
 // _win_fwd_kernel (:156-167), which _window_attention_impl (:228-246)
 // launches for fused_window_attention.  The TPU kernel stacked two windows
 // into one 128-row tile (with -1e9 off the block diagonal of its bias) to
-// fill the MXU; a per-window block computes the same outputs, so nothing is
-// packed here.  q, k, v, o are (BW, H, N, D) float32, contiguous, N <= 64,
+// fill the MXU; here each warp owns 16 query rows of one window, so nothing
+// is packed.  q, k, v, o are (BW, H, N, D) float32, contiguous, N <= 64,
 // D <= 64; bias is (P, H, N, N) float32, contiguous, and BW % P == 0.  P = 1
 // for the unshifted blocks of SwinV2 (the relative position bias alone),
 // P = nW for the shifted ones (the bias plus each window's shift mask).
 //
-// Bound on an H100 SXM, per (window, head) at the SwinV2-T shape N = 64,
-// D = 32:
-//   bytes: q, k, v read once and o written once, 4 * N*D * 4 B = 32 KB
-//          (the bias, shared by every window of a pattern, is small);
-//   operations: QK^T and PV, 4*N^2*D = 0.52 MFLOP of float32 multiply-adds.
-// At 3.35 TB/s and the 67 TFLOP/s of the float32 CUDA cores that is 9.8 ns
-// of bytes against 7.8 ns of operations, so the kernel is bound by bytes:
-// stage 1 at batch 128 (8,192 windows x 3 heads) moves 0.81 GB, 0.24 ms.
+// Bounds on an H100 SXM at the SwinV2-T shape N = 64, D = 32, stage 1 of a
+// train batch of 128 (8,192 windows x 3 heads = 24,576 (window, head)
+// units):
+//   bytes: q, k, v read once and o written once, 4 * N*D * 4 B = 32 KB a
+//          unit (the bias, one 16 KB tile per pattern and head, is read
+//          once a block), 0.81 GB: 0.240 ms at 3.35 TB/s;
+//   operations: QK^T and PV, 4*N^2*D = 0.52 MFLOP a unit, 12.9 GFLOP:
+//          0.192 ms at the 67 TFLOP/s of the float32 CUDA cores, or, in
+//          3xTF32 (three TF32 products per float32 product, tf32_mma.cuh),
+//          3 * 12.9 GFLOP at the tensor cores' 495 TFLOP/s = 0.078 ms.
+// The kernel is bound by bytes, 3.1x above its 3xTF32 operation bound.
 //
 // What the design does about that bound:
-//   - One block of 256 threads per (window, head).  A whole window fits in
-//     shared memory (q, k, v 8 KB each at D = 32, the 64 x 64 scores 16 KB),
-//     so q, k and v are read from device memory once, the scores never
-//     reach it, and o is written once.  Nothing is saved for the backward,
-//     which recomputes the scores from the same inputs.
-//   - Each thread owns 4 query rows x 4 key columns of the scores and 4
-//     query rows x D/16 output columns, so each word read from shared memory
-//     feeds 4 multiply-adds; column lanes read neighbouring words and k is
-//     stored transposed with a padded stride (no bank conflicts).  The 16
-//     column lanes of a row group form a half warp, so the row max and sum
-//     of the softmax are warp shuffles.
-//   - Loads are coalesced: a window's q, k and v are each one contiguous
-//     run of N*D floats.
+//   - Both products on the tensor cores in 3xTF32 (mma.sync m16n8k8, the
+//     FlashAttention-2 layout: each warp owns 16 query rows; N = 64 is four
+//     warps' rows with no padding), so the products no longer pace the
+//     kernel.  The scores, row max and sum stay in registers (the quad of
+//     lanes holding a row reduces them with __shfl_xor_sync), and P feeds
+//     PV as its A operand without a shuffle (tf32_mma.cuh's k permutation):
+//     P never reaches shared memory, and nothing is saved for the backward,
+//     which recomputes P from the same inputs.
+//   - Several windows a block: a block takes one (pattern, head) and walks
+//     `chunk` of the pattern's windows, w = p + t * P, through a ring of two
+//     shared-memory stages filled by 16-byte cp.async: window t + 1's q, k,
+//     v are in flight while the warps compute on window t, one barrier a
+//     window.  chunk = units / 1024 clamped to [1, 16]: a launch keeps about
+//     1,024 blocks or more where it has that many units, so stage 4 (3,072
+//     units at batch 128, chunk 3) still fills the 132 SMs' 528 block slots
+//     twice, and stage 1 (chunk 16, 1,536 blocks) loads its bias tile once
+//     for 16 windows.  On the H100 this ran slightly faster than 2,048
+//     blocks of at most 8 windows.
+//   - At D <= 32, at most 128 registers (no spill) and 55 KB of shared
+//     memory at D = 32 let four blocks of four warps share an SM; the
+//     uncapped build took 158 registers, three blocks, and ran slightly
+//     slower.  Wider heads keep two blocks and the registers they need.
+//   - The bias read once a block, into registers: each thread holds its C
+//     fragment of the pattern's tile (32 floats at N = 64), with -inf for
+//     the key columns past N, which masks them in the softmax for free.
+//   - N is padded to 16-row warp tiles and D to 16 columns in shared memory
+//     only (zero-filled by the copies); a warp's rows past N are computed
+//     and not stored.
 //   - Every parameter is a kernel argument, held in registers: no parameter
 //     is read through shared memory across a barrier.
-// Left for later work: a block per (window, several heads) to amortise the
-// barriers, vector loads, and bf16 tensor cores (wgmma) under AMP.
+// Left for later work: bf16 tensor cores (wgmma) under AMP; TMA copies.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <math.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kN = 64;         // tokens per window, at most
-constexpr int kTM = 4;         // rows per thread
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kLd = kN + 1;    // padded stride of the token-indexed arrays
+constexpr int kMaxThreads = 32 * tf32::kMaxWarps;  // four warps: N <= 64
+constexpr int kStages = 2;                         // the ring of windows
+constexpr int kTargetBlocks = 1024;                // see the note above
+constexpr int kMaxChunk = 16;
 
-// Shared memory, in floats, for D <= 16 * NC.
-template <int NC>
+// Shared memory, in floats: per stage q, k, v [16 JG][16 NC + 4].
+template <int NC, int JG>
 constexpr int smem_floats() {
-  return kN * (16 * NC + 1)  // q, row-major    [kN][Dp + 1]
-         + 16 * NC * kLd     // k, transposed   [Dp][kLd]
-         + kN * 16 * NC      // v, row-major    [kN][Dp]
-         + kN * kLd;         // P               [kN][kLd]
-}
-
-// Max and sum over the 16 column lanes of a row group (a half warp).
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Row-major [kN][ld] copy of a window's (n, d) matrix; zeros past n, d.
-template <int NC>
-__device__ __forceinline__ void load_rows(float* __restrict__ dst, const float* __restrict__ src,
-                                          int n, int d, int ld) {
-  constexpr int kDp = 16 * NC;
-  for (int i = threadIdx.x; i < kN * kDp; i += kThreads) {
-    const int r = i / kDp, c = i % kDp;
-    dst[r * ld + c] = (r < n && c < d) ? src[r * d + c] : 0.f;
-  }
-}
-
-// Transposed [Dp][kLd] copy of a window's (n, d) matrix; zeros past n, d.
-template <int NC>
-__device__ __forceinline__ void load_cols(float* __restrict__ dst, const float* __restrict__ src,
-                                          int n, int d) {
-  constexpr int kDp = 16 * NC;
-  for (int i = threadIdx.x; i < kN * kDp; i += kThreads) {
-    const int j = i / kDp, c = i % kDp;
-    dst[c * kLd + j] = (j < n && c < d) ? src[j * d + c] : 0.f;
-  }
-}
-
-// P = softmax(S + bias) of this thread's 4 rows x JG column groups, in
-// place.  Every thread of the block runs it, so the half-warp shuffles see
-// all their lanes: rows past n take scores of 0 (a finite softmax that no
-// one reads), columns past n take -inf (P = 0).
-template <int JG>
-__device__ __forceinline__ void softmax_rows(float s[kTM][JG], const float* __restrict__ bias,
-                                             int r0, int tc, int n) {
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = r0 + i;
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < JG; ++j) {
-      const int col = tc + 16 * j;
-      if (col >= n) {
-        s[i][j] = -INFINITY;
-      } else if (r < n) {
-        s[i][j] += __ldg(bias + r * n + col);
-      } else {
-        s[i][j] = 0.f;
-      }
-      m = fmaxf(m, s[i][j]);
-    }
-    m = group_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < JG; ++j) {
-      s[i][j] = expf(s[i][j] - m);
-      sum += s[i][j];
-    }
-    sum = group_sum(sum);
-#pragma unroll
-    for (int j = 0; j < JG; ++j) s[i][j] /= sum;
-  }
+  return kStages * 3 * 16 * JG * (16 * NC + 4);
 }
 
 template <int NC, int JG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, NC <= 2 ? 4 : 2)
     window_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ bias,
-                      float* __restrict__ o, int h, int n, int d, int npat) {
-  constexpr int kDp = 16 * NC;
-  constexpr int kLq = kDp + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;            // [kN][kLq]
-  float* kt = qs + kN * kLq;   // [kDp][kLd]
-  float* vs = kt + kDp * kLd;  // [kN][kDp]
-  float* ps = vs + kN * kDp;   // [kN][kLd]
+                      float* __restrict__ o, int h, int n, int d, int npat, int per_pattern,
+                      int chunk, int chunks) {
+  constexpr int kDp = 16 * NC;       // head dim, padded
+  constexpr int kLd = kDp + 4;       // row stride of the tiles
+  constexpr int kDT = kDp / 8;       // 8-wide column groups of the head dim
+  constexpr int kRows = 16 * JG;     // tokens, padded to whole warp tiles
+  constexpr int kNT = kRows / 8;     // 8-key groups
+  constexpr int kTile = kRows * kLd;
+  extern __shared__ float smem[];    // stage s: q, k, v at smem + 3 s kTile
 
-  const int unit = blockIdx.x;  // window * h + head: the layout of q
-  const int w = unit / h, head = unit % h;
-  const size_t base = static_cast<size_t>(unit) * n * d;
-  const float* bp = bias + (static_cast<size_t>(w % npat) * h + head) * n * n;
-  const int tid = threadIdx.x, tc = tid % 16, r0 = (tid / 16) * kTM;
+  // blockIdx.x = (p * chunks + ch) * h + head
+  const int head = blockIdx.x % h;
+  const int p = blockIdx.x / h / chunks, ch = blockIdx.x / h % chunks;
+  const int t0 = ch * chunk, t_end = min(per_pattern, t0 + chunk);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = 16 * warp;  // the warp's first row
+  const size_t nd = static_cast<size_t>(n) * d;
+  auto base = [&](int tw) {
+    return (static_cast<size_t>(p + static_cast<long long>(tw) * npat) * h + head) * nd;
+  };
+  auto load = [&](int tw, int stage) {
+    float* st = smem + stage * 3 * kTile;
+    const size_t b = base(tw);
+    tf32::load_tile_async<kDp>(st, q + b, 0, kRows, n, d, tid, nthreads);
+    tf32::load_tile_async<kDp>(st + kTile, k + b, 0, kRows, n, d, tid, nthreads);
+    tf32::load_tile_async<kDp>(st + 2 * kTile, v + b, 0, kRows, n, d, tid, nthreads);
+  };
+  load(t0, 0);
+  tf32::cp_commit();
 
-  load_rows<NC>(qs, q + base, n, d, kLq);
-  load_cols<NC>(kt, k + base, n, d);
-  load_rows<NC>(vs, v + base, n, d, kDp);
-  __syncthreads();
+  // the pattern's bias, this thread's C fragment of it: -inf past N's keys,
+  // 0 on rows past N (computed, not stored)
+  const float* bp = bias + (static_cast<size_t>(p) * h + head) * n * n;
+  float bias_c[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = wr + g + 8 * (e / 2), col = 8 * j + 2 * t + (e & 1);
+      bias_c[j][e] = col >= n ? -INFINITY : row < n ? __ldg(bp + row * n + col) : 0.f;
+    }
 
-  float s[kTM][JG];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < JG; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < kDp; ++c) {
-    float qv[kTM], kv[JG];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) qv[i] = qs[(r0 + i) * kLq + c];
-#pragma unroll
-    for (int j = 0; j < JG; ++j) kv[j] = kt[c * kLd + tc + 16 * j];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < JG; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-  }
-  softmax_rows<JG>(s, bp, r0, tc, n);
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < JG; ++j) ps[(r0 + i) * kLd + tc + 16 * j] = s[i][j];
-  __syncthreads();
+  for (int tw = t0; tw < t_end; ++tw) {
+    const int stage = (tw - t0) % kStages;
+    tf32::cp_wait<0>();  // window tw has landed, for every thread, and the
+    __syncthreads();     // stage of window tw - 1 is no longer read
+    if (tw + 1 < t_end) load(tw + 1, stage ^ 1);
+    tf32::cp_commit();
+    const float* qs = smem + stage * 3 * kTile;
+    const float* ks = qs + kTile;
+    const float* vs = ks + kTile;
 
-  if (r0 >= n) return;  // no barrier follows
-  float acc[kTM][NC];
+    // S = Q K^T + bias for the warp's 16 rows
+    float s[kNT][4];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < n; ++j) {
-    float pv[kTM], vv[NC];
+    for (int ks8 = 0; ks8 < kDT; ++ks8) {
+      const tf32::AFrag a = tf32::a_frag_rows(qs, kLd, wr, 8 * ks8, g, t);
+      tf32::BFrag b[kNT];
+      tf32::b_frags_t(b, ks, kLd, 8 * ks8, g, t, kNT);
+      tf32::mma3(s, a, b, kNT);
+    }
+    // softmax of rows g and g + 8, left unnormalised: O is divided by the
+    // row sum at the end
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) pv[i] = ps[(r0 + i) * kLd + j];
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) vv[c] = vs[j * kDp + tc + 16 * c];
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] += bias_c[j][e];
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kTM; ++i)
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-  }
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = r0 + i;
-    if (r >= n) continue;
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f((s[j][e] - mx[e / 2]) * tf32::kLog2e);
+        sum[e / 2] += s[j][e];
+      }
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tc + 16 * c;
-      if (col < d) o[base + static_cast<size_t>(r) * d + col] = acc[i][c];
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+
+    // O = P V, P straight from the score registers
+    float acc[kDT][4];
+#pragma unroll
+    for (int c = 0; c < kDT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const tf32::AFrag a = tf32::a_frag_perm(s[j]);
+      tf32::BFrag b[kDT];
+      tf32::b_frags_perm(b, vs, kLd, 8 * j, g, t);
+      tf32::mma3(acc, a, b, kDT);
+    }
+
+    float* ow = o + base(tw);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wr + g + 8 * r;
+      if (row >= n) continue;
+      const float inv = 1.f / sum[r];
+      float* orow = ow + static_cast<size_t>(row) * d;
+#pragma unroll
+      for (int c = 0; c < kDT; ++c) {
+        const int col = 8 * c + 2 * t;
+        if (col < d) orow[col] = acc[c][2 * r] * inv;
+        if (col + 1 < d) orow[col + 1] = acc[c][2 * r + 1] * inv;
+      }
     }
   }
+  tf32::cp_wait<0>();
 }
 
 template <int NC, int JG>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* bias, float* o,
-                   long long units, int h, int n, int d, int npat, cudaStream_t stream) {
-  const int bytes = smem_floats<NC>() * static_cast<int>(sizeof(float));
+                   long long bw, int h, int n, int d, int npat, cudaStream_t stream) {
+  const long long units = bw * h;
+  const long long per_pattern = bw / npat;
+  const int chunk = static_cast<int>(std::min<long long>(
+      kMaxChunk, std::max<long long>(1, std::min(units / kTargetBlocks, per_pattern))));
+  const long long chunks = (per_pattern + chunk - 1) / chunk;
+  const long long blocks = npat * chunks * h;
+  if (blocks > INT_MAX || per_pattern > INT_MAX) return cudaErrorInvalidConfiguration;
+  const int bytes = smem_floats<NC, JG>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(window_fwd_kernel<NC, JG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  window_fwd_kernel<NC, JG><<<static_cast<unsigned>(units), kThreads, bytes, stream>>>(
-      q, k, v, bias, o, h, n, d, npat);
+  window_fwd_kernel<NC, JG><<<static_cast<unsigned>(blocks), 32 * JG, bytes, stream>>>(
+      q, k, v, bias, o, h, n, d, npat, static_cast<int>(per_pattern), chunk,
+      static_cast<int>(chunks));
   return cudaGetLastError();
 }
 
 template <int NC>
 cudaError_t launch_jg(const float* q, const float* k, const float* v, const float* bias,
-                      float* o, long long units, int h, int n, int d, int npat,
+                      float* o, long long bw, int h, int n, int d, int npat,
                       cudaStream_t stream) {
   switch ((n + 15) / 16) {
-    case 1: return launch<NC, 1>(q, k, v, bias, o, units, h, n, d, npat, stream);
-    case 2: return launch<NC, 2>(q, k, v, bias, o, units, h, n, d, npat, stream);
-    case 3: return launch<NC, 3>(q, k, v, bias, o, units, h, n, d, npat, stream);
-    default: return launch<NC, 4>(q, k, v, bias, o, units, h, n, d, npat, stream);
+    case 1: return launch<NC, 1>(q, k, v, bias, o, bw, h, n, d, npat, stream);
+    case 2: return launch<NC, 2>(q, k, v, bias, o, bw, h, n, d, npat, stream);
+    case 3: return launch<NC, 3>(q, k, v, bias, o, bw, h, n, d, npat, stream);
+    default: return launch<NC, 4>(q, k, v, bias, o, bw, h, n, d, npat, stream);
   }
 }
 
@@ -243,11 +246,9 @@ cudaError_t launch_jg(const float* q, const float* k, const float* v, const floa
 extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* bias, void* o, long long bw, int h, int n,
                                     int d, int npat, void* stream) {
-  if (bw <= 0 || h <= 0 || n <= 0 || n > kN || d <= 0 || d > 64 || npat <= 0 ||
+  if (bw <= 0 || h <= 0 || n <= 0 || n > 64 || d <= 0 || d > 64 || npat <= 0 ||
       bw % npat != 0)
     return cudaErrorInvalidValue;
-  const long long units = bw * h;
-  if (units > INT_MAX) return cudaErrorInvalidConfiguration;
   const auto* fq = static_cast<const float*>(q);
   const auto* fk = static_cast<const float*>(k);
   const auto* fv = static_cast<const float*>(v);
@@ -255,10 +256,10 @@ extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
   auto* fo = static_cast<float*>(o);
   auto s = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16) {
-    case 1: return launch_jg<1>(fq, fk, fv, fb, fo, units, h, n, d, npat, s);
-    case 2: return launch_jg<2>(fq, fk, fv, fb, fo, units, h, n, d, npat, s);
-    case 3: return launch_jg<3>(fq, fk, fv, fb, fo, units, h, n, d, npat, s);
-    default: return launch_jg<4>(fq, fk, fv, fb, fo, units, h, n, d, npat, s);
+    case 1: return launch_jg<1>(fq, fk, fv, fb, fo, bw, h, n, d, npat, s);
+    case 2: return launch_jg<2>(fq, fk, fv, fb, fo, bw, h, n, d, npat, s);
+    case 3: return launch_jg<3>(fq, fk, fv, fb, fo, bw, h, n, d, npat, s);
+    default: return launch_jg<4>(fq, fk, fv, fb, fo, bw, h, n, d, npat, s);
   }
 }
 

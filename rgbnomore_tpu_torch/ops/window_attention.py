@@ -15,8 +15,9 @@ the same diagonal-block bias gradient.
 
 - On CUDA tensors the forward launches ``csrc/window_attention_fwd.cu`` and
   the backward ``csrc/window_attention_bwd.cu`` (two kernels: the per-chunk
-  pass and the fixed-order reduction of the bias gradient); a refused launch
-  raises.
+  pass and the fixed-order reduction of the bias gradient); both compute
+  their products in 3xTF32 on the tensor cores (``csrc/tf32_mma.cuh``) and
+  walk several windows a block.  A refused launch raises.
 - On CPU tensors the forward is :func:`window_attention_plain`, the einsum
   path of the JAX SwinV2 (``models/swinv2.py:207-215``), and the backward is
   autograd through it (:func:`window_attention_bwd_plain`).

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from rgbnomore_tpu.ops.pallas.attention import fused_attention as pallas_attention
+from torch_port_support import mm_1xtf32, mm_3xtf32, tf32_rna
 
 VIT_SCALE = 1.0 / 192**0.5
 # (shape, scale): a ViT-Ti head at batch 2, the Pallas gradient test's, a
@@ -31,33 +32,6 @@ CASES = [((2, 3, 196, 64), VIT_SCALE), ((1, 2, 52, 24), 0.13), ((2, 3, 128, 128)
 IDS = ["vitti", "pallas_grad", "wide"]
 FWD_TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=5e-4, rtol=1e-3)
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32`` on float32: round to nearest with ties away
-    from zero, keeping 10 mantissa bits, by adding half of the 13 dropped
-    bits' unit to the bit pattern and zeroing the low 13 bits (the sign
-    bit stays apart from the magnitude, so negatives round the same way)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def tf32_read(x: torch.Tensor) -> torch.Tensor:
-    """What the tensor core reads of a float32 register as TF32: the low
-    13 bits dropped."""
-    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
-
-
-def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` as the kernels compute it: the cross terms, then hi x hi."""
-    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
-    a_lo, b_lo = tf32_read(a - a_hi), tf32_read(b - b_hi)
-    return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
-
-
-def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in one TF32 pass."""
-    return tf32_rna(a) @ tf32_rna(b)
 
 
 def attention_fwd(q, k, v, scale, mm):

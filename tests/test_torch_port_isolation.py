@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and its
 entry points refuse to run without a GPU unless the CPU is asked for."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +40,27 @@ def test_port_imports_no_jax():
     n_modules, banned = res.stdout.strip().splitlines()[-1].split(" ", 1)
     assert int(n_modules) >= 20, res.stdout
     assert banned == "[]", f"the port pulled in {banned}"
+
+
+_RUN_WINDOW_AB = """
+import runpy, sys
+sys.argv = ["window_kernel_ab.py", "--other", "unused"]
+try:
+    runpy.run_path("tools/window_kernel_ab.py", run_name="__main__")
+except SystemExit as exc:
+    print(exc.code, sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "jaxlib", "flax", "rgbnomore_tpu")))
+"""
+
+
+def test_window_kernel_ab_needs_a_card_and_imports_no_jax():
+    """The kernel A/B script imports nothing of JAX and exits non-zero,
+    with no result, where there is no card."""
+    res = subprocess.run([sys.executable, "-c", _RUN_WINDOW_AB], cwd=REPO, text=True,
+                         capture_output=True, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert res.stdout.strip().splitlines()[-1] == "1 []", (res.stdout, res.stderr)
+    assert "no CUDA device" in res.stderr
 
 
 @pytest.fixture

@@ -202,6 +202,21 @@ def test_kernel_matches_plain_on_card(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
+def test_kernel_forward_is_deterministic_on_card(case):
+    """Every output element has one owning lane and a fixed order of sums:
+    two runs of the forward give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    q, k, v, _, bias = _card_inputs(case, 2)
+    with torch.inference_mode():
+        first = window_attention(q, k, v, bias)
+        again = window_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
 @pytest.mark.parametrize("chunk", [None, 1, 5])
 def test_kernel_gradients_match_plain_on_card(case, chunk):
     if not torch.cuda.is_available():

@@ -23,6 +23,39 @@ def settle_inspect_module_walk() -> None:
         pass
 
 
+def tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on a float32 tensor: round to nearest with ties
+    away from zero, keeping 10 mantissa bits, by adding half of the 13
+    dropped bits' unit to the bit pattern and zeroing the low 13 bits (the
+    sign bit stays apart from the magnitude, so negatives round the same
+    way)."""
+    import torch
+
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_read(x):
+    """What the tensor core reads of a float32 register as TF32: the low
+    13 bits dropped."""
+    import torch
+
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """``a @ b`` as the port's 3xTF32 kernels compute it (``csrc/
+    tf32_mma.cuh``): the cross terms, then hi x hi."""
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    a_lo, b_lo = tf32_read(a - a_hi), tf32_read(b - b_hi)
+    return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
+
+
+def mm_1xtf32(a, b):
+    """``a @ b`` in one TF32 pass."""
+    return tf32_rna(a) @ tf32_rna(b)
+
+
 def jax_step_draws(trainer, base_rng, step, batch, grid):
     """The draws of the JAX Trainer's step ``step`` (``loop.py:247-263``,
     ``pipeline.py:399-404``) as the port's ``StepDraws``: fold the step into
