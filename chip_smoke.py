@@ -21,10 +21,11 @@ Phases, each raising on failure (the script then exits non-zero):
   2. build: compile the kernels, one ``nvcc`` per source, started together,
      and the host codec beside them;
   3. kernels: each kernel (attention forward and backward, the fused flip +
-     RandAugment + ToRange stage, window attention forward and backward)
-     against its plain version at the main paths' shapes and the JAX
-     package's test shapes, then timed with CUDA events beside its plain
-     version, its bound and, where one exists, a PyTorch library call.  The
+     RandAugment + ToRange stage through its dense entry and through its
+     wire reader, window attention forward and backward) against its plain
+     version at the main paths' shapes and the JAX package's test shapes,
+     then timed with CUDA events beside its plain version, its bound and,
+     where one exists, a PyTorch library call.  The
      attention and window attention kernels compute in 3xTF32 on the tensor
      cores: their report adds that bound beside the float32 CUDA cores'
      (``bound_ms`` is the tensor cores', the least time for the work as
@@ -41,23 +42,32 @@ Phases, each raising on failure (the script then exits non-zero):
      of one forward (``torch.profiler``);
   6. train: 1 + 20 steps of the ViT-Ti ``Trainer.train_step`` on one
      repeated batch of 256 images (warmup 1, lr 3e-3) with launch counts (1
-     augmentation, 12 attention forward and 12 attention backward launches
-     per step), finite losses and a last loss below the first; one step's
-     loss and gradients on the card against the CPU at 8 images; the time of
-     each stage of a step and of each kernel of one step;
+     wire launch of the input stage, 12 attention forward and 12 attention
+     backward launches per step), finite losses and a last loss below the
+     first; one step's loss and gradients on the card against the CPU at 8
+     images; the time of each stage of a step and of each kernel of one
+     step;
   7. swin eval: 512 images of 32x32 blocks through the SwinV2-T
-     ``Trainer.evaluate`` (12 window-attention launches per batch); logits
-     of the kernel path against the plain path and the card against the
-     CPU; img/s and the forward's kernels;
+     ``Trainer.evaluate`` (1 wire launch and 12 window-attention launches
+     per batch); logits of the kernel path against the plain path and the
+     card against the CPU; img/s and the forward's kernels;
   8. codec: 256 JPEGs written by the port's codec through
      ``DctCroppedLoader(mode="full")``: decode held to a closed form, host
      decode img/s per thread count, one batch through the SwinV2 eval;
   9. swin train: 1 + 10 steps of the SwinV2-T ``Trainer.train_step`` at
-     batch 128 with drop path (1 augmentation, 12 window forward and 24
+     batch 128 with drop path (1 wire launch, 12 window forward and 24
      window backward launches per step: each backward is a per-chunk pass
      and the reduction of the bias gradient), finite falling losses, the
      card against the CPU at 4 images, the stages, the kernels and the peak
-     memory.
+     memory;
+ 10. determinism: two SwinV2-T train steps from one state with
+     ``cfg.train.deterministic``, in a child process (``--determinism``),
+     must leave bit-identical parameters; the same without the flag is
+     reported beside it.
+
+On every path the input stage is one launch of the augmentation kernel's
+wire reader per eval batch and per train step, with no launch of its dense
+entry and no call of the plain unpack.
 
 Every comparison of a SwinV2 first sets the scales of its blocks'
 res-post norms, which start at 0 (each block then is the identity and no
@@ -72,6 +82,8 @@ of standard output are the kernel report and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import re
@@ -192,31 +204,68 @@ def pack_mask16(blocks: np.ndarray, k: int):
     return values, mask, scale.astype(np.uint8), dc
 
 
+def row_fields(rows: np.ndarray, layout: dict) -> dict[str, np.ndarray]:
+    """Writable views of every field of (n, row) uint8 rows in ``layout``
+    (``packed_layout``), each (n,) + its per-sample shape, of its dtype."""
+    out = {}
+    for name, spec in layout.items():
+        if name == "row":
+            continue
+        off, shape, dtype = spec
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        out[name] = rows[:, off:off + nbytes].view(dtype).reshape((rows.shape[0],) + shape)
+    return out
+
+
 def write_rows(y: np.ndarray, c: np.ndarray, labels: np.ndarray, k: int) -> np.ndarray:
     """Consolidated (n, row) uint8 rows in ``packed_layout(grid, k,
     "mask16")``, as ``DctCroppedLoader`` writes them, for planes y, c."""
-    from rgbnomore_tpu_torch.data.loader import packed_layout, row_views
+    from rgbnomore_tpu_torch.data.loader import packed_layout
 
     n, grid = y.shape[0], y.shape[2]
     layout = packed_layout(grid, k, "mask16")
-    packed = {}
+    rows = np.zeros((n, layout["row"]), np.uint8)
+    f = row_fields(rows, layout)
     for tag, planes in (("y", y), ("c", c)):
         vals, mask, scale, dc = pack_mask16(planes.reshape(-1, 64), k)
         lead = planes.shape[:4]
-        packed[tag] = (vals.reshape(lead + (k,)), mask.reshape(lead + (8,)),
-                       scale.reshape(lead), dc.reshape(lead))
+        f[f"v{tag}"][...] = vals.reshape(lead + (k,))
+        f[f"i{tag}"][...] = mask.reshape(lead + (8,))
+        f[f"s{tag}"][...] = scale.reshape(lead)
+        f[f"d{tag}"][...] = dc.reshape(lead)
+    f["quant"][...] = 1
+    f["labels"][...] = labels
+    f["weights"][...] = 1.0
+    return rows
+
+
+def random_wire_rows(rng: np.random.Generator, n: int, grid: int, k: int,
+                     fmt: str = "mask16") -> np.ndarray:
+    """(n, row) uint8 rows in ``packed_layout(grid, k, fmt)`` with every
+    field drawn at random, beyond what the host packer writes: each block's
+    mask sets each of the 64 positions (0 included) with its own
+    probability in [0, 0.5), so many blocks hold more set bits than K; the
+    values span their type (int8, int16 for mask16w), scales [0, 255], DCs
+    [-1500, 1500), mask16q's quant tables [0, 255]."""
+    from rgbnomore_tpu_torch.data.loader import packed_layout
+
+    layout = packed_layout(grid, k, fmt)
     rows = np.zeros((n, layout["row"]), np.uint8)
-    for i in range(n):
-        v = row_views(rows[i], layout)
-        for tag in ("y", "c"):
-            vals, mask, scale, dc = packed[tag]
-            v[f"v{tag}"][...] = vals[i]
-            v[f"i{tag}"][...] = mask[i]
-            v[f"s{tag}"][...] = scale[i]
-            v[f"d{tag}"][...] = dc[i]
-        v["quant"][...] = 1
-        v["labels"][...] = labels[i]
-        v["weights"][...] = 1.0
+    f = row_fields(rows, layout)
+    for tag in ("y", "c"):
+        vals = f[f"v{tag}"]
+        info = np.iinfo(vals.dtype)
+        vals[...] = rng.integers(info.min, info.max + 1, vals.shape)
+        mask = f[f"i{tag}"]
+        density = rng.uniform(0.0, 0.5, mask.shape[:-1] + (1,))
+        bits = rng.random(mask.shape[:-1] + (64,)) < density
+        mask[...] = np.packbits(bits.reshape(bits.shape[:-1] + (8, 8)), axis=-1,
+                                bitorder="little")[..., 0]
+        f[f"s{tag}"][...] = rng.integers(0, 256, f[f"s{tag}"].shape)
+        f[f"d{tag}"][...] = rng.integers(-1500, 1500, f[f"d{tag}"].shape)
+    f["quant"][...] = rng.integers(0, 256, f["quant"].shape) if fmt == "mask16q" else 1
+    f["labels"][...] = rng.integers(0, 1000, n)
+    f["weights"][...] = 1.0
     return rows
 
 
@@ -525,6 +574,7 @@ def kernel_augpipe() -> dict:
     # timed with the last (the ViT-Ti) policy already on the card
     policy, flip = tuple(p.cuda() for p in policy), flip.cuda()
     ms = time_ms(lambda: fused_flip_aug_range(y, c, policy, flip, **kw))
+    dev_ms = device_ms(lambda: fused_flip_aug_range(y, c, policy, flip, **kw))
     plain_ms = time_ms(lambda: flip_aug_range_plain(y, c, policy, flip, **kw), reps=10, warmup=2)
     # y and c read once and written once; per coefficient the entry clamp,
     # a multiply and a clamp per round and ToRange's multiply-add
@@ -532,15 +582,166 @@ def kernel_augpipe() -> dict:
     t_bytes = 2 * elements * 4 / PEAK_BYTES_PER_S
     t_ops = elements * (4 + 3 * kw["num_ops"]) / PEAK_F32_FLOP_PER_S
     bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
-    print(f"kernels: fused_flip_aug_range ({BATCH}, {GRID}x{GRID}) {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), no library call",
-          flush=True)
+    print(f"kernels: fused_flip_aug_range ({BATCH}, {GRID}x{GRID}) {ms:.4f} ms (device "
+          f"{ms_text(dev_ms)}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{100 * bound_ms / ms:.1f}%), no library call", flush=True)
     return {
         "name": "fused_flip_aug_range", "route": "cuda",
         "source": "rgbnomore_tpu_torch/csrc/augpipe.cu",
         "replaces": "rgbnomore_tpu/ops/pallas/augpipe.py:345",
+        "entry": "the dense reader (augpipe_fwd): the TPU kernel's own contract; the main "
+                 "paths launch the same kernel's wire reader (augpipe_wire)",
         "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms,
+    }
+
+
+def wire_read_bytes(rows: np.ndarray, grid: int, k: int, fmt: str) -> int:
+    """The wire bytes that a stage must read for these rows: per block its
+    8-byte mask, its scale, its int16 DC and the values of its first
+    min(set bits, K) slots; per sample mask16q's quant tables."""
+    from rgbnomore_tpu_torch.data.loader import packed_layout
+
+    f = row_fields(rows, packed_layout(grid, k, fmt))
+    value_bytes = 2 if fmt == "mask16w" else 1
+    total = 3 * 64 * 2 * rows.shape[0] if fmt == "mask16q" else 0
+    for tag in ("y", "c"):
+        set_bits = np.unpackbits(f[f"i{tag}"], axis=-1).sum(axis=-1)
+        total += set_bits.size * (8 + 1 + 2) + int(np.minimum(set_bits, k).sum()) * value_bytes
+    return total
+
+
+def kernel_augpipe_wire() -> dict:
+    """The same kernel's wire reader (``wire_flip_aug_range`` for the train
+    stage, ``wire_to_range`` for eval) against its plain version (split ->
+    unpack -> flip + RandAugment + ToRange, or -> ToRange): each of the 16
+    ops forced at (3, 12x12) for each wire format, rows random beyond what
+    the packer writes (``random_wire_rows``); then at the four shapes of the
+    main paths on rows that ``write_rows`` packs from synthetic planes, as
+    the slice and train phases feed them: the ViT-Ti train stage (256,
+    28x28, K=16; both presets drawn), SwinV2-T's (128, 32x32, K=16), the
+    ViT-Ti eval stage (256, 28x28, K=48) and SwinV2-T's (256, 32x32, K=48);
+    train within AUG_TOL, eval bit-exact (``torch.equal``); random rows of
+    each format at the ViT-Ti shapes besides.  Each main shape is timed
+    beside the plain version, with its device time and its bytes bound: the
+    wire bytes its rows need (``wire_read_bytes``) read once and the dense
+    float32 planes written once."""
+    import torch
+
+    from rgbnomore_tpu_torch.augment.pipeline import make_cropped_train_pipeline
+    from rgbnomore_tpu_torch.ops.augpipe import (
+        SUPPORTED_OPS,
+        WIRE_FORMATS,
+        wire_flip_aug_range,
+        wire_flip_aug_range_plain,
+        wire_to_range,
+        wire_to_range_plain,
+    )
+    from rgbnomore_tpu_torch.train.config import AUGLIST_DCT, AUGLIST_DCT_VITTI
+
+    rng = np.random.default_rng(SEED + 5)
+
+    def held(tag, rows, flip=None, policy=None, **kw):
+        """Max abs err of the kernel against its plain version on ``rows``."""
+        packed = torch.from_numpy(rows).cuda()
+        if policy is None:
+            got, want = wire_to_range(packed, **kw), wire_to_range_plain(packed, **kw)
+        else:
+            got = wire_flip_aug_range(packed, flip, policy, **kw)
+            want = wire_flip_aug_range_plain(packed, flip, policy, **kw)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if policy is None:
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"wire_to_range {tag}: max abs err {err}, not bit-exact")
+        else:
+            check(all(torch.allclose(g, w, **AUG_TOL) for g, w in zip(got, want)),
+                  f"wire_flip_aug_range {tag}: max abs err {err} beyond {AUG_TOL}")
+        return err
+
+    forced = (torch.zeros((3, 1), dtype=torch.int32), torch.tensor([[1.0], [-1.0], [1.0]]),
+              torch.tensor([[4], [0], [10]], dtype=torch.int32),
+              torch.tensor([[6], [2], [0]], dtype=torch.int32),
+              torch.tensor([[True], [False], [True]]))
+    forced_flip = torch.tensor([False, True, False])
+    max_err = 0.0
+    for fmt in WIRE_FORMATS:
+        rows = random_wire_rows(rng, 3, 12, K_TRAIN, fmt)
+        err = max(held(f"{name} {fmt}", rows, forced_flip, forced, target=12, k=K_TRAIN, fmt=fmt,
+                       ops_list=[name], num_ops=1, magnitude=5) for name in sorted(SUPPORTED_OPS))
+        max_err = max(max_err, err)
+        print(f"kernels: wire_flip_aug_range {fmt}, each of {len(SUPPORTED_OPS)} ops forced at "
+              f"(3, 12x12): max abs err {err:.3e}", flush=True)
+    gen = torch.Generator().manual_seed(SEED)
+    vit_pipe = make_cropped_train_pipeline(target=GRID, auglist=list(AUGLIST_DCT_VITTI),
+                                           num_ops=2, magnitude=3, k=K_TRAIN)
+    for fmt in WIRE_FORMATS:  # every format at the ViT-Ti shapes, random rows
+        flip, policy = vit_pipe.draw(gen, BATCH)
+        err = held(f"{fmt} random rows ({BATCH}, {GRID}x{GRID})",
+                   random_wire_rows(rng, BATCH, GRID, K_TRAIN, fmt), flip, policy, target=GRID,
+                   k=K_TRAIN, fmt=fmt, ops_list=list(AUGLIST_DCT_VITTI), num_ops=2, magnitude=3)
+        held(f"{fmt} random rows ({BATCH}, {GRID}x{GRID})",
+             random_wire_rows(rng, BATCH, GRID, K_EVAL, fmt), target=GRID, k=K_EVAL, fmt=fmt)
+        max_err = max(max_err, err)
+        print(f"kernels: wire reader {fmt}, random rows at ({BATCH}, {GRID}x{GRID}): train "
+              f"max abs err {err:.3e}, eval bit-exact", flush=True)
+
+    shapes = {"vit_train": (BATCH, GRID, K_TRAIN, [AUGLIST_DCT, AUGLIST_DCT_VITTI]),
+              "swin_train": (SWIN_TRAIN_BATCH, SWIN_GRID, K_TRAIN, [AUGLIST_DCT]),
+              "vit_eval": (BATCH, GRID, K_EVAL, None),
+              "swin_eval": (SWIN_EVAL_BATCH, SWIN_GRID, K_EVAL, None)}
+    per_shape = {}
+    for tag, (batch, grid, k, presets) in shapes.items():
+        y, c = synthetic_planes(rng, batch, grid)
+        rows = write_rows(y, c, (np.arange(batch) % 1000).astype(np.int32), k)
+        packed = torch.from_numpy(rows).cuda()
+        kw = dict(target=grid, k=k, fmt="mask16")
+        if presets is None:
+            held(f"{tag} ({batch}, {grid}x{grid}, K={k})", rows, **kw)
+            fn = functools.partial(wire_to_range, packed, **kw)
+            plain = functools.partial(wire_to_range_plain, packed, **kw)
+            ops = 0
+        else:
+            for auglist in presets:  # the last is the path's own list
+                kw.update(ops_list=list(auglist), num_ops=2, magnitude=3)
+                pipe = make_cropped_train_pipeline(target=grid, auglist=list(auglist), num_ops=2,
+                                                   magnitude=3, k=k)
+                flip, policy = pipe.draw(gen, batch)
+                max_err = max(max_err, held(f"{tag} ({batch}, {grid}x{grid}, K={k})", rows,
+                                            flip, policy, **kw))
+            flip, policy = flip.cuda(), tuple(p.cuda() for p in policy)
+            fn = functools.partial(wire_flip_aug_range, packed, flip, policy, **kw)
+            plain = functools.partial(wire_flip_aug_range_plain, packed, flip, policy, **kw)
+            ops = 3 * kw["num_ops"]
+        ms, dev_ms = time_ms(fn), device_ms(fn)
+        plain_ms = time_ms(plain, reps=10, warmup=2)
+        read, written = wire_read_bytes(rows, grid, k, "mask16"), sum(t.numel() * 4 for t in fn())
+        t_bytes = (read + written) / PEAK_BYTES_PER_S
+        # per coefficient: the decode (rank, test, scale), the entry clamp,
+        # ToRange, and a multiply and a clamp per round
+        t_ops = written / 4 * (8 + ops) / PEAK_F32_FLOP_PER_S
+        bound = max(t_bytes, t_ops) * 1e3
+        per_shape[tag] = {"shape": [batch, grid, k], "ms": ms, "device_ms": dev_ms,
+                          "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                          "wire_bytes": read, "dense_bytes": written}
+        print(f"kernels: {'wire_to_range' if presets is None else 'wire_flip_aug_range'} {tag} "
+              f"({batch}, {grid}x{grid}, K={k}): {ms:.4f} ms (device {ms_text(dev_ms)}), plain "
+              f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({per_shape[tag]['bound_by']}: "
+              f"{read / 1e6:.2f} MB of wire read, {written / 1e6:.2f} MB written; "
+              f"{100 * bound / ms:.1f}% of it, "
+              f"{'not measured' if dev_ms is None else f'{100 * bound / dev_ms:.1f}%'} of the "
+              f"device time)", flush=True)
+    main = per_shape["vit_train"]
+    return {
+        "name": "augpipe_wire", "route": "cuda", "source": "rgbnomore_tpu_torch/csrc/augpipe.cu",
+        "replaces": "rgbnomore_tpu/ops/pallas/augpipe.py:345",
+        "entry": "the wire reader (augpipe_wire) of the same kernel: wire_flip_aug_range "
+                 "(train) and wire_to_range (eval) read the mask16 rows themselves, with the "
+                 "unpack of rgbnomore_tpu/augment/pipeline.py:89-136 in the same launch",
+        "launches": None, "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "device_ms": main["device_ms"], "per_shape": per_shape,
     }
 
 
@@ -750,8 +951,59 @@ def phase_kernels() -> dict:
     report = {"fused_attention": kernel_attention_fwd(gen)}
     report["fused_attention_bwd"] = kernel_attention_bwd(gen)
     report["fused_flip_aug_range"] = kernel_augpipe()
+    report["augpipe_wire"] = kernel_augpipe_wire()
     report["window_attention"], report["window_attention_bwd"] = kernel_window_attention(gen)
     return report
+
+
+def augpipe_wrappers() -> dict:
+    """The input stage's wrappers: the kernel's dense entry and its wire
+    reader's train and eval entries."""
+    from rgbnomore_tpu_torch.ops.augpipe import (
+        fused_flip_aug_range,
+        wire_flip_aug_range,
+        wire_to_range,
+    )
+
+    return {"fused_flip_aug_range": fused_flip_aug_range,
+            "wire_flip_aug_range": wire_flip_aug_range, "wire_to_range": wire_to_range}
+
+
+@contextlib.contextmanager
+def plain_unpacks():
+    """Counts the calls of the plain mask16 unpack (``augment.pipeline.
+    unpack_coefficients_mask``) made while the block runs: a path that the
+    wire reader carries makes none."""
+    from rgbnomore_tpu_torch.augment import pipeline
+
+    unpack, calls = pipeline.unpack_coefficients_mask, []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return unpack(*args, **kw)
+
+    pipeline.unpack_coefficients_mask = counted
+    try:
+        yield calls
+    finally:
+        pipeline.unpack_coefficients_mask = unpack
+
+
+def check_input_stage(report: dict, path: str, launches: dict, unpacks: int, *,
+                      eval_batches: int = 0, train_steps: int = 0) -> None:
+    """One wire launch per eval batch and per train step, no launch of the
+    dense entry and no plain unpack on ``path``; the #5 entries' launches
+    are kept per path, and their ``launches`` is the sum over the paths."""
+    want = {"fused_flip_aug_range": 0, "wire_flip_aug_range": train_steps,
+            "wire_to_range": eval_batches}
+    got = {name: launches[name] for name in want}
+    check(got == want and unpacks == 0,
+          f"{path}: input stage launches {got} and {unpacks} plain unpacks; want {want} and none")
+    for name, wrappers in (("fused_flip_aug_range", ("fused_flip_aug_range",)),
+                           ("augpipe_wire", ("wire_flip_aug_range", "wire_to_range"))):
+        by_path = report[name].setdefault("launches_by_path", {})
+        by_path[path] = sum(got[w] for w in wrappers)
+        report[name]["launches"] = sum(by_path.values())
 
 
 def phase_slice(report: dict):
@@ -776,16 +1028,17 @@ def phase_slice(report: dict):
     print(f"slice: wrote {N_IMAGES} rows of {rows.shape[1]} B in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    trainer.evaluate(batches)  # warm-up: cuBLAS handles, allocator, pinned pool
-    wrappers = {"fused_attention": fused_attention}
+    trainer.evaluate(batches)  # warm-up: cuBLAS handles, allocator, pinned buffers
+    wrappers = {"fused_attention": fused_attention, **augpipe_wrappers()}
     for w in wrappers.values():
         w.launches = 0
-    t0 = time.perf_counter()
-    res = trainer.evaluate(batches)  # ends in a host read of every sum
-    eval_s = time.perf_counter() - t0
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        res = trainer.evaluate(batches)  # ends in a host read of every sum
+        eval_s = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
-    for name, count in launches.items():
-        report[name]["launches"] = count
+    report["fused_attention"]["launches"] = launches["fused_attention"]
+    check_input_stage(report, "vit_eval", launches, len(unpacks), eval_batches=len(batches))
     per_batch = cfg.model.depth  # one attention launch per encoder block
     check(res["count"] == N_IMAGES, f"eval counted {res['count']} images, want {N_IMAGES}")
     check(math.isfinite(res["loss"]) and math.isfinite(res["accuracy"]),
@@ -846,14 +1099,17 @@ def phase_breakdown(trainer, batch: dict, tag: str = "breakdown") -> None:
     n = batch["packed"].shape[0]
     with torch.inference_mode():
         upload_ms = time_ms(lambda: trainer.put_batch(batch), reps=10, warmup=2)
+        # the upload before the reused pinned ring, on the same batch
+        pin_ms = time_ms(lambda: torch.from_numpy(batch["packed"]).pin_memory().to(
+            trainer.device, non_blocking=True), reps=10, warmup=2)
         packed = trainer.put_batch(batch)["packed"]
         pipe_ms = time_ms(lambda: trainer.eval_pipe(packed), reps=10, warmup=2)
         y, c, labels, weights = trainer.eval_pipe(packed)
         fwd_ms = time_ms(lambda: model(y, c), reps=20, warmup=3)
         logits = model(y, c)
         sums_ms = time_ms(lambda: eval_sums(logits, labels, weights), reps=10, warmup=2)
-        print(f"{tag}: per batch of {n}: upload (pin + copy) {upload_ms:.3f} ms, "
-              f"pipeline {pipe_ms:.3f} ms, forward {fwd_ms:.3f} ms "
+        print(f"{tag}: per batch of {n}: upload {upload_ms:.3f} ms (pin_memory() + copy "
+              f"{pin_ms:.3f} ms), pipeline {pipe_ms:.3f} ms, forward {fwd_ms:.3f} ms "
               f"({n / fwd_ms * 1e3:.1f} img/s), sums {sums_ms:.3f} ms", flush=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             model(y, c)
@@ -877,7 +1133,6 @@ def phase_train(report: dict):
     import torch
 
     from rgbnomore_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
-    from rgbnomore_tpu_torch.ops.augpipe import fused_flip_aug_range
     from rgbnomore_tpu_torch.train.config import generate_config
     from rgbnomore_tpu_torch.train.loop import Trainer
 
@@ -898,20 +1153,21 @@ def phase_train(report: dict):
     losses = [trainer.train_step(packed)]  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     wrappers = {"fused_attention": fused_attention, "fused_attention_bwd": fused_attention_bwd,
-                "fused_flip_aug_range": fused_flip_aug_range}
+                **augpipe_wrappers()}
     for w in wrappers.values():
         w.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        losses.append(trainer.train_step(packed))
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            losses.append(trainer.train_step(packed))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
-    for name, count in launches.items():
-        report[name]["launches"] = count
-    want = {"fused_flip_aug_range": TRAIN_STEPS, "fused_attention": 12 * TRAIN_STEPS,
-            "fused_attention_bwd": 12 * TRAIN_STEPS}
-    check(launches == want, f"train launches {launches}, want {want}")
+    check_input_stage(report, "vit_train", launches, len(unpacks), train_steps=TRAIN_STEPS)
+    want = {"fused_attention": 12 * TRAIN_STEPS, "fused_attention_bwd": 12 * TRAIN_STEPS}
+    for name in want:
+        report[name]["launches"] = launches[name]
+    check(all(launches[n] == want[n] for n in want), f"train launches {launches}, want {want}")
     losses = [float(v) for v in losses]
     check(all(math.isfinite(v) for v in losses), f"train losses not finite: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
@@ -1083,10 +1339,15 @@ def phase_swin_eval(report: dict):
                for i in range(0, N_IMAGES, SWIN_EVAL_BATCH)]
 
     trainer.evaluate(batches)  # warm-up
-    window_attention.launches = 0
-    t0 = time.perf_counter()
-    res = trainer.evaluate(batches)
-    eval_s = time.perf_counter() - t0
+    wrappers = {"window_attention": window_attention, **augpipe_wrappers()}
+    for w in wrappers.values():
+        w.launches = 0
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        res = trainer.evaluate(batches)
+        eval_s = time.perf_counter() - t0
+    check_input_stage(report, "swin_eval", {n: w.launches for n, w in wrappers.items()},
+                      len(unpacks), eval_batches=len(batches))
     launches = window_attention.launches
     report["window_attention"]["launches"] = launches
     check(res["count"] == N_IMAGES, f"swin eval counted {res['count']} images")
@@ -1212,7 +1473,6 @@ def phase_swin_train(report: dict):
     repeated batch (warmup 1, lr 3e-3), and the peak device memory."""
     import torch
 
-    from rgbnomore_tpu_torch.ops.augpipe import fused_flip_aug_range
     from rgbnomore_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
     from rgbnomore_tpu_torch.train.config import AUGLIST_DCT
     from rgbnomore_tpu_torch.train.loop import Trainer
@@ -1235,22 +1495,23 @@ def phase_swin_train(report: dict):
     torch.cuda.reset_peak_memory_stats()
     losses = [trainer.train_step(packed)]  # warm-up
     torch.cuda.synchronize()
-    wrappers = {"fused_flip_aug_range": fused_flip_aug_range,
-                "window_attention": window_attention, "window_attention_bwd": window_attention_bwd}
+    wrappers = {"window_attention": window_attention, "window_attention_bwd": window_attention_bwd,
+                **augpipe_wrappers()}
     for w in wrappers.values():
         w.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(SWIN_TRAIN_STEPS):
-        losses.append(trainer.train_step(packed))
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        for _ in range(SWIN_TRAIN_STEPS):
+            losses.append(trainer.train_step(packed))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = {name: w.launches for name, w in wrappers.items()}
-    for name, count in launches.items():
-        report[name]["launches"] = count
-    want = {"fused_flip_aug_range": SWIN_TRAIN_STEPS, "window_attention": 12 * SWIN_TRAIN_STEPS,
-            "window_attention_bwd": 24 * SWIN_TRAIN_STEPS}
-    check(launches == want, f"swin train launches {launches}, want {want}")
+    check_input_stage(report, "swin_train", launches, len(unpacks), train_steps=SWIN_TRAIN_STEPS)
+    want = {"window_attention": 12 * SWIN_TRAIN_STEPS, "window_attention_bwd": 24 * SWIN_TRAIN_STEPS}
+    for name in want:
+        report[name]["launches"] = launches[name]
+    check(all(launches[n] == want[n] for n in want), f"swin train launches {launches}, want {want}")
     losses = [float(v) for v in losses]
     check(all(math.isfinite(v) for v in losses), f"swin train losses not finite: {losses}")
     check(losses[-1] < losses[0], f"swin loss did not fall over {SWIN_TRAIN_STEPS} steps: {losses}")
@@ -1260,6 +1521,72 @@ def phase_swin_train(report: dict):
           f"peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
     print(f"swin train: losses {[round(v, 4) for v in losses]}", flush=True)
     return trainer, packed, rows
+
+
+def swin_steps_from_one_state(cfg) -> tuple[list[float], bool]:
+    """Two SwinV2-T train steps of ``cfg`` at batch 128, each from the same
+    seeded state, rows and draws (two Trainers): their losses, and whether
+    every parameter after them is bit-identical."""
+    import torch
+
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(SEED + 4)
+    y, c = synthetic_planes(rng, SWIN_TRAIN_BATCH, SWIN_GRID)
+    rows = write_rows(y, c, (np.arange(SWIN_TRAIN_BATCH) % 1000).astype(np.int32), K_TRAIN)
+    losses, params, draws = [], [], None
+    for _ in range(2):
+        trainer = Trainer(cfg, device="cuda")
+        trainer.create_state(steps_per_epoch=2)
+        if draws is None:
+            draws = trainer.draw(SWIN_TRAIN_BATCH)
+        losses.append(float(trainer.train_step(trainer.put_batch({"packed": rows})["packed"],
+                                               draws)))
+        params.append({k: p.detach().clone() for k, p in trainer.model.named_parameters()})
+        del trainer
+    same = losses[0] == losses[1] and all(torch.equal(params[0][k], params[1][k])
+                                          for k in params[0])
+    return losses, same
+
+
+def determinism_child() -> int:
+    """The child of ``phase_determinism``: ``swin_steps_from_one_state`` with
+    ``cfg.train.deterministic`` set, in a process whose first cuBLAS handle
+    is made after ``configure_determinism``; prints one JSON line."""
+    import os
+
+    import torch
+
+    losses, same = swin_steps_from_one_state(swin_config(SWIN_TRAIN_BATCH, epochs=1,
+                                                         warmup_steps=1, lr=3e-3,
+                                                         deterministic=True))
+    print(json.dumps({"determinism": {
+        "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+        "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+        "losses": losses, "bit_identical": same}}))
+    return 0
+
+
+def phase_determinism() -> None:
+    """Is SwinV2-T's train step bit-reproducible on the card?  With
+    ``cfg.train.deterministic`` (``configure_determinism``), in a child
+    process: this one made its cuBLAS handles long ago.  Two steps from one
+    state must give bit-identical parameters, or the phase fails.  The same
+    two steps without the flag, in this process, are reported beside it."""
+    res = subprocess.run([sys.executable, __file__, "--determinism"], capture_output=True,
+                         text=True, timeout=600)
+    check(res.returncode == 0,
+          f"determinism child exit {res.returncode}: {res.stderr[-4000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])["determinism"]
+    off_losses, off_same = swin_steps_from_one_state(swin_config(
+        SWIN_TRAIN_BATCH, epochs=1, warmup_steps=1, lr=3e-3))
+    print(f"determinism: SwinV2-T train step at batch {SWIN_TRAIN_BATCH}, twice from one "
+          f"state: with cfg.train.deterministic (deterministic algorithms "
+          f"{got['deterministic_algorithms']}, CUBLAS_WORKSPACE_CONFIG "
+          f"{got['cublas_workspace_config']}) bit-identical: {got['bit_identical']} (losses "
+          f"{got['losses']}); without it: {off_same} (losses {off_losses})", flush=True)
+    check(got["deterministic_algorithms"] and got["bit_identical"],
+          f"SwinV2-T's deterministic train step is not bit-reproducible: {got}")
 
 
 def main() -> int:
@@ -1273,6 +1600,8 @@ def main() -> int:
     # a float32 reference compares in float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--determinism"]:
+        return determinism_child()
     print(phase_card(), flush=True)
     phase_build()
     report = phase_kernels()
@@ -1291,6 +1620,8 @@ def main() -> int:
     step_card_vs_cpu("swin train", swin_config(SWIN_CPU_BATCH), rows[:SWIN_CPU_BATCH],
                      perturb_norms)
     phase_train_breakdown(trainer, packed, "swin breakdown")
+    del trainer, packed
+    phase_determinism()
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,15 @@
 Port of the cropped-wire paths of ``rgbnomore_tpu/augment/pipeline.py``:
 re-slice the consolidated ``(B, row)`` uint8 buffer into typed fields,
 unpack the mask16 wire to dense dequantized coefficients, then for eval
-rescale to [-1, 1], and for training run flip -> RandAugment -> ToRange
-through ``ops.augpipe.fused_flip_aug_range`` (the CUDA kernel on the GPU).
-The split and unpack are plain tensor code on the device the buffer lives
-on; for the same row buffer the eval outputs are bit-exact against the JAX
-pipeline (``tests/test_torch_port_eval.py``) and the train outputs within
-2e-6 of it with the same draws (``tests/test_torch_port_augment.py``).
+rescale to [-1, 1], and for training run flip -> RandAugment -> ToRange.
+On a CUDA buffer each stage is one launch of the CUDA kernel's wire reader,
+which reads the rows itself (``ops.augpipe.wire_to_range`` for eval,
+``ops.augpipe.wire_flip_aug_range`` for training); on a CPU buffer the
+split, the unpack and the rest run as plain tensor code.  For the same row
+buffer the eval outputs are bit-exact against the JAX pipeline
+(``tests/test_torch_port_eval.py``, ``tests/test_torch_port_wire.py``) and
+the train outputs within 2e-6 of it with the same draws
+(``tests/test_torch_port_augment.py``, ``tests/test_torch_port_wire.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from rgbnomore_tpu_torch.augment.randaugment import RandAugmentDCT
 from rgbnomore_tpu_torch.data.loader import packed_layout
 from rgbnomore_tpu_torch.ops import blocks
-from rgbnomore_tpu_torch.ops.augpipe import fused_flip_aug_range
+from rgbnomore_tpu_torch.ops.augpipe import wire_flip_aug_range, wire_to_range
 from rgbnomore_tpu_torch.ops.photometric import DCT_MAX, DCT_MIN
 
 __all__ = [
@@ -48,9 +51,10 @@ _TORCH_DTYPES = {
 }
 
 
-def split_packed_batch(packed: torch.Tensor, canvas: int, k: int,
-                       fmt: str = "mask16") -> dict[str, torch.Tensor]:
-    """Re-slice the consolidated (B, row) uint8 buffer into typed fields.
+def split_packed_batch(packed: torch.Tensor, canvas: int, k: int, fmt: str = "mask16",
+                       names=None) -> dict[str, torch.Tensor]:
+    """Re-slice the consolidated (B, row) uint8 buffer into typed fields
+    (only ``names`` where given).
 
     Inverse of the host-side layout (``data.loader.packed_layout``): each
     field is a byte slice of every row reinterpreted in place with
@@ -66,7 +70,7 @@ def split_packed_batch(packed: torch.Tensor, canvas: int, k: int,
     b = packed.shape[0]
     out = {}
     for name, spec in layout.items():
-        if name == "row":
+        if name == "row" or (names is not None and name not in names):
             continue
         off, shape, dtype = spec
         n = int(np.prod(shape, dtype=np.int64))
@@ -86,7 +90,8 @@ def unpack_coefficients_mask(values: torch.Tensor, mask: torch.Tensor,
     an exclusive prefix-sum of the bits.  The JAX version selects it with a
     compare-and-reduce over the K slots; here it is a gather of the same
     value, so the result is identical without the (..., 64, K) intermediate.
-    Returns (..., H, W, 8, 8) float32.
+    A set bit of rank K or more has no slot: the JAX compare finds none and
+    gives 0, and so does this.  Returns (..., H, W, 8, 8) float32.
     """
     k = values.shape[-1]
     bit_sel = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
@@ -95,10 +100,8 @@ def unpack_coefficients_mask(values: torch.Tensor, mask: torch.Tensor,
     bits = bits.reshape(bits.shape[:-2] + (64,)).to(torch.int32)
     ranks = torch.cumsum(bits, dim=-1) - bits  # exclusive prefix sum, (..., 64)
     vals = values.to(torch.float32) * scales[..., None].to(torch.float32)
-    # a position past the K-th kept one has rank K; its bit is 0, so the
-    # clamped gather is multiplied away like the JAX version's missed compare
     dense = torch.gather(vals, -1, ranks.clamp(max=k - 1).to(torch.int64))
-    dense = dense * bits.to(torch.float32)
+    dense = dense * ((bits != 0) & (ranks < k)).to(torch.float32)
     return dense.reshape(dense.shape[:-1] + (8, 8))
 
 
@@ -164,15 +167,16 @@ def random_flip(y: torch.Tensor, c: torch.Tensor, flip: torch.Tensor):
 def make_cropped_eval_pipeline(cfg=None, *, target: int = 28, k: int = 16,
                                fmt: str = "mask16") -> Callable:
     """Eval pipeline for the crop-before-pack wire: the host already did the
-    deterministic center crop, so the device only unpacks and rescales.
+    deterministic center crop, so the device only unpacks and rescales
+    (``wire_to_range``: one kernel launch on a CUDA buffer).
     ``fn(packed_buf) -> (y, cbcr, labels, weights)``."""
     if cfg is not None:
         target = cfg.model.dct_blocks
 
     def pipeline(packed_buf: torch.Tensor):
-        f = split_packed_batch(packed_buf, target, k, fmt)
-        y, c = unpack_cropped(f, fmt)
-        return to_range(y), to_range(c), f["labels"], f["weights"]
+        f = split_packed_batch(packed_buf, target, k, fmt, names=("labels", "weights"))
+        y, c = wire_to_range(packed_buf, target=target, k=k, fmt=fmt)
+        return y, c, f["labels"], f["weights"]
 
     return pipeline
 
@@ -181,9 +185,9 @@ class CroppedTrainPipeline:
     """Train pipeline for the crop-before-pack wire (``DctCroppedLoader``).
 
     The host already dequantized, cropped and resized to the target grid, so
-    the device path is unpack -> flip -> RandAugment -> ToRange, the last
-    three in one ``fused_flip_aug_range`` (the CUDA kernel on a CUDA buffer,
-    its plain version on a CPU one).  ``pipe(packed, flip, policy) -> (y,
+    the device path is unpack -> flip -> RandAugment -> ToRange, all four in
+    one ``wire_flip_aug_range`` (one launch of the CUDA kernel on a CUDA
+    buffer, its plain version on a CPU one).  ``pipe(packed, flip, policy) -> (y,
     cbcr, labels, weights)`` takes the draws explicitly; ``pipe.draw(
     generator, batch)`` makes them, as the JAX pipeline does from its key
     (``pipeline.py:384-389``).
@@ -203,10 +207,11 @@ class CroppedTrainPipeline:
         return flip, self.aug.draw_policy(generator, batch, self.target, self.target)
 
     def __call__(self, packed_buf: torch.Tensor, flip: torch.Tensor, policy):
-        f = split_packed_batch(packed_buf, self.target, self.k, self.fmt)
-        y, c = unpack_cropped(f, self.fmt)  # dequantized floats
-        y, c = fused_flip_aug_range(y, c, policy, flip, ops_list=self.ops_list,
-                                    num_ops=self.num_ops, magnitude=self.magnitude)
+        f = split_packed_batch(packed_buf, self.target, self.k, self.fmt,
+                               names=("labels", "weights"))
+        y, c = wire_flip_aug_range(packed_buf, flip, policy, target=self.target, k=self.k,
+                                   fmt=self.fmt, ops_list=self.ops_list,
+                                   num_ops=self.num_ops, magnitude=self.magnitude)
         return y, c, f["labels"], f["weights"]
 
 

@@ -20,8 +20,10 @@ expressed as zero weights instead of dropped examples.
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -179,8 +181,10 @@ def _check_chroma_grid(path, ncomp: int, yh: int, yw: int, ch: int, cw: int):
         )
 
 
-def packed_layout(canvas: int, k: int, fmt: str = "mask16") -> dict:
-    """Per-SAMPLE byte layout of the consolidated crop-wire row.
+@functools.lru_cache(maxsize=32)
+def packed_layout(canvas: int, k: int, fmt: str = "mask16") -> types.MappingProxyType:
+    """Per-SAMPLE byte layout of the consolidated crop-wire row, built once
+    per arguments and shared read-only.
 
     All per-sample fields live in one uint8 row so a whole batch transfers as
     a single ``(B, row_bytes)`` buffer.  Returns field -> (byte_offset,
@@ -219,7 +223,7 @@ def packed_layout(canvas: int, k: int, fmt: str = "mask16") -> dict:
         layout[name] = (off, shape, np.dtype(dtype))
         off += nbytes
     layout["row"] = (off + 3) // 4 * 4
-    return layout
+    return types.MappingProxyType(layout)
 
 
 def row_views(row: np.ndarray, layout: dict) -> dict[str, np.ndarray]:

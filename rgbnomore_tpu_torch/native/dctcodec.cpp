@@ -124,7 +124,9 @@ void extract_quant(jpeg_decompress_struct& cinfo, int comp, int16_t* out) {
     for (int i = 0; i < kDct2; ++i) out[i] = 1;
     return;
   }
-  for (int i = 0; i < kDct2; ++i) out[i] = static_cast<int16_t>(tbl->quantval[i]);
+  // a zero entry (a malformed DQT) reads as 1: requant_plane divides by it
+  for (int i = 0; i < kDct2; ++i)
+    out[i] = static_cast<int16_t>(tbl->quantval[i] == 0 ? 1 : tbl->quantval[i]);
 }
 
 // Reads coefficients; caller must already have called jpeg_read_header.

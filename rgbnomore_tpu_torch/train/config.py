@@ -242,6 +242,26 @@ def update_runtime(cfg: Config, num_devices: int) -> Config:
     return cfg
 
 
+def configure_determinism(cfg: Config) -> None:
+    """Apply ``cfg.train.deterministic`` (the JAX ``configure_determinism``,
+    ``rgbnomore_tpu/train/config.py:271-291``; the reference's cuDNN and
+    cuBLAS knobs, ``pipeline_utils.py:299-303``): a cuBLAS workspace that
+    reduces in a fixed order (``CUBLAS_WORKSPACE_CONFIG``, read when a cuBLAS
+    handle is made, so this runs before the first product on the card),
+    deterministic cuDNN, and ``torch.use_deterministic_algorithms(True)``,
+    under which an operation with no deterministic CUDA version raises.
+    Does nothing when the flag is off."""
+    if not cfg.train.deterministic:
+        return
+    import os
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in (":4096:8", ":16:8"):
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+
+
 def build_model(cfg: Config, device=None):
     """Instantiate the torch model for a config (reference: get_model,
     ``pipeline_utils.py:325-373``) on ``device`` (default ``cuda``), with

@@ -4,13 +4,15 @@ one device.
 ``Trainer`` owns the model (the ViT or SwinV2), the input pipelines, and
 once ``create_state`` has run, the optimizer and the step count.
 ``train_step`` takes one uploaded ``(B, row)`` uint8 batch of the cropped
-K=16 mask16 train wire through pipeline (``fused_flip_aug_range``) -> mixup
--> forward (in train mode: SwinV2's drop path) -> softmax cross-entropy ->
-backward -> global-norm clip -> AdamW, the body of the JAX
+K=16 mask16 train wire through pipeline (one ``wire_flip_aug_range``) ->
+mixup -> forward (in train mode: SwinV2's drop path) -> softmax
+cross-entropy -> backward -> global-norm clip -> AdamW, the body of the JAX
 ``Trainer._train_body`` (``loop.py:246-303``) without its fp16 loss-scaling
 branch (ROADMAP.md, port queue: AMP).  ``evaluate`` uploads each K=48 eval
-batch in one pinned, non-blocking copy and runs pipeline -> model (in eval
-mode) -> weighted sums on the device.  ``make_loaders`` builds the cropped
+batch in one non-blocking copy from a reused pinned buffer and runs
+pipeline (one ``wire_to_range``) -> model (in eval mode) -> weighted sums
+on the device.  ``cfg.train.deterministic`` turns on deterministic
+algorithms (``configure_determinism``).  ``make_loaders`` builds the cropped
 DCT loaders: the ViT's eval crop is the center crop, SwinV2's the
 whole-image resize.  Checkpoints, ``train_and_eval`` and multi-GPU data parallelism
 come with later slices (ROADMAP.md, port queue).
@@ -30,7 +32,7 @@ from rgbnomore_tpu_torch.augment.pipeline import (
 )
 from rgbnomore_tpu_torch.data.index import load_index, split_train_minival
 from rgbnomore_tpu_torch.device import resolve_device
-from rgbnomore_tpu_torch.train.config import Config, build_model
+from rgbnomore_tpu_torch.train.config import Config, build_model, configure_determinism
 from rgbnomore_tpu_torch.train.optim import Optimizer
 from rgbnomore_tpu_torch.train.steps import (
     draw_mixup_lambda,
@@ -42,8 +44,8 @@ from rgbnomore_tpu_torch.train.steps import (
 
 log = logging.getLogger(__name__)
 
-__all__ = ["StepDraws", "Trainer", "cropped_eval_defaults", "guard_eval_sums",
-           "make_loaders"]
+__all__ = ["PinnedUploader", "StepDraws", "Trainer", "cropped_eval_defaults",
+           "guard_eval_sums", "make_loaders"]
 
 TRAIN_K, TRAIN_FMT = 16, "mask16"  # the train side of the crop-before-pack wire
 
@@ -72,6 +74,45 @@ class StepDraws:
     drop_keep: torch.Tensor | None = None
 
 
+class PinnedUploader:
+    """Uploads (B, row) uint8 batches to a CUDA device through a ring of
+    pinned host buffers that it reuses: per batch shape, two buffers taken
+    in turn.  ``put`` copies the rows into the next buffer, starts a
+    non-blocking copy to a new device tensor on the current stream and
+    records an event after it; before a buffer is written again, the host
+    waits on that event, so a copy still in flight is never overwritten.
+    The rows go into the buffer through PyTorch's copy, which spreads a
+    large one over the host's threads.  The buffers are ordinary tensors even
+    when the first upload runs under ``torch.inference_mode`` (as
+    ``Trainer.evaluate`` does), so later uploads outside it may write them."""
+
+    DEPTH = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._rings: dict[tuple, list] = {}  # shape -> [(pinned, event)] * DEPTH
+        self._turn: dict[tuple, int] = {}
+
+    def put(self, rows: np.ndarray) -> torch.Tensor:
+        if rows.dtype != np.uint8 or rows.ndim != 2:
+            raise ValueError(f"rows must be (B, row) uint8, got {rows.shape} {rows.dtype}")
+        key = rows.shape
+        if key not in self._rings:
+            with torch.inference_mode(False):
+                self._rings[key] = [(torch.empty(key, dtype=torch.uint8, pin_memory=True),
+                                     torch.cuda.Event()) for _ in range(self.DEPTH)]
+            self._turn[key] = 0
+        turn = self._turn[key]
+        self._turn[key] = (turn + 1) % self.DEPTH
+        pinned, copied = self._rings[key][turn]
+        copied.synchronize()  # the last copy out of this buffer (none yet: returns at once)
+        pinned.copy_(torch.from_numpy(rows))
+        out = torch.empty(key, dtype=torch.uint8, device=self.device)
+        out.copy_(pinned, non_blocking=True)
+        copied.record(torch.cuda.current_stream(self.device))
+        return out
+
+
 class Trainer:
     """Owns the model, the pipelines and the optimizer for one config on one
     device.
@@ -92,6 +133,7 @@ class Trainer:
             raise NotImplementedError(
                 "the RGB domain is still to be ported (ROADMAP.md, port queue: RGB)")
         self.cfg = cfg
+        configure_determinism(cfg)  # before the model's first cuBLAS handle
         self.model = build_model(cfg, device=self.device)
         self.packed_k_eval, self.eval_fmt = cropped_eval_defaults(cfg.model.domain)
         self.eval_pipe = make_cropped_eval_pipeline(
@@ -100,15 +142,18 @@ class Trainer:
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self.rng = np.random.default_rng(cfg.seed)
         self.optimizer: Optimizer | None = None
+        self._uploader: PinnedUploader | None = None
 
     def put_batch(self, batch: dict) -> dict:
-        """Upload the consolidated (B, row) uint8 buffer: one copy, from
-        pinned memory and non-blocking on the GPU (labels and weights ride
-        inside the row)."""
-        buf = torch.from_numpy(batch["packed"])
-        if self.device.type == "cuda":
-            buf = buf.pin_memory().to(self.device, non_blocking=True)
-        return {"packed": buf}
+        """Upload the consolidated (B, row) uint8 buffer (labels and weights
+        ride inside the row): on the GPU one non-blocking copy through the
+        Trainer's ring of reused pinned buffers (:class:`PinnedUploader`);
+        on the CPU the rows themselves, uncopied."""
+        if self.device.type != "cuda":
+            return {"packed": torch.from_numpy(batch["packed"])}
+        if self._uploader is None:
+            self._uploader = PinnedUploader(self.device)
+        return {"packed": self._uploader.put(batch["packed"])}
 
     # ------------------------------------------------------------------ train
     def create_state(self, steps_per_epoch: int) -> Optimizer:
@@ -117,8 +162,9 @@ class Trainer:
         count."""
         if self.cfg.train.drop > 0:
             raise NotImplementedError(
-                "dropout is still to be ported: the JAX ViT then leaves the attention "
-                "kernel for its einsum-with-dropout path (ROADMAP.md, port queue)")
+                "dropout is still to be ported (ROADMAP.md, port queue): the JAX ViT drops "
+                "after the attention projection, after GELU and after mlp2, and never "
+                "drops attention probabilities")
         t = self.cfg.train
         self.optimizer = Optimizer(self.model, t.lr, t.wd, t.warmup,
                                    steps_per_epoch * t.epochs)

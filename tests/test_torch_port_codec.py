@@ -106,3 +106,57 @@ def test_rows_identical(variants, mode):
     got = np.load(outs["pillow"] / f"rows_{mode}.npy")
     assert want.any()
     np.testing.assert_array_equal(got, want)
+
+
+def _set_dqt_entry(jpeg: bytes, value: int, table: int = 0, zigzag: int = 1) -> bytes:
+    """A copy of baseline JPEG bytes with entry ``zigzag`` of the 8-bit
+    quant table ``table`` set to ``value``; the entropy-coded data, and so
+    every stored coefficient, stay as they were."""
+    buf = bytearray(jpeg)
+    i = 2  # past SOI
+    while buf[i + 1] != 0xDA:  # up to the first scan
+        assert buf[i] == 0xFF
+        length = int.from_bytes(buf[i + 2:i + 4], "big")
+        j, end = i + 4, i + 2 + length
+        while buf[i + 1] == 0xDB and j < end:
+            precision, tq = buf[j] >> 4, buf[j] & 15
+            if tq == table:
+                assert precision == 0
+                buf[j + 1 + zigzag] = value
+                return bytes(buf)
+            j += 1 + 64 * (precision + 1)
+        i += 2 + length
+    raise AssertionError(f"no quant table {table}")
+
+
+@pytest.mark.parametrize("fmt", ["mask16q", "mask16"])
+def test_zero_quant_entry_reads_as_one(tmp_path, fmt):
+    """A JPEG whose luma DQT holds a 0 (position (0, 1)) packs as the same
+    file with a 1 there: the codec reads a zero entry as 1, so the mask16q
+    requantization never divides by 0, and the eval pipeline's output is
+    finite."""
+    import torch
+
+    from rgbnomore_tpu_torch import codec
+    from rgbnomore_tpu_torch.augment.pipeline import make_cropped_eval_pipeline
+    from rgbnomore_tpu_torch.data.index import load_index
+    from rgbnomore_tpu_torch.data.loader import DctCroppedLoader, row_views
+
+    rng = np.random.default_rng(4)
+    ys, xs = np.mgrid[0:96, 0:128]
+    img = np.stack([(128 + 80 * np.sin(ys / (4 + c)) * np.cos(xs / 6)
+                     + 20 * rng.standard_normal(ys.shape)).clip(0, 255).astype(np.uint8)
+                    for c in range(3)])
+    codec.write_tensor(tmp_path / "src.jpg", img, quality=90)
+    src = (tmp_path / "src.jpg").read_bytes()
+    for value in (0, 1):
+        (tmp_path / f"q{value}.jpg").write_bytes(_set_dqt_entry(src, value))
+    (tmp_path / "index.csv").write_text(
+        f"Filepath,Label\n{tmp_path / 'q0.jpg'},3\n{tmp_path / 'q1.jpg'},3\n")
+    ldr = DctCroppedLoader(load_index(tmp_path / "index.csv"), 2, target=8, k=48,
+                           mode="center", fmt=fmt, num_threads=1)
+    rows = next(iter(ldr))["packed"]
+    assert (row_views(rows[0], ldr.layout)["quant"] >= 1).all()
+    np.testing.assert_array_equal(rows[0], rows[1])
+    y, c, _, _ = make_cropped_eval_pipeline(target=8, k=48, fmt=fmt)(torch.from_numpy(rows))
+    assert torch.isfinite(y).all() and torch.isfinite(c).all()

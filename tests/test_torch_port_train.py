@@ -181,3 +181,43 @@ def test_train_steps_lockstep_with_jax(jax_trainer):
                 got, ref = np.delete(got, np.r_[keys], axis=0), np.delete(ref, np.r_[keys], axis=0)
             np.testing.assert_allclose(got, ref, atol=PARAM_ATOL, rtol=0, err_msg=f"{name} step {step}")
     assert trainer.step == 3 and int(state.step) == 3
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["off", "on"])
+def test_deterministic_flag(flag):
+    """``cfg.train.deterministic`` set, building the Trainer turns on
+    deterministic algorithms, deterministic cuDNN and the cuBLAS workspace
+    setting (``configure_determinism``); unset, it changes none of them.
+    The process's global state is restored afterwards."""
+    import os
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        torch.use_deterministic_algorithms(False)
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        torch.backends.cudnn.deterministic = False
+        cfg = generate_config("vitti", "dct", modelver=1, deterministic=flag)
+        cfg.model.depth = 1
+        Trainer(cfg, device="cpu")
+        assert torch.are_deterministic_algorithms_enabled() == flag
+        assert os.environ.get("CUBLAS_WORKSPACE_CONFIG") == (":4096:8" if flag else None)
+        assert torch.backends.cudnn.deterministic == flag
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        if saved[2] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[2]
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[3:]
+
+
+def test_dropout_refusal_states_the_reference():
+    """The port refuses dropout until it is ported, and says what the JAX
+    ViT drops: never the attention probabilities."""
+    cfg = generate_config("vitti", "dct", modelver=1, drop=0.1)
+    cfg.model.depth = 1
+    with pytest.raises(NotImplementedError, match="never drops attention probabilities"):
+        Trainer(cfg, device="cpu").create_state(1)
