@@ -13,16 +13,18 @@ paths at full width: ViT-Ti evaluation over the cropped DCT wire (K=48
 over the K=16 wire (batch 256) through ``Trainer.train_step``; then SwinV2-T
 (float32) the same two ways (eval batch 256, train batch 128, 32x32 blocks)
 and JPEG files through the host codec and ``DctCroppedLoader`` into the
-SwinV2 eval.  It checks that every kernel of each path was launched and
-that what comes out is right.
+SwinV2 eval; then mixed precision: ViT-B/16 and SwinV2-T under their bf16
+presets, and ViT-Ti in fp16 with the loss scaler.  It checks that every
+kernel of each path was launched and that what comes out is right.
 
 Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
   2. build: compile the kernels, one ``nvcc`` per source, started together,
      and the host codec beside them;
-  3. kernels: each kernel (attention forward and backward, the fused flip +
-     RandAugment + ToRange stage through its dense entry and through its
-     wire reader, window attention forward and backward) against its plain
+  3. kernels: each kernel (attention forward and backward in float32 and
+     their bf16 and fp16 variants, the fused flip + RandAugment + ToRange
+     stage through its dense entry and through its wire reader, window
+     attention forward and backward) against its plain
      version at the main paths' shapes and the JAX package's test shapes,
      then timed with CUDA events beside its plain version, its bound and,
      where one exists, a PyTorch library call.  The
@@ -60,7 +62,20 @@ Phases, each raising on failure (the script then exits non-zero):
      and the reduction of the bias gradient), finite falling losses, the
      card against the CPU at 4 images, the stages, the kernels and the peak
      memory;
- 10. determinism: two SwinV2-T train steps from one state with
+ 10. vitb: ViT-B/16 as its preset gives it (bf16), 1 + 10 train steps at
+     batch 512 (12 bf16 attention forward and 12 backward launches per
+     step, none of the float32 kernels), the peak memory, 512 images
+     through the eval, one step card vs CPU at 2 images, the stages and
+     kernels of a step;
+ 11. swin amp: SwinV2-T under its bf16 preset, 1 + 10 train steps (the
+     window kernels stay float32, 12 + 24 launches per step) and 512
+     images through the eval, the stages and kernels of a step;
+ 12. fp16: ViT-Ti with ``ampdtype fp16`` and the loss scaler, 1 + 10 steps
+     with fp16 attention launches, and a step made non-finite on purpose
+     that must skip
+     (parameters and AdamW state bit-identical, schedule count advanced,
+     scale x0.625);
+ 13. determinism: two SwinV2-T train steps from one state with
      ``cfg.train.deterministic``, in a child process (``--determinism``),
      must leave bit-identical parameters; the same without the flag is
      reported beside it.
@@ -125,11 +140,40 @@ GRAD_RTOL = 1e-5  # of the largest gradient entry in the model
 # plain path's (and than the CPU's)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
-# float32 FLOP/s outside the tensor cores, dense TF32 FLOP/s of the tensor
-# cores
+# float32 FLOP/s outside the tensor cores, dense TF32 and bf16 / fp16
+# FLOP/s of the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
+PEAK_H16_FLOP_PER_S = 989e12
+# the half-precision attention kernels (#1 and #2 on bf16 and fp16 inputs):
+# the main paths' shapes, ViT-B's eval batch of 256 (the vitb preset, 12
+# heads of 64), ViT-Ti's (the fp16 path) and ViT-B's train batch of 512,
+# then the float32 kernels' check shapes; the first three are timed
+H16_SHAPES = [(256, 12, 196, 64), (256, 3, 196, 64), (512, 12, 196, 64), (2, 3, 197, 64),
+              (1, 2, 52, 24), (2, 3, 49, 32), (2, 3, 128, 128)]
+H16_TIMED = 3
+VITB_SCALE = 1.0 / math.sqrt(768)  # ViT-B: 1/sqrt(emb_size)
+# A kernel's and the plain version's outputs against a float32 reference on
+# the same rounded inputs: a few units of the dtype's rounding (2^-8 bf16,
+# 2^-11 fp16) on outputs of order 1; gradients as a share of the largest
+# reference entry.  The kernel against the plain version: the sum of the
+# two errors, twice the tolerance.
+H16_FWD_TOL = {"bfloat16": dict(atol=2**-6, rtol=2**-7),
+               "float16": dict(atol=2**-9, rtol=2**-10)}
+H16_GRAD_TOL = {"bfloat16": 2**-5, "float16": 2**-8}
+# ViT-B/16 (generate_config("vitb", "dct")): bf16, 12 x 768, 12 heads of 64,
+# 28x28 blocks, 1000 classes; the preset's batch of 512 on one card
+VITB_TRAIN_STEPS = 10  # counted steps, after one warm-up step
+VITB_CPU_BATCH = 2
+# one bf16 train step on the card against the CPU: the loss and the global
+# gradient norm relative, each gradient entry as a share of the largest
+# entry in the model.  Both sides round every product and activation to
+# bf16 (2^-8), in other orders and with other kernels.
+# (measured on an H100: 7.9e-5 and 3.9e-3)
+BF16_LOSS_RTOL = 2**-8
+BF16_GRAD_RTOL = 2**-5
+FP16_STEPS = 10  # counted fp16 ViT-Ti steps with the loss scaler, after a warm-up
 # SwinV2-T (generate_config("swinv2", "dct"), float32): 32x32 blocks (256
 # px), patch 4 -> 64x64 tokens, windows of 8x8 = 64 tokens, head dim 32
 SWIN_GRID = 32
@@ -360,6 +404,20 @@ def phase_card() -> str:
     return out[0]
 
 
+def mangled_kernel(line: str) -> str | None:
+    """The name of the ``*_kernel`` function in a ptxas line's mangled
+    symbol: the identifier whose decimal length prefix matches it (the
+    digits of a hash before it are not part of it)."""
+    for m in re.finditer(r"_kernel", line):
+        end = m.end()
+        for start in range(end - len("_kernel") - 1, 0, -1):
+            for width in (1, 2, 3):
+                digits = line[start - width:start]
+                if digits.isdigit() and int(digits) == end - start:
+                    return line[start:end]
+    return None
+
+
 def phase_build() -> None:
     """The kernels (one ``nvcc`` per source, all at once) and, beside them,
     the host codec against the port's own libjpeg headers."""
@@ -382,9 +440,11 @@ def phase_build() -> None:
         entries, args = {}, "?"
         for line in path.with_name(path.name + ".log").read_text().splitlines():
             if "Compiling entry function" in line:
-                kernel = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)", line)
-                args = (kernel.group(1) if kernel else line.split("'")[1]) + "<" + ",".join(
-                    re.findall(r"Li(\d+)E", line)) + ">"
+                kernel = mangled_kernel(line)
+                # the element type of a half-precision kernel, then its ints
+                dtype = re.findall(r"I(?:6__half|13__nv_bfloat16)", line)
+                targs = [t.split("_")[-1] for t in dtype] + re.findall(r"Li(\d+)E", line)
+                args = (kernel or line.split("'")[1]) + "<" + ",".join(targs) + ">"
             elif "spill stores" in line:
                 spills = re.findall(r"(\d+) bytes spill", line)
             elif "Used" in line and "registers" in line:
@@ -507,6 +567,195 @@ def kernel_attention_bwd(gen) -> dict:
         **bounds, "library_ms": library_ms, "device_ms": dev_ms,
         "library_device_ms": dev_library_ms,
     }
+
+
+def h16_bound_ms(flop: float, nbytes: float) -> tuple[float, str]:
+    """The least time, in ms, of a kernel that does ``flop`` FLOP of bf16 or
+    fp16 products on the tensor cores and moves ``nbytes``, and which of
+    the two bounds it."""
+    t_ops, t_bytes = flop / PEAK_H16_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def kernel_attention_h16(gen) -> list[dict]:
+    """Kernels #1 and #2 on bf16 and fp16 inputs (``csrc/attention_h16_fwd.cu``,
+    ``csrc/attention_h16_bwd.cu``), through ``fused_attention`` and its
+    autograd Function: at every shape of ``H16_SHAPES`` the output and the
+    gradients against the plain version in the same dtype (``attention_plain``
+    and autograd through it), and both against a float32 reference on the
+    same rounded inputs; two backward runs bit-identical; fp16 with an
+    output gradient up to 2^13 (loss-scaled), whose dO V^T passes fp16's
+    range, finite and within tolerance wherever the reference is.  Then
+    each timed at ViT-B's eval and train and ViT-Ti's shapes beside the
+    plain version, SDPA on the same inputs (its backward too), and the
+    bound: 4 N^2 D (10 N^2 D) FLOP per (batch, head) at the tensor cores'
+    bf16 rate against q, k, v, o (and dO, dq, dk, dv, lse) moved once.  Returns four entries:
+    forward and backward, bf16 and fp16."""
+    import torch
+    import torch.nn.functional as F
+
+    from rgbnomore_tpu_torch.ops.attention import (
+        attention_bwd_plain,
+        attention_plain,
+        fused_attention,
+        fused_attention_h16_bwd,
+        fused_attention_h16_fwd,
+    )
+
+    def rel(a, b) -> float:
+        return float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    entries = []
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).removeprefix("torch.")
+        tag = "bf16" if dtype == torch.bfloat16 else "fp16"
+        ftol, gtol = H16_FWD_TOL[name], H16_GRAD_TOL[name]
+        fwd_err = bwd_err = 0.0
+        for shape in H16_SHAPES:
+            scale = VITB_SCALE if shape[1] == 12 else ATTN_SCALE
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                          for _ in range(4))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fused_attention(*leaves, scale)
+            out.backward(g)
+            with torch.inference_mode():
+                plain = attention_plain(q, k, v, scale)
+                ref = attention_plain(q.float(), k.float(), v.float(), scale)
+            plain_grads = attention_bwd_plain(q, k, v, g, scale)
+            ref_grads = attention_bwd_plain(q.float(), k.float(), v.float(), g.float(), scale)
+            torch.cuda.synchronize()
+            err = float((out.detach() - plain).abs().max())
+            fwd_err = max(fwd_err, err)
+            e_kernel = float((out.detach().float() - ref).abs().max())
+            e_plain = float((plain.float() - ref).abs().max())
+            check(torch.allclose(out.detach().float(), ref, **ftol),
+                  f"fused_attention {tag} {shape}: err against float32 {e_kernel} beyond {ftol}")
+            check(torch.allclose(plain.float(), ref, **ftol),
+                  f"attention_plain {tag} {shape}: err against float32 {e_plain} beyond {ftol}")
+            check(torch.allclose(out.detach().float(), plain.float(), atol=2 * ftol["atol"],
+                                 rtol=2 * ftol["rtol"]),
+                  f"fused_attention {tag} {shape}: max abs err {err} against plain beyond "
+                  f"2x {ftol}")
+            g_kernel, g_plain, g_pair = [], [], []
+            for leaf, p_, r_ in zip(leaves, plain_grads, ref_grads):
+                g_kernel.append(rel(leaf.grad, r_))
+                g_plain.append(rel(p_, r_))
+                g_pair.append(rel(leaf.grad, p_.float()))
+                bwd_err = max(bwd_err, float((leaf.grad - p_).abs().max()))
+            check(max(g_kernel) <= gtol and max(g_plain) <= gtol and max(g_pair) <= 2 * gtol,
+                  f"fused_attention_bwd {tag} {shape}: gradient errors of the largest entry: "
+                  f"kernel {g_kernel}, plain {g_plain} against float32 (tolerance {gtol}), "
+                  f"kernel against plain {g_pair} (2x)")
+            print(f"kernels: fused_attention {tag} {shape}: fwd err against float32 kernel "
+                  f"{e_kernel:.2e} plain {e_plain:.2e}, against plain {err:.2e}; gradients "
+                  f"(share of the largest entry) kernel {max(g_kernel):.2e} plain "
+                  f"{max(g_plain):.2e}, against plain {max(g_pair):.2e}", flush=True)
+            del q, k, v, g, leaves, out, plain, ref, plain_grads, ref_grads
+        b, h, n, d = H16_SHAPES[0]
+        q, k, v, g = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype)
+                      for _ in range(4))
+        out, lse = fused_attention_h16_fwd(q, k, v, VITB_SCALE, with_lse=True)
+        first = fused_attention_h16_bwd(q, k, v, out, lse, g, VITB_SCALE)
+        again = fused_attention_h16_bwd(q, k, v, out, lse, g, VITB_SCALE)
+        for t, a, b_ in zip("qkv", first, again):
+            check(torch.equal(a, b_), f"fused_attention_bwd {tag} d{t} differs between runs")
+        del first, again
+        if dtype == torch.float16:
+            # loss-scaled output gradients at ViT-B's scale: "random", dO ~
+            # N(0, 1) x 2^13, whose dO V^T passes fp16's 65504; "aligned",
+            # dO = 8000 V and q = k = 1.6 N(0, 1), whose dS reaches about
+            # 1.9e5 while dq, dk, dv stay inside fp16's range
+            shape = (8, 12, 196, 64)
+            for kind in ("random", "aligned"):
+                x, hv, hg = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+                if kind == "random":
+                    hq, hk = x.half(), torch.randn(shape, generator=gen, device="cuda").half()
+                    hv, hg = hv.half(), (hg * 2.0**13).half()
+                else:
+                    hq = (1.6 * x).half()
+                    hk, hv = hq.clone(), hv.half()
+                    hg = (8000.0 * hv.float()).half()
+                hout, hlse = fused_attention_h16_fwd(hq, hk, hv, VITB_SCALE, with_lse=True)
+                got = fused_attention_h16_bwd(hq, hk, hv, hout, hlse, hg, VITB_SCALE)
+                want = attention_bwd_plain(hq.float(), hk.float(), hv.float(), hg.float(),
+                                           VITB_SCALE)
+                dp = torch.einsum("bhqd,bhkd->bhqk", hg.float(), hv.float())
+                p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", hq.float(), hk.float())
+                              * VITB_SCALE - hlse[..., None])
+                ds_max = float((p * (dp - (hg.float() * hout.float()).sum(-1, keepdim=True)))
+                               .abs().max())
+                dp_max = float(dp.abs().max())
+                errs = [rel(a, w) for a, w in zip(got, want)]
+                check(dp_max > 65504 and (ds_max > 65504) == (kind == "aligned"),
+                      f"fp16 large dO {kind}: max |dP| {dp_max}, max |dS| {ds_max}")
+                for t, a, w, e in zip("qkv", got, want, errs):
+                    finite_ref = torch.isfinite(w.half())
+                    check(bool(torch.isfinite(a)[finite_ref].all()) and e <= gtol,
+                          f"fused_attention_bwd fp16 large dO {kind} d{t}: not finite where the "
+                          f"float32 reference is, or err {e} beyond {gtol}")
+                print(f"kernels: fused_attention_bwd fp16 {shape}, loss-scaled dO ({kind}: max "
+                      f"|dO V^T| {dp_max:.3e}, max |dS| {ds_max:.3e}): finite, errs "
+                      f"{[f'{e:.1e}' for e in errs]}", flush=True)
+                del x, hq, hk, hv, hg, hout, hlse, got, want, dp, p
+
+        per_shape = {}
+        for shape in H16_SHAPES[:H16_TIMED]:
+            b, h, n, d = shape
+            scale = VITB_SCALE if h == 12 else ATTN_SCALE
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                          for _ in range(4))
+            with torch.inference_mode():
+                r = {"ms": time_ms(lambda: fused_attention_h16_fwd(q, k, v, scale)),
+                     "device_ms": device_ms(lambda: fused_attention_h16_fwd(q, k, v, scale)),
+                     "plain_ms": time_ms(lambda: attention_plain(q, k, v, scale), reps=10,
+                                         warmup=2),
+                     "library_ms": time_ms(
+                         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+                     "library_device_ms": device_ms(
+                         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))}
+            r["bound_ms"], r["bound_by"] = h16_bound_ms(4 * n * n * d * b * h,
+                                                        4 * q.numel() * 2)
+            out, lse = fused_attention_h16_fwd(q, k, v, scale, with_lse=True)
+            rb = {"ms": time_ms(lambda: fused_attention_h16_bwd(q, k, v, out, lse, g, scale)),
+                  "device_ms": device_ms(
+                      lambda: fused_attention_h16_bwd(q, k, v, out, lse, g, scale))}
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            plain_out = attention_plain(*leaves, scale)
+            rb["plain_ms"] = time_ms(
+                lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True), reps=10,
+                warmup=2)
+            sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+            rb["library_ms"] = time_ms(
+                lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+            rb["library_device_ms"] = device_ms(
+                lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+            rb["bound_ms"], rb["bound_by"] = h16_bound_ms(10 * n * n * d * b * h,
+                                                          8 * q.numel() * 2 + lse.numel() * 4)
+            per_shape[shape] = (r, rb)
+            for what, x in (("fused_attention", r), ("fused_attention_bwd", rb)):
+                print(f"kernels: {what} {tag} {shape}: {x['ms']:.4f} ms (device "
+                      f"{ms_text(x['device_ms'])}), plain {x['plain_ms']:.4f} ms, sdpa "
+                      f"{x['library_ms']:.4f} ms (device {ms_text(x['library_device_ms'])}); "
+                      f"bound {x['bound_ms']:.4f} ms ({x['bound_by']}, "
+                      f"{100 * x['bound_ms'] / x['ms']:.1f}% of it)", flush=True)
+            del q, k, v, g, out, lse, leaves, plain_out, sdpa_out
+        for i, (what, src, line, err) in enumerate((
+                ("fused_attention", "attention_h16_fwd.cu", 39, fwd_err),
+                ("fused_attention_bwd", "attention_h16_bwd.cu", 51, bwd_err))):
+            main = per_shape[H16_SHAPES[0]][i]
+            lib = src.removesuffix(".cu")
+            entries.append({
+                "name": f"{what}_{tag}", "route": "cuda",
+                "source": f"rgbnomore_tpu_torch/csrc/{src}",
+                "replaces": f"rgbnomore_tpu/ops/pallas/attention.py:{line}",
+                "dtype": name, "launches": None, "max_abs_err": err,
+                "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+                "device_ms": main["device_ms"], "library_device_ms": main["library_device_ms"],
+                "per_shape": {str(list(sh)): r[i] for sh, r in per_shape.items()},
+                "ptxas": {k_: v_ for k_, v_ in PTXAS.get(lib, {}).items()
+                          if ("half" if tag == "fp16" else "bfloat16") in k_ and ",4>" in k_}})
+    return entries
 
 
 def kernel_augpipe() -> dict:
@@ -950,6 +1199,8 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     report = {"fused_attention": kernel_attention_fwd(gen)}
     report["fused_attention_bwd"] = kernel_attention_bwd(gen)
+    for entry in kernel_attention_h16(gen):
+        report[entry["name"]] = entry
     report["fused_flip_aug_range"] = kernel_augpipe()
     report["augpipe_wire"] = kernel_augpipe_wire()
     report["window_attention"], report["window_attention_bwd"] = kernel_window_attention(gen)
@@ -1188,7 +1439,8 @@ def phase_train_vs_cpu(rows: np.ndarray) -> None:
     step_card_vs_cpu("train", cfg, rows[:CPU_GRAD_BATCH])
 
 
-def step_card_vs_cpu(tag: str, cfg, rows: np.ndarray, prepare=None) -> None:
+def step_card_vs_cpu(tag: str, cfg, rows: np.ndarray, prepare=None, loss_rtol=LOSS_RTOL,
+                     grad_rtol=GRAD_RTOL) -> None:
     """One train step's loss and gradients on the card (kernels) against the
     CPU (plain versions), from the same seeded parameters (then ``prepare``
     on each model), rows and draws.  Tolerance: float32 sums in other orders
@@ -1196,7 +1448,8 @@ def step_card_vs_cpu(tag: str, cfg, rows: np.ndarray, prepare=None) -> None:
     through every block and back; a parameter is held to GRAD_RTOL of the
     largest gradient entry in the model, so an entry whose gradient is zero
     in exact arithmetic and rounding noise here (the key third of each ViT
-    qkv bias) is held to that noise's scale."""
+    qkv bias) is held to that noise's scale.  Mixed precision passes its
+    own tolerances."""
     import torch
 
     from rgbnomore_tpu_torch.train.loop import Trainer
@@ -1225,13 +1478,13 @@ def step_card_vs_cpu(tag: str, cfg, rows: np.ndarray, prepare=None) -> None:
           f"{loss_cpu:.7f}, grad norm {norm_card:.7f} vs {norm_cpu:.7f}, worst gradient "
           f"err {worst[0]:.3e} of the largest entry ({worst[1]}), worst relative to its own "
           f"largest entry {worst_own[0]:.3e} ({worst_own[1]})", flush=True)
-    check(abs(loss_card - loss_cpu) <= LOSS_RTOL * abs(loss_cpu),
-          f"{tag}: loss card {loss_card} vs CPU {loss_cpu} beyond rtol {LOSS_RTOL}")
-    check(abs(norm_card - norm_cpu) <= GRAD_RTOL * norm_cpu,
-          f"{tag}: grad norm card {norm_card} vs CPU {norm_cpu} beyond rtol {GRAD_RTOL}")
-    check(worst[0] <= GRAD_RTOL,
+    check(abs(loss_card - loss_cpu) <= loss_rtol * abs(loss_cpu),
+          f"{tag}: loss card {loss_card} vs CPU {loss_cpu} beyond rtol {loss_rtol}")
+    check(abs(norm_card - norm_cpu) <= grad_rtol * norm_cpu,
+          f"{tag}: grad norm card {norm_card} vs CPU {norm_cpu} beyond rtol {grad_rtol}")
+    check(worst[0] <= grad_rtol,
           f"{tag}: gradient of {worst[1]}: err {worst[0]} of the largest entry, beyond "
-          f"{GRAD_RTOL}")
+          f"{grad_rtol}")
 
 
 def phase_train_breakdown(trainer, packed, tag: str = "breakdown") -> None:
@@ -1288,8 +1541,9 @@ def phase_train_breakdown(trainer, packed, tag: str = "breakdown") -> None:
 def swin_config(batch: int, **kw):
     """SwinV2-T as the repo presets it (``generate_config("swinv2", "dct")``:
     embed 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24), window 8, drop path
-    0.2, 32x32 blocks, 1000 classes), in float32: the preset's AMP is the
-    port's next slice."""
+    0.2, 32x32 blocks, 1000 classes), in float32 (``cfg.train.amp = False``):
+    the float32 phases hold the window kernels to float32 references; the
+    preset's own bf16 AMP runs in ``phase_swin_amp``."""
     from rgbnomore_tpu_torch.train.config import generate_config
 
     cfg = generate_config("swinv2", "dct", batchsize=batch, seed=SEED, **kw)
@@ -1523,6 +1777,292 @@ def phase_swin_train(report: dict):
     return trainer, packed, rows
 
 
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from rgbnomore_tpu_torch.ops.attention import (
+        fused_attention,
+        fused_attention_bwd,
+        fused_attention_h16_bwd,
+        fused_attention_h16_fwd,
+    )
+    from rgbnomore_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
+
+    for w in (fused_attention, fused_attention_bwd, fused_attention_h16_fwd,
+              fused_attention_h16_bwd, window_attention, window_attention_bwd,
+              *augpipe_wrappers().values()):
+        w.launches = 0
+
+
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    from rgbnomore_tpu_torch.ops.attention import (
+        fused_attention,
+        fused_attention_bwd,
+        fused_attention_h16_bwd,
+        fused_attention_h16_fwd,
+    )
+    from rgbnomore_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
+
+    return {"fused_attention": fused_attention.launches,
+            "fused_attention_bwd": fused_attention_bwd.launches,
+            "fused_attention_h16": fused_attention_h16_fwd.launches,
+            "fused_attention_h16_bwd": fused_attention_h16_bwd.launches,
+            "window_attention": window_attention.launches,
+            "window_attention_bwd": window_attention_bwd.launches,
+            **{name: w.launches for name, w in augpipe_wrappers().items()}}
+
+
+def check_launches(tag: str, got: dict, want: dict) -> None:
+    """``want`` gives the launches of some kernels; every other attention
+    and window kernel must have none (``fused_flip_aug_range`` and the wire
+    reader are ``check_input_stage``'s)."""
+    skip = set(augpipe_wrappers())
+    full = {name: want.get(name, 0) for name in got if name not in skip}
+    seen = {name: got[name] for name in full}
+    check(seen == full, f"{tag}: launches {seen}, want {full}")
+
+
+def vitb_config(**kw):
+    """ViT-B/16 as the repo presets it (``generate_config("vitb", "dct")``:
+    bf16 AMP, 12 x 768, 12 heads of 64, patch 16 over 28x28 blocks = 196
+    tokens, 1000 classes, lr 1e-3, batch 512), its batch per device for one
+    card (``update_runtime``); warmup 1 over one epoch, so that 11 steps
+    move the loss (the preset warms up over 10,000 steps)."""
+    import torch
+
+    from rgbnomore_tpu_torch.train.config import generate_config, update_runtime
+
+    cfg = generate_config("vitb", "dct", seed=SEED, epochs=1, warmup_steps=1, **kw)
+    m = cfg.model
+    check(cfg.train.amp and m.amp_dtype == "bf16" and m.embed_size == 768 and m.depth == 12
+          and m.heads == 12 and m.head_size == 64 and m.dct_blocks == GRID
+          and m.classes == 1000 and cfg.train.lr == 1e-3
+          and cfg.train.batch_size == kw.get("batchsize", 512),
+          f"the vitb preset changed: {cfg}")
+    return update_runtime(cfg, torch.cuda.device_count())
+
+
+def phase_vitb(report: dict):
+    """ViT-B/16 under its bf16 preset at full width: 1 + 10 train steps at
+    the preset's batch of 512 on the K=16 wire, 12 bf16 attention forward
+    and 12 backward launches per step and none of the float32 kernels,
+    finite falling losses, the peak memory; then 512 images on the K=48
+    wire through ``Trainer.evaluate`` (12 bf16 forward launches per batch of
+    256)."""
+    import torch
+
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    cfg = vitb_config()
+    batch = cfg.train.batch_per_device
+    trainer = Trainer(cfg, device="cuda")
+    check(trainer.compute_dtype == torch.bfloat16, f"vitb computes in {trainer.compute_dtype}")
+    trainer.create_state(steps_per_epoch=VITB_TRAIN_STEPS + 1)
+    check(trainer.loss_scale is None, "bf16 made loss scaler state")
+    rng = np.random.default_rng(SEED + 6)
+    y, c = synthetic_planes(rng, batch, GRID)
+    rows = write_rows(y, c, (np.arange(batch) % cfg.model.classes).astype(np.int32), K_TRAIN)
+    packed = trainer.put_batch({"packed": rows})["packed"]
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(packed)]  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        for _ in range(VITB_TRAIN_STEPS):
+            losses.append(trainer.train_step(packed))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = all_launches()
+    check_input_stage(report, "vitb_train", launches, len(unpacks), train_steps=VITB_TRAIN_STEPS)
+    check_launches("vitb train", launches, {"fused_attention_h16": 12 * VITB_TRAIN_STEPS,
+                                            "fused_attention_h16_bwd": 12 * VITB_TRAIN_STEPS})
+    report["fused_attention_bf16"]["launches"] = launches["fused_attention_h16"]
+    report["fused_attention_bwd_bf16"]["launches"] = launches["fused_attention_h16_bwd"]
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"vitb train losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"vitb loss did not fall over {VITB_TRAIN_STEPS} steps: {losses}")
+    print(f"vitb train: {VITB_TRAIN_STEPS} steps of {batch} in {train_s:.3f} s, "
+          f"{VITB_TRAIN_STEPS * batch / train_s:.1f} img/s (pipeline + step, one resident "
+          f"batch, bf16) | launches {launches} | loss {losses[0]:.4f} -> {losses[-1]:.4f} | "
+          f"peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
+    print(f"vitb train: losses {[round(v, 4) for v in losses]}", flush=True)
+
+    y, c = synthetic_planes(rng, N_IMAGES, GRID)
+    eval_rows = write_rows(y, c, (np.arange(N_IMAGES) % 1000).astype(np.int32), K_EVAL)
+    batches = [{"packed": eval_rows[i:i + BATCH]} for i in range(0, N_IMAGES, BATCH)]
+    trainer.evaluate(batches)  # warm-up
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        res = trainer.evaluate(batches)
+        eval_s = time.perf_counter() - t0
+    launches = all_launches()
+    check_input_stage(report, "vitb_eval", launches, len(unpacks), eval_batches=len(batches))
+    check_launches("vitb eval", launches, {"fused_attention_h16": 12 * len(batches)})
+    check(res["count"] == N_IMAGES and math.isfinite(res["loss"])
+          and math.isfinite(res["accuracy"]), f"vitb eval gave {res}")
+    print(f"vitb eval: {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + forward, "
+          f"rows premade, batches of {BATCH}) | bf16 forward launches "
+          f"{launches['fused_attention_h16']}", flush=True)
+    return trainer, packed, rows
+
+
+def phase_swin_amp(report: dict):
+    """SwinV2-T under its own preset, bf16 AMP, at train batch 128: 1 + 10
+    steps with drop path, 12 window forward and 24 window backward launches
+    per step (the window kernels stay float32 under AMP, as the JAX
+    package's call site casts around them) and no ViT attention launch,
+    finite falling losses, the peak memory; 512 images through
+    ``Trainer.evaluate`` in batches of 256 (12 window launches each)."""
+    import torch
+
+    from rgbnomore_tpu_torch.train.config import generate_config
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    cfg = generate_config("swinv2", "dct", batchsize=SWIN_TRAIN_BATCH, seed=SEED, epochs=1,
+                          warmup_steps=1, lr=3e-3)
+    check(cfg.train.amp and cfg.model.amp_dtype == "bf16", "the swinv2 preset is not bf16 AMP")
+    trainer = Trainer(cfg, device="cuda")
+    check(trainer.compute_dtype == torch.bfloat16, f"swinv2 computes in {trainer.compute_dtype}")
+    trainer.create_state(steps_per_epoch=SWIN_TRAIN_STEPS + 1)
+    rng = np.random.default_rng(SEED + 7)
+    y, c = synthetic_planes(rng, SWIN_TRAIN_BATCH, SWIN_GRID)
+    rows = write_rows(y, c, (np.arange(SWIN_TRAIN_BATCH) % 1000).astype(np.int32), K_TRAIN)
+    packed = trainer.put_batch({"packed": rows})["packed"]
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(packed)]  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        for _ in range(SWIN_TRAIN_STEPS):
+            losses.append(trainer.train_step(packed))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = all_launches()
+    check_input_stage(report, "swin_amp_train", launches, len(unpacks),
+                      train_steps=SWIN_TRAIN_STEPS)
+    check_launches("swin amp train", launches, {"window_attention": 12 * SWIN_TRAIN_STEPS,
+                                                "window_attention_bwd": 24 * SWIN_TRAIN_STEPS})
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"swin amp losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"swin amp loss did not fall: {losses}")
+    print(f"swin amp train: {SWIN_TRAIN_STEPS} steps of {SWIN_TRAIN_BATCH} in {train_s:.3f} s, "
+          f"{SWIN_TRAIN_STEPS * SWIN_TRAIN_BATCH / train_s:.1f} img/s (pipeline + step, one "
+          f"resident batch, bf16) | launches {launches} | loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} | peak memory {peak_gib:.2f} GiB", flush=True)
+    print(f"swin amp train: losses {[round(v, 4) for v in losses]}", flush=True)
+
+    y, c = synthetic_planes(rng, N_IMAGES, SWIN_GRID)
+    eval_rows = write_rows(y, c, (np.arange(N_IMAGES) % 1000).astype(np.int32), K_EVAL)
+    batches = [{"packed": eval_rows[i:i + SWIN_EVAL_BATCH]}
+               for i in range(0, N_IMAGES, SWIN_EVAL_BATCH)]
+    trainer.evaluate(batches)  # warm-up
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        res = trainer.evaluate(batches)
+        eval_s = time.perf_counter() - t0
+    launches = all_launches()
+    check_input_stage(report, "swin_amp_eval", launches, len(unpacks), eval_batches=len(batches))
+    check_launches("swin amp eval", launches, {"window_attention": 12 * len(batches)})
+    check(res["count"] == N_IMAGES and math.isfinite(res["loss"]), f"swin amp eval gave {res}")
+    print(f"swin amp eval: {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + forward, "
+          f"rows premade, batches of {SWIN_EVAL_BATCH}) | window launches "
+          f"{launches['window_attention']}", flush=True)
+    return trainer, packed
+
+
+def phase_fp16(report: dict) -> None:
+    """ViT-Ti with ``ampdtype fp16`` and the hand-written loss scaler, batch
+    256: 1 + 10 steps with 12 fp16 attention forward and 12 backward
+    launches each, the scale unchanged at 2^15 and 11 good steps; then a
+    step whose gradients are non-finite
+    on purpose (an infinite weight): the parameters, the AdamW moments and
+    AdamW's count stay bit-identical, the schedule's count advances, the
+    scale backs off to x0.625; with the weight restored the next step
+    updates again."""
+    import torch
+
+    from rgbnomore_tpu_torch.train.config import generate_config
+    from rgbnomore_tpu_torch.train.loop import Trainer
+    from rgbnomore_tpu_torch.train.scaler import BACKOFF, INIT_SCALE
+
+    cfg = generate_config("vitti", "dct", modelver=1, batchsize=BATCH, seed=SEED, epochs=1,
+                          warmup_steps=1, lr=3e-3, amp=True, ampdtype="fp16")
+    trainer = Trainer(cfg, device="cuda")
+    check(trainer.compute_dtype == torch.float16, f"fp16 computes in {trainer.compute_dtype}")
+    trainer.create_state(steps_per_epoch=FP16_STEPS + 3)
+    scaler = trainer.loss_scale
+    check(scaler is not None and float(scaler.scale) == INIT_SCALE
+          and int(scaler.good_steps) == 0, "fp16 loss scaler not at 2^15")
+    rng = np.random.default_rng(SEED + 8)
+    y, c = synthetic_planes(rng, BATCH, GRID)
+    rows = write_rows(y, c, (np.arange(BATCH) % 1000).astype(np.int32), K_TRAIN)
+    packed = trainer.put_batch({"packed": rows})["packed"]
+
+    losses = [trainer.train_step(packed)]  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(FP16_STEPS):
+        losses.append(trainer.train_step(packed))
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check_launches("fp16 train", launches, {"fused_attention_h16": 12 * FP16_STEPS,
+                                            "fused_attention_h16_bwd": 12 * FP16_STEPS})
+    report["fused_attention_fp16"]["launches"] = launches["fused_attention_h16"]
+    report["fused_attention_bwd_fp16"]["launches"] = launches["fused_attention_h16_bwd"]
+    losses = [float(v) for v in losses]
+    scale, good = float(trainer.loss_scale.scale), int(trainer.loss_scale.good_steps)
+    check(all(math.isfinite(v) for v in losses), f"fp16 losses not finite: {losses}")
+    check(scale == INIT_SCALE and good == FP16_STEPS + 1,
+          f"fp16 scaler after {FP16_STEPS + 1} finite steps: scale {scale}, good {good}")
+    print(f"fp16 train: {FP16_STEPS} steps of {BATCH} (ViT-Ti, fp16, loss scaler) | launches "
+          f"{launches} | losses {[round(v, 4) for v in losses]} | scale {scale}, good steps "
+          f"{good}", flush=True)
+
+    adamw, opt = trainer.optimizer.opt, trainer.optimizer
+    weight = trainer.model.patchembed.projection.weight
+    saved = weight.detach()[0, 0].clone()
+    with torch.no_grad():
+        weight[0, 0] = float("inf")
+    params = {k: p.detach().clone() for k, p in trainer.model.named_parameters()}
+    moments = {id(p): {k: v.clone() for k, v in adamw.state[p].items()}
+               for p in trainer.model.parameters()}
+    count, scale = opt.count, float(trainer.loss_scale.scale)
+    loss = float(trainer.train_step(packed))
+    torch.cuda.synchronize()
+    check(not math.isfinite(loss), f"the poisoned step's loss is finite: {loss}")
+    same_params = all(torch.equal(p, params[k]) for k, p in trainer.model.named_parameters())
+    same_moments = all(torch.equal(v, moments[id(p)][k]) for p in trainer.model.parameters()
+                       for k, v in adamw.state[p].items())
+    new_scale, new_good = float(trainer.loss_scale.scale), int(trainer.loss_scale.good_steps)
+    check(same_params and same_moments and opt.count == count + 1
+          and new_scale == scale * BACKOFF and new_good == 0,
+          f"skipped step: parameters bit-identical {same_params}, moments and AdamW's count "
+          f"bit-identical {same_moments}, schedule count {count} -> {opt.count}, scale "
+          f"{scale} -> {new_scale}, good steps {new_good}")
+    with torch.no_grad():
+        weight[0, 0] = saved
+    adam_steps = float(adamw.state[weight]["step"])
+    loss = float(trainer.train_step(packed))
+    check(math.isfinite(loss) and float(adamw.state[weight]["step"]) == adam_steps + 1
+          and int(trainer.loss_scale.good_steps) == 1
+          and float(trainer.loss_scale.scale) == new_scale,
+          f"the step after the skip: loss {loss}, AdamW count {adam_steps} -> "
+          f"{float(adamw.state[weight]['step'])}, good steps "
+          f"{int(trainer.loss_scale.good_steps)}")
+    print(f"fp16 overflow: an infinite weight skipped the step: parameters, AdamW moments and "
+          f"count bit-identical, schedule count {count} -> {count + 1}, scale {scale} -> "
+          f"{new_scale}; restored, the next step updated (loss {loss:.4f}, AdamW count "
+          f"{adam_steps:.0f} -> {adam_steps + 1:.0f})", flush=True)
+
+
 def swin_steps_from_one_state(cfg) -> tuple[list[float], bool]:
     """Two SwinV2-T train steps of ``cfg`` at batch 128, each from the same
     seeded state, rows and draws (two Trainers): their losses, and whether
@@ -1621,6 +2161,15 @@ def main() -> int:
                      perturb_norms)
     phase_train_breakdown(trainer, packed, "swin breakdown")
     del trainer, packed
+    trainer, packed, rows = phase_vitb(report)
+    step_card_vs_cpu("vitb train", vitb_config(batchsize=VITB_CPU_BATCH), rows[:VITB_CPU_BATCH],
+                     loss_rtol=BF16_LOSS_RTOL, grad_rtol=BF16_GRAD_RTOL)
+    phase_train_breakdown(trainer, packed, "vitb breakdown")
+    del trainer, packed
+    trainer, packed = phase_swin_amp(report)
+    phase_train_breakdown(trainer, packed, "swin amp breakdown")
+    del trainer, packed
+    phase_fp16(report)
     phase_determinism()
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {

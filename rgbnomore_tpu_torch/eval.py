@@ -19,8 +19,9 @@ def evaluate_model(cfg: Config, index_train: str, index_val: str, loadpath: str 
     """Evaluate the config's model (the ViT or SwinV2) on the test
     (``index_val``), minival and trainval splits over the cropped DCT wire:
     the K=48 mask16 rows of the center crop for the ViT, of the whole-image
-    resize for SwinV2 (``make_loaders``).  The model runs in float32, so a
-    SwinV2 config sets ``cfg.train.amp = False``.
+    resize for SwinV2 (``make_loaders``).  The model computes in the
+    config's AMP dtype (``amp_compute_dtype``): the ``vitb``, ``vitl`` and
+    ``swinv2`` presets in bf16, the others in float32; logits are float32.
 
     ``loadpath`` names a ``state_dict`` saved with ``torch.save`` (see
     ``convert.py`` for weights trained by the JAX package); without it the

@@ -5,6 +5,11 @@ Port of ``sincos_position_embedding`` and ``PatchEmbeddingDCTGroup`` from
 ``models/plainvit.py:90-218``), with SwinV2's patch 4 (sub-blocks), no
 sincos and a LayerNorm.  The separate (2) and concatenated (3) embeddings
 and the RGB embedding are still to be ported.
+
+Under mixed precision the projection computes in the model's dtype (flax
+``torch_dense``), the sincos table is built in that dtype too, as the JAX
+package's ``_add_sincos`` builds it in its input's (``embeddings.py:
+104-107``), and the LayerNorm returns float32 (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from rgbnomore_tpu_torch.models.layers import LayerNorm, Linear
 from rgbnomore_tpu_torch.models.subblock import (
     apply_subblock,
     group_blocks,
@@ -32,12 +38,16 @@ def sincos_position_embedding(h: int, w: int, e: int, *, dtype=torch.float32,
     ``cat(sin(w), cos(w), sin(h), cos(h))`` with e/4 frequencies each,
     ``freq_k = exp(-k * ln(10000) / (e/4 - 1))``.
     Reference: ``models/plainvit.py:90-121``.
+
+    Every step runs in ``dtype``, the constant ``ln(10000) / (e/4 - 1)``
+    rounded to it first, as JAX rounds a Python scalar to the array's dtype:
+    in bf16 and fp16 the table is bit-identical to the JAX package's.
     """
     if e % 4:
         raise ValueError("Embedding size should be a multiple of 4")
     nfreq = e // 4
-    freqs = torch.exp(-torch.arange(nfreq, dtype=dtype, device=device)
-                      * (math.log(10000.0) / (nfreq - 1)))
+    step = torch.tensor(math.log(10000.0) / (nfreq - 1), dtype=dtype, device=device)
+    freqs = torch.exp(-torch.arange(nfreq, dtype=dtype, device=device) * step)
     hh, ww = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
                             torch.arange(w, dtype=dtype, device=device), indexing="ij")
     ph = hh.reshape(-1)[:, None] * freqs[None, :]
@@ -58,12 +68,14 @@ class PatchEmbeddingDCTGroup(nn.Module):
     LayerNorm of eps 1e-5 (SwinV2, ``swinv2.py:547-554``).
 
     ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8))`` returns
-    tokens (B, L, emb_size), L = (8H / patch_size)^2.
+    tokens (B, L, emb_size), L = (8H / patch_size)^2, in ``dtype`` (float32
+    after the norm).
     """
 
     def __init__(self, patch_size: int = 16, emb_size: int = 768,
                  use_subblock: bool = True, chroma_scale: int = 2,
-                 add_sincos: bool = True, use_norm: bool = False):
+                 add_sincos: bool = True, use_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         conv_y, self.pd_y, self.comb_y = patch_conversion(patch_size, use_subblock)
         conv_c, self.pd_c, self.comb_c = patch_conversion(patch_size // chroma_scale,
@@ -74,9 +86,9 @@ class PatchEmbeddingDCTGroup(nn.Module):
         # coefficients per patch: patch_size^2 luma, (patch_size/chroma_scale)^2
         # per chroma channel
         in_features = patch_size ** 2 + 2 * (patch_size // chroma_scale) ** 2
-        self.projection = nn.Linear(in_features, emb_size)
+        self.projection = Linear(in_features, emb_size, dtype=dtype)
         self.add_sincos = add_sincos
-        self.norm = nn.LayerNorm(emb_size, eps=1e-5) if use_norm else None
+        self.norm = LayerNorm(emb_size, eps=1e-5) if use_norm else None
 
     @staticmethod
     def _patches(x: torch.Tensor, conv, pd: int, combine: bool) -> torch.Tensor:

@@ -12,7 +12,18 @@ convolution stem waits for the RGB slice of the port.
 Every block's attention runs through ``ops.window_attention``: on the GPU
 that is the hand-written CUDA kernel, 12 launches per SwinV2-T forward.  The
 logit scale is folded into q before the call, as at the JAX package's
-Pallas call site (``swinv2.py:175``).  Module and parameter names follow the
+Pallas call site (``swinv2.py:175``).
+
+Mixed precision follows the flax modules' dtype flow (``models/layers.py``):
+the features are cast to ``dtype`` after the patch norm (``swinv2.py:385``);
+each block's post-norm returns float32 and ``shortcut + drop_path(x)``
+promotes, so the residual stream is float32 from the first block's output
+on (``swinv2.py:259-296``); the qkv product promotes likewise (``x @
+kernel.astype(dtype)``, ``:118-124``), so only the first block's q, k, v are
+in ``dtype``; q and k are normalised in float32 and cast to ``dtype``
+(``:137-140``); the window kernel takes float32 q times the logit scale, k
+and v, and its output is cast back to ``dtype`` (the Pallas call site,
+``:175-179``); the CPB-MLP and the head compute in float32.  Module and parameter names follow the
 flax ones (``patch_embed``, ``layer{i}_block{d}/attn/{qkv, cpb_mlp1, ...}``,
 ``layer{i}_downsample``, ``norm``, ``head``) so that ``convert.py`` maps a
 flax parameter tree onto ``state_dict`` keys one to one; ``qkv``,
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rgbnomore_tpu_torch.models.embeddings import PatchEmbeddingDCTGroup
+from rgbnomore_tpu_torch.models.layers import LayerNorm, Linear
 from rgbnomore_tpu_torch.ops.window_attention import window_attention
 
 __all__ = ["DropPath", "PatchMerging", "SwinBlock", "SwinTransformerV2", "WindowAttention",
@@ -100,16 +112,16 @@ class WindowAttention(nn.Module):
     """Cosine attention with CPB-MLP relative bias (``swinv2.py:70-182``).
 
     ``forward(windows (BW, N, C), mask (nW, N, N) | None)`` returns (BW, N,
-    C).  ``attention`` is the function that computes ``softmax(QKᵀ + bias)
+    C) in ``dtype``.  ``attention`` is the function that computes ``softmax(QKᵀ + bias)
     V`` per window; it is ``window_attention`` (the CUDA kernels on the
     GPU), and a check may swap in ``ops.window_attention.
     window_attention_plain`` to hold the two against each other.
     """
 
     def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True,
-                 pretrained_window_size: int = 0):
+                 pretrained_window_size: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dim, self.num_heads = dim, num_heads
+        self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
         self.logit_scale = nn.Parameter(torch.log(10.0 * torch.ones(num_heads, 1, 1)))
         self.qkv = nn.Linear(dim, 3 * dim, bias=False)
         if qkv_bias:  # q and v get a learnable bias, k does not
@@ -119,7 +131,7 @@ class WindowAttention(nn.Module):
             self.q_bias = self.v_bias = None
         self.cpb_mlp1 = nn.Linear(2, 512)
         self.cpb_mlp2 = nn.Linear(512, num_heads, bias=False)
-        self.proj = nn.Linear(dim, dim)
+        self.proj = Linear(dim, dim, dtype=dtype)
         # float64 from numpy; float32 as JAX takes it (jnp.asarray without x64)
         table = _relative_coords_table(window_size, pretrained_window_size).astype(np.float32)
         self.register_buffer("coords_table", torch.from_numpy(table), persistent=False)
@@ -136,21 +148,28 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         bw, n, c = x.shape
-        qkv = self.qkv(x)
+        dt = self.dtype
+        # x @ kernel.astype(dtype) promotes: a float32 x keeps float32 (with
+        # the kernel rounded to dtype), and so does the bias add
+        out_dt = torch.promote_types(x.dtype, dt)
+        qkv = F.linear(x.to(out_dt), self.qkv.weight.to(dt).to(out_dt))
         if self.q_bias is not None:
-            qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+            qkv = qkv + bias.to(dt)
         qkv = qkv.reshape(bw, n, 3, self.num_heads, c // self.num_heads).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (bw, h, n, d)
-        # cosine attention: x / (|x| + 1e-12), not F.normalize's clamp
-        q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
-        k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-12)
+        q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()  # (bw, h, n, d)
+        # cosine attention in float32: x / (|x| + 1e-12), not F.normalize's
+        # clamp; the normalised q and k are rounded to dtype, then the
+        # kernel takes them in float32
+        q = (q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)).to(dt).float()
+        k = (k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-12)).to(dt).float()
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(1.0 / 0.01)))
         bias = self.position_bias()[None]  # (1, H, N, N)
         if mask is not None:
             bias = bias + mask[:, None]  # (nW, H, N, N): window w uses w % nW
         out = self.attention((q * scale).contiguous(), k.contiguous(), v.contiguous(),
                              bias.contiguous())
-        return self.proj(out.transpose(1, 2).reshape(bw, n, c))
+        return self.proj(out.to(dt).transpose(1, 2).reshape(bw, n, c))
 
 
 class DropPath(nn.Module):
@@ -182,22 +201,22 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, input_resolution: tuple[int, int], num_heads: int,
                  window_size: int = 7, shift_size: int = 0, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path: float = 0.0,
-                 pretrained_window_size: int = 0):
+                 pretrained_window_size: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
         h, w = input_resolution
         ws, shift = window_size, shift_size
         if min(h, w) <= ws:
             ws, shift = min(h, w), 0
         self.input_resolution, self.window_size, self.shift_size = (h, w), ws, shift
-        self.attn = WindowAttention(dim, ws, num_heads, qkv_bias, pretrained_window_size)
+        self.attn = WindowAttention(dim, ws, num_heads, qkv_bias, pretrained_window_size, dtype)
         mask = torch.from_numpy(_shift_attn_mask(h, w, ws, shift)) if shift > 0 else None
         self.register_buffer("attn_mask", mask, persistent=False)
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS)
         self.drop_path1 = DropPath(drop_path)
         hidden = int(dim * mlp_ratio)
-        self.mlp1 = nn.Linear(dim, hidden)
-        self.mlp2 = nn.Linear(hidden, dim)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp1 = Linear(dim, hidden, dtype=dtype)
+        self.mlp2 = Linear(hidden, dim, dtype=dtype)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.drop_path2 = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
@@ -221,11 +240,12 @@ class SwinBlock(nn.Module):
 class PatchMerging(nn.Module):
     """2x2 patch merging: 4C -> 2C reduction + norm (``swinv2.py:330-367``)."""
 
-    def __init__(self, input_resolution: tuple[int, int], dim: int):
+    def __init__(self, input_resolution: tuple[int, int], dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.input_resolution = input_resolution
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
-        self.norm = nn.LayerNorm(2 * dim, eps=LN_EPS)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False, dtype=dtype)
+        self.norm = LayerNorm(2 * dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = self.input_resolution
@@ -243,7 +263,8 @@ class SwinTransformerV2(nn.Module):
     ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8), drop_keep)``
     returns (B, num_classes) float32 logits; ``drop_keep`` (blocks, 2, B)
     bool holds the drop-path keep masks of a train step
-    (``drop_path_rates`` gives each block's rate).  Only ``pixel_space="dct"``
+    (``drop_path_rates`` gives each block's rate); ``dtype`` is the compute
+    dtype of mixed precision (float32, bf16 or fp16).  Only ``pixel_space="dct"``
     (whose patch is always 4) is ported; dropout (``drop_rate > 0``) and the
     absolute position embedding (``ape``) are not.
     """
@@ -254,7 +275,7 @@ class SwinTransformerV2(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, drop_rate: float = 0.0,
                  drop_path_rate: float = 0.1, ape: bool = False, patch_norm: bool = True,
                  pretrained_window_sizes: Sequence[int] = (0, 0, 0, 0),
-                 pixel_space: str = "dct"):
+                 pixel_space: str = "dct", dtype: torch.dtype = torch.float32):
         super().__init__()
         space = pixel_space.lower()
         if space == "rgb":
@@ -269,8 +290,10 @@ class SwinTransformerV2(nn.Module):
             raise NotImplementedError("the absolute position embedding is not ported")
         # DCT: grouped embedding at patch 4 (8x8 blocks -> 4x4 sub-blocks),
         # no sincos, with a post-projection norm (swinv2.py:629-632)
+        self.dtype = dtype
         self.patch_embed = PatchEmbeddingDCTGroup(4, embed_dim, use_subblock=True,
-                                                  add_sincos=False, use_norm=patch_norm)
+                                                  add_sincos=False, use_norm=patch_norm,
+                                                  dtype=dtype)
         res = img_size // 4
         self.depths = tuple(depths)
         self.drop_path_rates = np.linspace(0.0, drop_path_rate, sum(self.depths)).tolist()
@@ -282,12 +305,12 @@ class SwinTransformerV2(nn.Module):
                 self.add_module(f"layer{i}_block{d}", SwinBlock(
                     dim, layer_res, num_heads[i], window_size,
                     0 if d % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
-                    self.drop_path_rates[block], pretrained_window_sizes[i]))
+                    self.drop_path_rates[block], pretrained_window_sizes[i], dtype))
                 block += 1
             if i < len(self.depths) - 1:
-                self.add_module(f"layer{i}_downsample", PatchMerging(layer_res, dim))
+                self.add_module(f"layer{i}_downsample", PatchMerging(layer_res, dim, dtype))
         num_features = int(embed_dim * 2 ** (len(self.depths) - 1))
-        self.norm = nn.LayerNorm(num_features, eps=LN_EPS)
+        self.norm = LayerNorm(num_features, eps=LN_EPS)
         self.head = nn.Linear(num_features, num_classes)
 
     def blocks(self) -> list[SwinBlock]:
@@ -297,7 +320,7 @@ class SwinTransformerV2(nn.Module):
 
     def forward(self, y: torch.Tensor, cbcr: torch.Tensor,
                 drop_keep: torch.Tensor | None = None) -> torch.Tensor:
-        feats = self.patch_embed(y, cbcr)
+        feats = self.patch_embed(y, cbcr).to(self.dtype)
         block = 0
         for i, depth in enumerate(self.depths):
             for d in range(depth):

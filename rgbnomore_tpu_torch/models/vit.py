@@ -8,11 +8,19 @@ attention logits are scaled by ``1/sqrt(emb_size)``, not
 softmax runs in float32; GELU is exact; LayerNorm eps is 1e-5; the head is
 LN -> mean -> Linear -> tanh -> Linear with float32 logits.
 
+Mixed precision follows the flax modules' dtype flow (``models/layers.py``):
+every Linear but the last computes in ``dtype``; the tokens are cast to it
+after the embedding (``vit.py:184``), so the residual stream stays in it
+(bf16 + bf16, ``vit.py:87-106``); each LayerNorm returns float32, which the
+next Linear casts back; the head's ``linear2`` takes a float32 input and
+gives float32 logits (``vit.py:119-128``).
+
 Every encoder block's attention runs through ``ops.attention.fused_attention``:
-on the GPU that is the hand-written CUDA kernel, 12 launches per ViT-Ti
-forward.  Module and parameter names follow the flax ones
-(``patchembed``, ``encoder_{i}``, ``head``) so that ``convert.py`` maps a flax
-parameter tree onto ``state_dict`` keys one to one.
+on the GPU that is a hand-written CUDA kernel (3xTF32 in float32, the
+half-precision kernels in bf16 and fp16), 12 launches per forward.  Module
+and parameter names follow the flax ones (``patchembed``, ``encoder_{i}``,
+``head``) so that ``convert.py`` maps a flax parameter tree onto
+``state_dict`` keys one to one.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rgbnomore_tpu_torch.models.embeddings import PatchEmbeddingDCTGroup
+from rgbnomore_tpu_torch.models.layers import LayerNorm, Linear
 from rgbnomore_tpu_torch.ops.attention import fused_attention
 
 __all__ = ["MultiHeadAttention", "EncoderBlock", "ClassificationHead", "ViT"]
@@ -40,14 +49,15 @@ class MultiHeadAttention(nn.Module):
     other.
     """
 
-    def __init__(self, emb_size: int, num_heads: int = 8, head_size: int = 64):
+    def __init__(self, emb_size: int, num_heads: int = 8, head_size: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.head_size = head_size
         self.scale = 1.0 / math.sqrt(emb_size)
         inner = num_heads * head_size
-        self.qkv = nn.Linear(emb_size, 3 * inner)
-        self.projection = nn.Linear(inner, emb_size)
+        self.qkv = Linear(emb_size, 3 * inner, dtype=dtype)
+        self.projection = Linear(inner, emb_size, dtype=dtype)
         self.attention = fused_attention
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -67,13 +77,13 @@ class EncoderBlock(nn.Module):
     """Pre-LN transformer block (``plainvit.py:493-529``)."""
 
     def __init__(self, emb_size: int, num_heads: int, head_size: int = 64,
-                 forward_expansion: int = 4):
+                 forward_expansion: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln1 = nn.LayerNorm(emb_size, eps=LN_EPS)
-        self.mha = MultiHeadAttention(emb_size, num_heads, head_size)
-        self.ln2 = nn.LayerNorm(emb_size, eps=LN_EPS)
-        self.mlp1 = nn.Linear(emb_size, forward_expansion * emb_size)
-        self.mlp2 = nn.Linear(forward_expansion * emb_size, emb_size)
+        self.ln1 = LayerNorm(emb_size, eps=LN_EPS)
+        self.mha = MultiHeadAttention(emb_size, num_heads, head_size, dtype)
+        self.ln2 = LayerNorm(emb_size, eps=LN_EPS)
+        self.mlp1 = Linear(emb_size, forward_expansion * emb_size, dtype=dtype)
+        self.mlp2 = Linear(forward_expansion * emb_size, emb_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.mha(self.ln1(x))
@@ -83,10 +93,11 @@ class EncoderBlock(nn.Module):
 class ClassificationHead(nn.Module):
     """LN -> mean pool -> Linear -> Tanh -> Linear (``plainvit.py:542-557``)."""
 
-    def __init__(self, emb_size: int, n_classes: int = 1000):
+    def __init__(self, emb_size: int, n_classes: int = 1000,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln = nn.LayerNorm(emb_size, eps=LN_EPS)
-        self.linear1 = nn.Linear(emb_size, emb_size)
+        self.ln = LayerNorm(emb_size, eps=LN_EPS)
+        self.linear1 = Linear(emb_size, emb_size, dtype=dtype)
         self.linear2 = nn.Linear(emb_size, n_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -98,13 +109,15 @@ class ViT(nn.Module):
     """ViT over (y, cbcr) DCT coefficients with the grouped embedding.
 
     ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8))`` returns
-    (B, n_classes) float32 logits.  Only ``pixel_space="dct"`` with
+    (B, n_classes) float32 logits; ``dtype`` is the compute dtype of mixed
+    precision (float32, bf16 or fp16).  Only ``pixel_space="dct"`` with
     ``ver=1`` is ported; the other embeddings raise ``NotImplementedError``.
     """
 
     def __init__(self, patch_size: int = 16, emb_size: int = 768, depth: int = 12,
                  num_heads: int = 8, head_size: int = 64, n_classes: int = 1000,
-                 pixel_space: str = "DCT", ver: int = 1, use_subblock: bool = True):
+                 pixel_space: str = "DCT", ver: int = 1, use_subblock: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         space = pixel_space.lower()
         if space == "rgb":
@@ -117,13 +130,16 @@ class ViT(nn.Module):
                 f"DCT embed_type {ver} is still to be ported (ROADMAP.md, port "
                 "queue: other transfers and embeddings)")
         self.depth = depth
-        self.patchembed = PatchEmbeddingDCTGroup(patch_size, emb_size, use_subblock)
+        self.dtype = dtype
+        self.patchembed = PatchEmbeddingDCTGroup(patch_size, emb_size, use_subblock,
+                                                 dtype=dtype)
         for i in range(depth):
-            self.add_module(f"encoder_{i}", EncoderBlock(emb_size, num_heads, head_size))
-        self.head = ClassificationHead(emb_size, n_classes)
+            self.add_module(f"encoder_{i}",
+                            EncoderBlock(emb_size, num_heads, head_size, dtype=dtype))
+        self.head = ClassificationHead(emb_size, n_classes, dtype)
 
     def forward(self, y: torch.Tensor, cbcr: torch.Tensor) -> torch.Tensor:
-        tokens = self.patchembed(y, cbcr)
+        tokens = self.patchembed(y, cbcr).to(self.dtype)
         for i in range(self.depth):
             tokens = getattr(self, f"encoder_{i}")(tokens)
         return self.head(tokens)

@@ -33,6 +33,8 @@ BUILD_DIR = _PKG / "_build"
 KERNELS = {
     "attention_fwd": "attention_fwd.cu",
     "attention_bwd": "attention_bwd.cu",
+    "attention_h16_fwd": "attention_h16_fwd.cu",
+    "attention_h16_bwd": "attention_h16_bwd.cu",
     "augpipe": "augpipe.cu",
     "window_attention_fwd": "window_attention_fwd.cu",
     "window_attention_bwd": "window_attention_bwd.cu",

@@ -2,13 +2,15 @@
 
 The dataclasses, augmentation lists, ``generate_config`` and
 ``update_runtime`` are a copy of ``rgbnomore_tpu/train/config.py``
-(reproducing ``utils/configs.py:60-178`` of the reference).  ``build_model``
-and ``example_inputs`` are the port's own and return torch modules and
+(reproducing ``utils/configs.py:60-178`` of the reference), and so is
+``amp_compute_dtype``, which names torch dtypes.  ``build_model`` and
+``example_inputs`` are the port's own and return torch modules and
 tensors.  Sentinel convention for CLI overrides: ``None`` means "use preset".
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -242,6 +244,29 @@ def update_runtime(cfg: Config, num_devices: int) -> Config:
     return cfg
 
 
+def amp_compute_dtype(cfg: Config) -> torch.dtype:
+    """The compute dtype of mixed precision (``rgbnomore_tpu/train/config.py:
+    240-268``): float32 without ``cfg.train.amp``; with it, bf16 for
+    ``cfg.model.amp_dtype`` "bf16" or "bfloat16", fp16 for "fp16",
+    "float16" or "half" (with a warning: fp16 trains with the reference's
+    dynamic loss scaling, ``train/scaler.py``); anything else raises
+    ``ValueError``."""
+    if not cfg.train.amp:
+        return torch.float32
+    name = str(cfg.model.amp_dtype).lower()
+    if name in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    if name in ("fp16", "float16", "half"):
+        logging.getLogger(__name__).warning(
+            "ampdtype=fp16: dynamic loss scaling active (growth 1.6 / backoff "
+            "0.625 / interval 600, clamp [2^-4, 2^18] — the reference's "
+            "GradScaler, pipeline_utils.py:540-541); bf16 needs none")
+        return torch.float16
+    raise ValueError(
+        f"unsupported ampdtype {cfg.model.amp_dtype!r}: use 'bf16' or 'fp16'"
+    )
+
+
 def configure_determinism(cfg: Config) -> None:
     """Apply ``cfg.train.deterministic`` (the JAX ``configure_determinism``,
     ``rgbnomore_tpu/train/config.py:271-291``; the reference's cuDNN and
@@ -266,15 +291,12 @@ def build_model(cfg: Config, device=None):
     """Instantiate the torch model for a config (reference: get_model,
     ``pipeline_utils.py:325-373``) on ``device`` (default ``cuda``), with
     every parameter drawn from a ``torch.Generator`` seeded with
-    ``cfg.seed`` in the ``cfg.model.bias_init`` family.  Runs in float32:
-    a config with ``cfg.train.amp`` raises (the SwinV2 preset turns AMP on,
-    so a SwinV2 config sets ``cfg.train.amp = False``)."""
+    ``cfg.seed`` in the ``cfg.model.bias_init`` family.  The model computes
+    in ``amp_compute_dtype(cfg)`` (its parameters stay float32)."""
     from rgbnomore_tpu_torch.models import SwinTransformerV2, ViT
 
     dev = resolve_device(device)
-    if cfg.train.amp:
-        raise NotImplementedError(
-            "mixed precision is still to be ported (ROADMAP.md, port queue: AMP)")
+    dtype = amp_compute_dtype(cfg)
     if cfg.model.arch == "swinv2":
         model = SwinTransformerV2(
             img_size=cfg.model.input_size,
@@ -291,6 +313,7 @@ def build_model(cfg: Config, device=None):
             patch_norm=cfg.model.patch_norm,
             pretrained_window_sizes=tuple(cfg.model.pretrained_window_sizes),
             pixel_space=cfg.model.domain,
+            dtype=dtype,
         )
     else:
         model = ViT(
@@ -303,6 +326,7 @@ def build_model(cfg: Config, device=None):
             pixel_space=cfg.model.domain,
             ver=cfg.model.version,
             use_subblock=cfg.model.subblock,
+            dtype=dtype,
         )
     gen = torch.Generator().manual_seed(cfg.seed)
     model.init_weights(gen, cfg.model.bias_init)

@@ -7,8 +7,12 @@ once ``create_state`` has run, the optimizer and the step count.
 K=16 mask16 train wire through pipeline (one ``wire_flip_aug_range``) ->
 mixup -> forward (in train mode: SwinV2's drop path) -> softmax
 cross-entropy -> backward -> global-norm clip -> AdamW, the body of the JAX
-``Trainer._train_body`` (``loop.py:246-303``) without its fp16 loss-scaling
-branch (ROADMAP.md, port queue: AMP).  ``evaluate`` uploads each K=48 eval
+``Trainer._train_body`` (``loop.py:246-303``).  The model computes in the
+config's AMP dtype (``amp_compute_dtype``: float32, bf16 or fp16); with
+fp16 the step runs the fp16 branch of that body (``loop.py:273-300``): the
+loss scaled by the hand-written loss scaler (``train/scaler.py``), the
+gradients unscaled, an update skipped on a non-finite gradient.
+``evaluate`` uploads each K=48 eval
 batch in one non-blocking copy from a reused pinned buffer and runs
 pipeline (one ``wire_to_range``) -> model (in eval mode) -> weighted sums
 on the device.  ``cfg.train.deterministic`` turns on deterministic
@@ -32,8 +36,19 @@ from rgbnomore_tpu_torch.augment.pipeline import (
 )
 from rgbnomore_tpu_torch.data.index import load_index, split_train_minival
 from rgbnomore_tpu_torch.device import resolve_device
-from rgbnomore_tpu_torch.train.config import Config, build_model, configure_determinism
+from rgbnomore_tpu_torch.train.config import (
+    Config,
+    amp_compute_dtype,
+    build_model,
+    configure_determinism,
+)
 from rgbnomore_tpu_torch.train.optim import Optimizer
+from rgbnomore_tpu_torch.train.scaler import (
+    LossScaleState,
+    all_finite,
+    init_loss_scale,
+    update_loss_scale,
+)
 from rgbnomore_tpu_torch.train.steps import (
     draw_mixup_lambda,
     eval_sums,
@@ -125,6 +140,10 @@ class Trainer:
     step's random draws come from a ``torch.Generator`` (flip, policy, the
     drop-path keep masks) and a numpy generator (the mixup lambda), both
     seeded from ``cfg.seed``.
+
+    The model computes in ``compute_dtype`` (``amp_compute_dtype``); with
+    fp16, ``create_state`` also makes the loss scaler's state
+    (``loss_scale``), which bf16 and float32 do without.
     """
 
     def __init__(self, cfg: Config, device=None):
@@ -134,6 +153,7 @@ class Trainer:
                 "the RGB domain is still to be ported (ROADMAP.md, port queue: RGB)")
         self.cfg = cfg
         configure_determinism(cfg)  # before the model's first cuBLAS handle
+        self.compute_dtype = amp_compute_dtype(cfg)
         self.model = build_model(cfg, device=self.device)
         self.packed_k_eval, self.eval_fmt = cropped_eval_defaults(cfg.model.domain)
         self.eval_pipe = make_cropped_eval_pipeline(
@@ -142,6 +162,7 @@ class Trainer:
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self.rng = np.random.default_rng(cfg.seed)
         self.optimizer: Optimizer | None = None
+        self.loss_scale: LossScaleState | None = None
         self._uploader: PinnedUploader | None = None
 
     def put_batch(self, batch: dict) -> dict:
@@ -159,7 +180,7 @@ class Trainer:
     def create_state(self, steps_per_epoch: int) -> Optimizer:
         """Build the optimizer (clip + AdamW + warmup-cosine schedule over
         ``steps_per_epoch * cfg.train.epochs`` steps) and zero the step
-        count."""
+        count; with fp16, start the loss scaler at 2**15."""
         if self.cfg.train.drop > 0:
             raise NotImplementedError(
                 "dropout is still to be ported (ROADMAP.md, port queue): the JAX ViT drops "
@@ -168,15 +189,17 @@ class Trainer:
         t = self.cfg.train
         self.optimizer = Optimizer(self.model, t.lr, t.wd, t.warmup,
                                    steps_per_epoch * t.epochs)
+        if self.compute_dtype == torch.float16:
+            self.loss_scale = init_loss_scale(device=self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
-        log.info("model %s/%s: %.2fM params on %s, batch %d, %d steps/epoch",
+        log.info("model %s/%s: %.2fM params on %s in %s, batch %d, %d steps/epoch",
                  self.cfg.model.arch, self.cfg.model.domain, n_params / 1e6, self.device,
-                 t.batch_size, steps_per_epoch)
+                 self.compute_dtype, t.batch_size, steps_per_epoch)
         return self.optimizer
 
     @property
     def step(self) -> int:
-        """Updates taken since ``create_state``."""
+        """Steps taken since ``create_state``, skipped ones included."""
         return self.optimizer.count if self.optimizer is not None else 0
 
     def draw(self, batch: int) -> StepDraws:
@@ -195,7 +218,10 @@ class Trainer:
     def compute_grads(self, packed: torch.Tensor, draws: StepDraws) -> torch.Tensor:
         """Pipeline -> mixup -> forward -> loss -> backward on an uploaded
         (B, row) batch: leaves each parameter's gradient in ``.grad`` and
-        returns the loss as a 0-d tensor on the device."""
+        returns the loss as a 0-d tensor on the device.  With the loss
+        scaler's state (fp16), the backward runs on the loss times the scale
+        and the gradients are divided by it; the loss returned is the
+        scaled loss divided by the scale, as the JAX step reports it."""
         y, c, labels, _ = self.train_pipe(packed, draws.flip, draws.policy)
         num_classes = self.cfg.model.classes
         if self.cfg.model.mixup:
@@ -208,25 +234,39 @@ class Trainer:
             "drop_keep": draws.drop_keep.to(self.device, non_blocking=True)}
         loss = softmax_cross_entropy(self.model(y, c, **extra), targets)
         self.model.zero_grad(set_to_none=True)
-        loss.backward()
-        return loss.detach()
+        if self.loss_scale is None:
+            loss.backward()
+            return loss.detach()
+        scale = self.loss_scale.scale
+        scaled = loss * scale
+        scaled.backward()
+        torch._foreach_div_([p.grad for p in self.model.parameters()], scale)
+        return (scaled / scale).detach()
 
     def train_step(self, packed: torch.Tensor, draws: StepDraws | None = None) -> torch.Tensor:
         """One optimizer step on an uploaded (B, row) batch; returns the
-        loss as a 0-d tensor on the device (no host sync).  ``draws``
-        replaces the step's own draws (the tests hand over JAX's)."""
+        loss as a 0-d tensor on the device.  ``draws`` replaces the step's
+        own draws (the tests hand over JAX's).  No host sync, but with the
+        loss scaler (fp16): there the host reads whether every gradient is
+        finite, skips the update if not (``Optimizer.step``), and the scale
+        backs off or grows on the device (``train/scaler.py``)."""
         if self.optimizer is None:
             raise RuntimeError("call create_state before train_step")
         if draws is None:
             draws = self.draw(packed.shape[0])
         loss = self.compute_grads(packed, draws)
-        self.optimizer.step()
+        if self.loss_scale is None:
+            self.optimizer.step()
+            return loss
+        finite = all_finite(p.grad for p in self.model.parameters())
+        self.optimizer.step(finite)
+        self.loss_scale = update_loss_scale(self.loss_scale, finite)
         return loss
 
     # ------------------------------------------------------------------ eval
     def eval_step(self, packed: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Pipeline -> model (in eval mode) -> weighted sums for one
-        uploaded batch."""
+        """Pipeline -> model (in eval mode, in the compute dtype, float32
+        logits) -> weighted sums for one uploaded batch."""
         self.model.eval()
         y, c, labels, weights = self.eval_pipe(packed)
         return eval_sums(self.model(y, c), labels, weights)

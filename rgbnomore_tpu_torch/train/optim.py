@@ -69,7 +69,9 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Ten
 class Optimizer:
     """Global-norm clip, then AdamW on two parameter groups, with the
     warmup-cosine learning rate of the step count before the update (as
-    optax's schedule is read).  ``step()`` counts the updates taken."""
+    optax's schedule is read).  ``count`` is the schedule's count: the
+    steps taken, skipped ones included (fp16 loss scaling); AdamW's own
+    per-parameter ``step`` counts the updates made."""
 
     def __init__(self, model: nn.Module, base_lr: float, weight_decay: float, warmup: int,
                  total_steps: int, clip_norm: float = 1.0, b1: float = 0.9,
@@ -86,11 +88,25 @@ class Optimizer:
                                      foreach=True)
         self.schedule = warmup_cosine_schedule(base_lr, warmup, total_steps)
         self.clip_norm = clip_norm
-        self.count = 0  # updates taken, the schedule's step
+        self.count = 0  # steps taken, the schedule's step
 
-    def step(self) -> torch.Tensor:
+    def step(self, finite: torch.Tensor | None = None) -> torch.Tensor | None:
         """Clip the gradients, update the parameters, advance the count;
-        returns the global gradient norm before clipping (on the device)."""
+        returns the global gradient norm before clipping (on the device).
+
+        ``finite`` (fp16 loss scaling, ``train/scaler.py``) is a 0-d bool
+        tensor; where it is False the step is skipped: no clip and no AdamW
+        step, so the parameters, the moments and AdamW's count stay as they
+        were, and only the schedule's count advances (the reference's
+        GradScaler skips ``optimizer.step()`` and still calls
+        ``scheduler.step()``); returns None.  The host reads the flag, which
+        waits for the backward pass: a selection on the device of every
+        parameter, moment and count made the step slower on the card,
+        where it waits on the host's enqueue (``tools/fp16_skip_ab.py``,
+        PERF.md, PR 7)."""
+        if finite is not None and not bool(finite):
+            self.count += 1
+            return None
         grads = [p.grad for p in self.params]
         norm = clip_by_global_norm(grads, self.clip_norm)
         lr = self.schedule(self.count)

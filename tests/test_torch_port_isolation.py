@@ -42,25 +42,81 @@ def test_port_imports_no_jax():
     assert banned == "[]", f"the port pulled in {banned}"
 
 
-_RUN_WINDOW_AB = """
+_RUN_TOOL = """
 import runpy, sys
-sys.argv = ["window_kernel_ab.py", "--other", "unused"]
+sys.argv = {argv!r}
 try:
-    runpy.run_path("tools/window_kernel_ab.py", run_name="__main__")
+    runpy.run_path(sys.argv[0], run_name="__main__")
 except SystemExit as exc:
     print(exc.code, sorted(m for m in sys.modules
                            if m.split(".")[0] in ("jax", "jaxlib", "flax", "rgbnomore_tpu")))
 """
 
 
-def test_window_kernel_ab_needs_a_card_and_imports_no_jax():
-    """The kernel A/B script imports nothing of JAX and exits non-zero,
-    with no result, where there is no card."""
-    res = subprocess.run([sys.executable, "-c", _RUN_WINDOW_AB], cwd=REPO, text=True,
-                         capture_output=True, timeout=300,
+def _run_tool_without_card(*argv: str) -> None:
+    """Run a card tool where there is no card: it must import nothing of
+    JAX and exit non-zero, with no result."""
+    res = subprocess.run([sys.executable, "-c", _RUN_TOOL.format(argv=list(argv))], cwd=REPO,
+                         text=True, capture_output=True, timeout=300,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert res.stdout.strip().splitlines()[-1] == "1 []", (res.stdout, res.stderr)
     assert "no CUDA device" in res.stderr
+
+
+def test_window_kernel_ab_needs_a_card_and_imports_no_jax():
+    """The kernel A/B script, on the window kernels."""
+    _run_tool_without_card("tools/kernel_ab.py", "--family", "window", "--other", "unused")
+
+
+def test_attention_h16_ab_needs_a_card_and_imports_no_jax():
+    """The kernel A/B script, on the half-precision attention kernels."""
+    _run_tool_without_card("tools/kernel_ab.py", "--family", "attention_h16", "--other",
+                           "unused")
+
+
+def test_fp16_skip_ab_needs_a_card_and_imports_no_jax():
+    """The fp16 skip A/B script (host read against device selection)."""
+    _run_tool_without_card("tools/fp16_skip_ab.py")
+
+
+@pytest.mark.parametrize("module", ["rgbnomore_tpu_torch.train.scaler",
+                                    "rgbnomore_tpu_torch.ops.attention",
+                                    "rgbnomore_tpu_torch.models.layers"])
+def test_amp_modules_import_alone(module):
+    """The mixed-precision modules (the loss scaler, the attention wrappers
+    with their half-precision kernels, the flax-rule layers) import on their
+    own with nothing of JAX."""
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'rgbnomore_tpu')))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
+                         capture_output=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+# what a kernel source may include: the CUDA runtime and its 16-bit types,
+# the C++ standard library, and the port's own headers beside it
+_ALLOWED_INCLUDES = {"<cuda_runtime.h>", "<cuda_bf16.h>", "<cuda_fp16.h>", "<algorithm>",
+                     "<climits>", "<math.h>", "<stdint.h>", "<type_traits>"}
+
+
+def test_kernel_sources_stand_alone():
+    """Every CUDA source under ``csrc/`` is built (``cuda_build.KERNELS``)
+    and every built one is there; each includes only the CUDA runtime, the
+    standard library and the port's headers, no PyTorch header (a build in
+    seconds, bound through ctypes)."""
+    from rgbnomore_tpu_torch.ops import cuda_build
+
+    sources = {p.name for p in cuda_build.CSRC.glob("*.cu")}
+    assert sources == set(cuda_build.KERNELS.values())
+    assert {"attention_h16_fwd.cu", "attention_h16_bwd.cu"} <= sources
+    headers = {p.name for p in cuda_build.CSRC.glob("*.cuh")}
+    for path in [*cuda_build.CSRC.glob("*.cu"), *cuda_build.CSRC.glob("*.cuh")]:
+        for line in path.read_text().splitlines():
+            if line.startswith("#include"):
+                inc = line.split(None, 1)[1].strip()
+                assert inc in _ALLOWED_INCLUDES or inc.strip('"') in headers, (path.name, inc)
 
 
 @pytest.fixture
@@ -127,10 +183,13 @@ def test_cpu_runs_swin_when_asked(no_cuda):
 
 
 def test_swin_refuses_amp(no_cuda):
-    """The SwinV2 preset turns AMP on; the port runs float32 until its AMP
-    slice and says so."""
-    with pytest.raises(NotImplementedError, match="mixed precision"):
-        build_model(generate_config("swinv2", "dct"), device="cpu")
+    """The SwinV2 preset turns bf16 AMP on, which the port builds on the CPU
+    when asked; an AMP dtype the JAX package does not know is refused."""
+    cfg = generate_config("swinv2", "dct")
+    assert build_model(cfg, device="cpu").dtype == torch.bfloat16
+    cfg.model.amp_dtype = "fp8"
+    with pytest.raises(ValueError, match="unsupported ampdtype"):
+        build_model(cfg, device="cpu")
 
 
 def test_unknown_device_raises():

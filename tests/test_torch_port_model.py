@@ -153,13 +153,17 @@ def test_state_dict_keys_match_flax_tree(rng):
     assert flax_keys == torch_keys
 
 
-@pytest.mark.parametrize("change", [
-    lambda cfg: setattr(cfg.model, "version", 2),
-    lambda cfg: setattr(cfg.model, "domain", "RGB"),
-    lambda cfg: setattr(cfg.train, "amp", True),
+def _unknown_amp_dtype(cfg):
+    cfg.train.amp, cfg.model.amp_dtype = True, "fp8"
+
+
+@pytest.mark.parametrize("change,error", [
+    (lambda cfg: setattr(cfg.model, "version", 2), NotImplementedError),
+    (lambda cfg: setattr(cfg.model, "domain", "RGB"), NotImplementedError),
+    (_unknown_amp_dtype, ValueError),  # bf16 and fp16 AMP are ported; other dtypes refused
 ], ids=["embed_type2", "rgb", "amp"])
-def test_unported_configs_raise(change):
+def test_unported_configs_raise(change, error):
     cfg = _small_cfg(generate_config)
     change(cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         build_model(cfg, device="cpu")

@@ -83,19 +83,22 @@ def jax_step_draws(trainer, base_rng, step, batch, grid):
                      float(jnp.maximum(u, 1.0 - u)))
 
 
-def tiny_swin_cfg(gen, batch=4, classes=10, drop_path=0.0):
+def tiny_swin_cfg(gen, batch=4, classes=10, drop_path=0.0, amp_dtype=None):
     """A SwinV2 config that reaches every branch at a tiny size, from
     ``gen`` (the JAX package's or the port's ``generate_config``): depths
     (2, 2, 2), heads (2, 4, 8), embed 32, window 4, an 8x8 block grid (16x16
     tokens: 16 windows, then 4, each stage's odd block shifted, stage 3
-    clamped to one window), in float32."""
+    clamped to one window), in float32, or with ``amp_dtype`` ("bf16",
+    "fp16") under AMP in it."""
     cfg = gen("swinv2", "dct", batchsize=batch, epochs=1, warmup_steps=2, seed=5)
     cfg.model.depth, cfg.model.heads = (2, 2, 2), (2, 4, 8)
     cfg.model.embed_size, cfg.model.window_size = 32, 4
     cfg.model.pretrained_window_sizes = (0, 0, 0)
     cfg.model.drop_path, cfg.model.classes = drop_path, classes
     cfg.model.dct_blocks, cfg.model.input_size = 8, 64
-    cfg.train.amp = False  # the port runs float32
+    cfg.train.amp = amp_dtype is not None
+    if amp_dtype is not None:
+        cfg.model.amp_dtype = amp_dtype
     return cfg
 
 
@@ -118,9 +121,9 @@ def perturb_norms(params, rng):
     return out
 
 
-def jax_swin_trainer():
-    """The JAX Trainer (``transfer="cropped"``) at :func:`tiny_swin_cfg`, its
-    LayerNorms perturbed.  Its ``model.init`` runs under ``jax.jit`` (10 s
+def jax_swin_trainer(amp_dtype=None):
+    """The JAX Trainer (``transfer="cropped"``) at :func:`tiny_swin_cfg`
+    (with ``amp_dtype``), its LayerNorms perturbed.  Its ``model.init`` runs under ``jax.jit`` (10 s
     here, 30 s eagerly; the same parameters)."""
     import jax
     import jax.numpy as jnp
@@ -135,8 +138,8 @@ def jax_swin_trainer():
         params = jax.jit(model.init)(rng, *example_batch)["params"]
         return TrainState.create(apply_fn=model.apply, params=params, tx=tx)
 
-    trainer = loop.Trainer(tiny_swin_cfg(generate_config), devices=jax.devices()[:1],
-                           transfer="cropped", fused_aug=False)
+    trainer = loop.Trainer(tiny_swin_cfg(generate_config, amp_dtype=amp_dtype),
+                           devices=jax.devices()[:1], transfer="cropped", fused_aug=False)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(loop, "create_train_state", create_train_state)
         trainer.create_state(steps_per_epoch=10)
