@@ -20,7 +20,8 @@ kernel of each path was launched and that what comes out is right.
 Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
   2. build: compile the kernels, one ``nvcc`` per source, started together,
-     and the host codec beside them;
+     and the host codec beside them; fail where ptxas serialises the
+     half-precision kernels' ``wgmma`` products;
   3. kernels: each kernel (attention forward and backward in float32 and
      their bf16 and fp16 variants, the fused flip + RandAugment + ToRange
      stage through its dense entry and through its wire reader, window
@@ -149,9 +150,11 @@ PEAK_H16_FLOP_PER_S = 989e12
 # the half-precision attention kernels (#1 and #2 on bf16 and fp16 inputs):
 # the main paths' shapes, ViT-B's eval batch of 256 (the vitb preset, 12
 # heads of 64), ViT-Ti's (the fp16 path) and ViT-B's train batch of 512,
-# then the float32 kernels' check shapes; the first three are timed
+# then the float32 kernels' check shapes and two past the keys the kernels
+# hold at once (N > 256; N > 128 at D > 64); the first three are timed
 H16_SHAPES = [(256, 12, 196, 64), (256, 3, 196, 64), (512, 12, 196, 64), (2, 3, 197, 64),
-              (1, 2, 52, 24), (2, 3, 49, 32), (2, 3, 128, 128)]
+              (1, 2, 52, 24), (2, 3, 49, 32), (2, 3, 128, 128), (1, 2, 300, 64),
+              (1, 2, 200, 128)]
 H16_TIMED = 3
 VITB_SCALE = 1.0 / math.sqrt(768)  # ViT-B: 1/sqrt(emb_size)
 # A kernel's and the plain version's outputs against a float32 reference on
@@ -196,6 +199,9 @@ N_CELL_IMAGES = 16  # of them, constant 16x16 colour cells at quality 100
 # kernel library -> {kernel<template args>: "registers, spill bytes"}, from
 # the build logs' ptxas lines
 PTXAS: dict[str, dict[str, str]] = {}
+# kernel library -> the notes (C75xx) in which ptxas says that it
+# serialises a kernel's wgmma products, and why
+WGMMA_NOTES: dict[str, list[str]] = {}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -406,16 +412,27 @@ def phase_card() -> str:
 
 def mangled_kernel(line: str) -> str | None:
     """The name of the ``*_kernel`` function in a ptxas line's mangled
-    symbol: the identifier whose decimal length prefix matches it (the
-    digits of a hash before it are not part of it)."""
-    for m in re.finditer(r"_kernel", line):
-        end = m.end()
-        for start in range(end - len("_kernel") - 1, 0, -1):
-            for width in (1, 2, 3):
-                digits = line[start - width:start]
-                if digits.isdigit() and int(digits) == end - start:
-                    return line[start:end]
+    symbol, read by the symbol's length prefixes (``_ZN<len><name>...``)."""
+    for m in re.finditer(r"_ZN?(?=\d)", line):
+        pos = m.end()
+        while True:
+            digits = re.match(r"\d+", line[pos:])
+            if digits is None:
+                break
+            start = pos + len(digits.group())
+            name = line[start:start + int(digits.group())]
+            if name.endswith("_kernel"):
+                return name
+            pos = start + len(name)
     return None
+
+
+def kernel_instance(symbol: str) -> str:
+    """``kernel<dtype,ints>`` of a mangled kernel symbol: the element type of a
+    half-precision kernel, then its integer template arguments."""
+    dtype = re.findall(r"I(?:6__half|13__nv_bfloat16)", symbol)
+    targs = [t.split("_")[-1] for t in dtype] + re.findall(r"Li(\d+)E", symbol)
+    return (mangled_kernel(symbol) or symbol) + "<" + ",".join(targs) + ">"
 
 
 def phase_build() -> None:
@@ -437,21 +454,26 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, path in paths.items():
         # one "template args: registers, spill bytes" entry per compiled kernel
-        entries, args = {}, "?"
+        entries, args, notes = {}, "?", []
         for line in path.with_name(path.name + ".log").read_text().splitlines():
-            if "Compiling entry function" in line:
-                kernel = mangled_kernel(line)
-                # the element type of a half-precision kernel, then its ints
-                dtype = re.findall(r"I(?:6__half|13__nv_bfloat16)", line)
-                targs = [t.split("_")[-1] for t in dtype] + re.findall(r"Li(\d+)E", line)
-                args = (kernel or line.split("'")[1]) + "<" + ",".join(targs) + ">"
+            note = re.search(r"\((C75\d\d)\) Potential Performance Loss: ([^']*) (?:in|for) the "
+                             r"function '([^']*)'", line)
+            if note:
+                notes.append(f"{note.group(1)} {kernel_instance(note.group(3))}: {note.group(2)}")
+            elif "Compiling entry function" in line:
+                args = kernel_instance(line.split("'")[1])
             elif "spill stores" in line:
                 spills = re.findall(r"(\d+) bytes spill", line)
             elif "Used" in line and "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 entries[args] = f"{regs} regs, spills {'/'.join(spills)} B"
         PTXAS[name] = entries
+        WGMMA_NOTES[name] = notes
         print(f"build: {name}: " + "; ".join(f"{k} {v}" for k, v in entries.items()), flush=True)
+        for note in notes:
+            print(f"build: {name}: ptxas {note}", flush=True)
+        check(not (name.startswith("attention_h16") and notes),
+              f"ptxas serialises the wgmma products of {name}: {notes}")
 
 
 def kernel_attention_fwd(gen) -> dict:
@@ -585,12 +607,15 @@ def kernel_attention_h16(gen) -> list[dict]:
     and autograd through it), and both against a float32 reference on the
     same rounded inputs; two backward runs bit-identical; fp16 with an
     output gradient up to 2^13 (loss-scaled), whose dO V^T passes fp16's
-    range, finite and within tolerance wherever the reference is.  Then
+    range, finite and within tolerance wherever the reference is; the
+    shapes past the keys the kernels hold at once (N > 256; N > 128 at D >
+    64) take their key-tiled paths.  Then
     each timed at ViT-B's eval and train and ViT-Ti's shapes beside the
     plain version, SDPA on the same inputs (its backward too), and the
     bound: 4 N^2 D (10 N^2 D) FLOP per (batch, head) at the tensor cores'
-    bf16 rate against q, k, v, o (and dO, dq, dk, dv, lse) moved once.  Returns four entries:
-    forward and backward, bf16 and fp16."""
+    bf16 rate against q, k, v, o (and dO, dq, dk, dv, lse) moved once.  Returns
+    four entries: forward and backward, bf16 and fp16, each with the ptxas
+    line of its main-path instance (D = 64, N = 196)."""
     import torch
     import torch.nn.functional as F
 
@@ -663,16 +688,20 @@ def kernel_attention_h16(gen) -> list[dict]:
         if dtype == torch.float16:
             # loss-scaled output gradients at ViT-B's scale: "random", dO ~
             # N(0, 1) x 2^13, whose dO V^T passes fp16's 65504; "aligned",
-            # dO = 8000 V and q = k = 1.6 N(0, 1), whose dS reaches about
-            # 1.9e5 while dq, dk, dv stay inside fp16's range
-            shape = (8, 12, 196, 64)
-            for kind in ("random", "aligned"):
+            # dO = 8000 V and q = k = 1.6 sqrt(64 / D) N(0, 1), whose dS
+            # reaches about 1.7e5 while dq, dk, dv stay inside fp16's range;
+            # at ViT-B's head and at the backward's key-group instances (N
+            # past 256; N past 128 at D > 64)
+            cases = [("random", (8, 12, 196, 64))] + [
+                ("aligned", shape) for shape in ((8, 12, 196, 64), (1, 2, 300, 64),
+                                                 (1, 2, 200, 128))]
+            for kind, shape in cases:
                 x, hv, hg = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
                 if kind == "random":
                     hq, hk = x.half(), torch.randn(shape, generator=gen, device="cuda").half()
                     hv, hg = hv.half(), (hg * 2.0**13).half()
                 else:
-                    hq = (1.6 * x).half()
+                    hq = (1.6 * (64 / shape[-1]) ** 0.5 * x).half()
                     hk, hv = hq.clone(), hv.half()
                     hg = (8000.0 * hv.float()).half()
                 hout, hlse = fused_attention_h16_fwd(hq, hk, hv, VITB_SCALE, with_lse=True)
@@ -753,8 +782,11 @@ def kernel_attention_h16(gen) -> list[dict]:
                 "bound_by": main["bound_by"], "library_ms": main["library_ms"],
                 "device_ms": main["device_ms"], "library_device_ms": main["library_device_ms"],
                 "per_shape": {str(list(sh)): r[i] for sh, r in per_shape.items()},
+                # the instances of the main path's shape: D = 64, N = 196
                 "ptxas": {k_: v_ for k_, v_ in PTXAS.get(lib, {}).items()
-                          if ("half" if tag == "fp16" else "bfloat16") in k_ and ",4>" in k_}})
+                          if ("half" if tag == "fp16" else "bfloat16") in k_
+                          and re.search(r",1,13[,>]", k_)},
+                "wgmma_notes": WGMMA_NOTES.get(lib, [])})
     return entries
 
 
@@ -1981,7 +2013,8 @@ def phase_swin_amp(report: dict):
 def phase_fp16(report: dict) -> None:
     """ViT-Ti with ``ampdtype fp16`` and the hand-written loss scaler, batch
     256: 1 + 10 steps with 12 fp16 attention forward and 12 backward
-    launches each, the scale unchanged at 2^15 and 11 good steps; then a
+    launches each, the scale unchanged at 2^15 and 11 good steps (and the
+    share of heads whose dO the backward's range guard divides); then a
     step whose gradients are non-finite
     on purpose (an infinite weight): the parameters, the AdamW moments and
     AdamW's count stay bit-identical, the schedule's count advances, the
@@ -2008,11 +2041,28 @@ def phase_fp16(report: dict) -> None:
 
     losses = [trainer.train_step(packed)]  # warm-up
     torch.cuda.synchronize()
+    # the heads whose dO the backward kernel divides (fp16's range guard:
+    # 2 max |dO_i| max |V_j| >= 2^15), read from each backward's inputs
+    from rgbnomore_tpu_torch.ops.attention import _FusedAttention
+
+    kernel_backward, bounds = _FusedAttention.backward, []
+
+    def watched_backward(ctx, dout):
+        v = ctx.saved_tensors[2]
+        bounds.append(2 * dout.float().norm(dim=-1).amax(-1) * v.float().norm(dim=-1).amax(-1))
+        return kernel_backward(ctx, dout)
+
+    _FusedAttention.backward = staticmethod(watched_backward)
     reset_launches()
-    for _ in range(FP16_STEPS):
-        losses.append(trainer.train_step(packed))
-    torch.cuda.synchronize()
+    try:
+        for _ in range(FP16_STEPS):
+            losses.append(trainer.train_step(packed))
+        torch.cuda.synchronize()
+    finally:
+        _FusedAttention.backward = staticmethod(kernel_backward)
     launches = all_launches()
+    bound = torch.stack(bounds)
+    guarded = f"{int((bound >= 2.0**15).sum())} of {bound.numel()}"
     check_launches("fp16 train", launches, {"fused_attention_h16": 12 * FP16_STEPS,
                                             "fused_attention_h16_bwd": 12 * FP16_STEPS})
     report["fused_attention_fp16"]["launches"] = launches["fused_attention_h16"]
@@ -2024,7 +2074,8 @@ def phase_fp16(report: dict) -> None:
           f"fp16 scaler after {FP16_STEPS + 1} finite steps: scale {scale}, good {good}")
     print(f"fp16 train: {FP16_STEPS} steps of {BATCH} (ViT-Ti, fp16, loss scaler) | launches "
           f"{launches} | losses {[round(v, 4) for v in losses]} | scale {scale}, good steps "
-          f"{good}", flush=True)
+          f"{good} | attention heads whose dO the range guard divides: {guarded} (largest "
+          f"bound on |dS| {float(bound.max()):.4g})", flush=True)
 
     adamw, opt = trainer.optimizer.opt, trainer.optimizer
     weight = trainer.model.patchembed.projection.weight

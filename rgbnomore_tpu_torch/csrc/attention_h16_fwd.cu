@@ -12,261 +12,344 @@
 // N are left out of the softmax, and D is zero-padded in shared memory only.
 // P is rounded to the input dtype as the A operand of PV, as JAX's einsum
 // path rounds it (models/vit.py:70) and as the TPU runs that float32 dot in
-// one bf16 pass at its default precision; the running max, the row sums and
-// the log-sum-exp stay float32 and are taken over the unrounded P.
+// one bf16 pass at its default precision; the max, the row sums and the
+// log-sum-exp stay float32 and are taken over the unrounded P.
 //
-// Bounds on an H100 SXM, at the ViT-B shape (256, 12, 196, 64):
-//   operations: QK^T and PV, 4 * N^2 * D * B * H = 30.2 GFLOP, 0.031 ms at
-//          the tensor cores' 989 TFLOP/s dense bf16 / fp16;
+// Bounds on an H100 SXM, at the ViT-B shapes (256 or 512, 12, 196, 64):
+//   operations: QK^T and PV, 4 * N^2 * D * B * H = 30.2 (60.4) GFLOP,
+//          0.031 (0.061) ms at the tensor cores' 989 TFLOP/s dense bf16;
 //   bytes: q, k, v read once and o written once, 4 * B*H*N*D * 2 B = 308
-//          MB, 0.092 ms at 3.35 TB/s.
-// Bound by bytes, 3.0x above the operations: 4 N^2 D FLOP per 8 N D bytes
-// of q, k, v, o is N / 2 = 98 FLOP a byte at N = 196, against the card's
-// 295.
+//          (617) MB, 0.092 (0.184) ms at 3.35 TB/s.
+// Bound by bytes, 3.0x above the operations.
 //
-// Design (the FlashAttention-2 layout, as attention_fwd.cu, in one mma.sync
-// pass per product where 3xTF32 takes three):
-//   - mma.sync m16n8k16 by inline PTX, each warp owning 16 query rows; the
-//     warp's Q fragments are read once (ldmatrix) and held in registers.
-//   - K and V arrive in 32-key tiles through a two-stage cp.async ring (one
-//     barrier a tile); K^T's and V's B fragments come straight from the
-//     ring by ldmatrix (V by its transposing form), free of bank conflicts
-//     at a row stride of D + 8 elements.  64-key tiles took 140 registers
-//     at D = 64, three blocks an SM, and took 14-16% more device time on
-//     the H100 (tools/kernel_ab.py, PERF.md PR 7); 32-key tiles fit
-//     128 registers and 28 KB of shared memory, four blocks an SM.
-//   - The scores of a 16 x 32 tile stay in the mma accumulators; each row's
-//     running max and sum live in the four lanes that hold the row.  Two
-//     neighbouring 8-key C tiles, packed to the input dtype, are the A
-//     operand of PV with no shuffle (h16_mma.cuh).
-//   - Full tiles run without live-key tests; the ragged last tile computes
-//     only its live 8-key groups.
-//   - Query tiles of 16 rows per warp spread evenly over a head's blocks
-//     (tf32::tiling): N = 196 takes four blocks of 4 warps.
+// Design: the Pallas kernel's own, one whole head at a time (it holds the
+// head's scores in VMEM), on Hopper's warpgroup products (wgmma.cuh):
+//   - One block of one warpgroup per (batch, head) while N <= 256 (128 at D
+//     > 64).  The head's K and V are read once, into swizzled shared memory
+//     (53 KB at N = 196, D = 64), and stay there while the warpgroup walks
+//     the head's 64-row query tiles, each copied in by cp.async while the
+//     one before it computes (two stages).
+//   - Per tile, S = Q K^T is one wgmma chain over the head dim, A and B
+//     from shared memory, into registers: 16 * ceil(N / 16) keys wide (208,
+//     104 floats a thread, at N = 196), in 64-key products and a 16-key
+//     tail.  Then one exact softmax in registers, with no online rescale:
+//     each row's max and sum over the four lanes that hold it.
+//   - O = P V is one wgmma chain over the keys, P rounded to the input dtype
+//     as the A operand from the score registers, V from shared memory.
+//   - No branch parts a chain of products (the head dim's padding and the
+//     keys past N are computed and masked, not skipped), or ptxas serialises
+//     them all (C7520).
+//   - Three blocks an SM where their shared memory fits (N <= 208 at D <=
+//     64: 70 KB each), registers capped to 168 a thread to match: a block
+//     waits on its products, the other two fill the gaps.
+//   - N > 256: one block per 64-row query tile walks 128-key tiles of K and
+//     V with the online softmax (the running max and sum, and O rescaled
+//     between tiles), each tile copied in after the last one is consumed.
+//   Tried on the H100 and not kept (PERF.md, section 6): two blocks an SM (255
+//   registers); a persistent block of two warpgroups an SM with the next
+//   head's K and V copied in ahead; V copied in behind K.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <math.h>
-#include <type_traits>
 
-#include "h16_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kBK = 32;        // keys per tile
-constexpr int kNT = kBK / 8;   // 8-key groups per tile
-constexpr int kStages = 2;     // K, V ring
-constexpr int kMaxThreads = 32 * tf32::kMaxWarps;
+constexpr int kBM = 64;  // query rows per tile
 
-// Shared memory, in elements: Q [16 W][ld], then each stage's K and V
-// [kBK][ld].
-template <int NK>
-int smem_elems(int warps) {
-  return (16 * warps + 2 * kStages * kBK) * (16 * NK + 8);
-}
+// One warpgroup's 64-row query tile against a key tile of 16 KC keys in
+// shared memory (K and V [16 KC][64 NA], Q [kBM][64 NA], swizzled), kn of
+// them live: S = Q K^T, the softmax in float32 registers, O += P V.  m_run
+// and l_run hold each of the thread's two rows' max (log2 units) and its
+// part of the row's sum; acc the unnormalised O.  kOnline: over the key
+// tiles so far, acc overwritten on the first (kt == 0) and rescaled as the
+// max grows; else the whole row is in this tile (m_run, l_run, acc are
+// written, and acc is not live before PV).
+template <typename T, int NA, int KC, bool kOnline>
+__device__ __forceinline__ void tile_product(const unsigned char* qs, const unsigned char* ks,
+                                             const unsigned char* vs, int kt, int kn,
+                                             float scale_log2, int t, float (&acc)[NA][32],
+                                             float (&m_run)[2], float (&l_run)[2]) {
+  constexpr int kKeys = 16 * KC;  // key rows of the K and V tiles
+  constexpr int kFull = KC / 4;   // 64-key products of S
+  constexpr int kTail = KC % 4;   // 16-key units of the tail product
+  constexpr int kGroups = 2 * KC; // 8-key groups of S
 
-template <typename T, int NK>
-__global__ void __launch_bounds__(kMaxThreads)
-    attention_h16_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, T* __restrict__ o,
-                             float* __restrict__ lse, int n, int d, int q_tiles,
-                             float scale_log2, bool vec) {
-  constexpr int kDp = 16 * NK;
-  constexpr int kLd = kDp + 8;
-  constexpr int kDT = kDp / 8;  // 8-wide column groups of the head dim
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int warps = blockDim.x / 32;
-  const int bq = 16 * warps;
-  T* qs = smem;                 // [bq][kLd]
-  T* ring = qs + bq * kLd;      // stage s: K at ring + 2 s kBK kLd, V after it
-
-  // query tiles of one head are neighbouring blocks, so the head's keys and
-  // values come from device memory about once and from L2 after that
-  const int bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * bq;
-  const size_t head = static_cast<size_t>(bh) * n * d;
-  const T* kh = k + head;
-  const T* vh = v + head;
-
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
-  const int wr = 16 * warp;  // the warp's first row in the tile
-  const bool warp_live = q0 + wr < n;
-  const int k_tiles = (n + kBK - 1) / kBK;
-
-  auto load_stage = [&](int j) {
-    T* st = ring + (j % kStages) * 2 * kBK * kLd;
-    h16::load_tile<kDp>(st, kh, j * kBK, kBK, n, d, vec, tid, nthreads);
-    h16::load_tile<kDp>(st + kBK * kLd, vh, j * kBK, kBK, n, d, vec, tid, nthreads);
+  // S = Q K^T: 64-key products, then the tail, over the head dim (its zero
+  // padding too: no branch may part a chain of products, or the compiler
+  // serialises them)
+  float s[kFull > 0 ? kFull : 1][32];
+  float st[kTail > 0 ? 8 * kTail : 1];
+  h16::fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * NA; ++kk) {
+    const int atom = kk / 4, col = (kk % 4) * 32;  // bytes into the row
+    const uint64_t da = h16::desc(qs + atom * kBM * 128 + col, 16, 1024);
+#pragma unroll
+    for (int c = 0; c < kFull; ++c)
+      h16::wgmma_ss<T, 0, 0>(s[c], da,
+                             h16::desc(ks + atom * kKeys * 128 + c * 64 * 128 + col, 16, 1024),
+                             kk > 0);
+    if constexpr (kTail > 0)
+      h16::wgmma_ss<T, 0, 0>(st, da,
+                             h16::desc(ks + atom * kKeys * 128 + kFull * 64 * 128 + col, 16,
+                                       1024),
+                             kk > 0);
+  }
+  h16::commit();
+  h16::wait<0>();
+#pragma unroll
+  for (int c = 0; c < kFull; ++c) h16::fence_operand(s[c]);
+  if constexpr (kTail > 0) h16::fence_operand(st);
+  // the 4 values of 8-key group j (keys 8j + 2t, +1 of rows g, g + 8)
+  auto grp = [&](int j) -> float* {
+    return j < 8 * kFull ? &s[j / 8][4 * (j % 8)] : &st[4 * (j - 8 * kFull)];
   };
-  h16::load_tile<kDp>(qs, q + head, q0, bq, n, d, vec, tid, nthreads);
-  load_stage(0);
-  tf32::cp_commit();
 
-  float acc[kDT][4];
+  // softmax in log2 units, float32: scale, mask keys past N, the max, P,
+  // and each row's sum; online, what was summed under an older max is
+  // rescaled
+  float mx[2] = {-INFINITY, -INFINITY};
+  if constexpr (kOnline) mx[0] = m_run[0], mx[1] = m_run[1];
 #pragma unroll
-  for (int c = 0; c < kDT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-  // running max (log2 units) and this lane's part of the running sum, of
-  // rows g and g + 8 of the warp's 16
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  uint32_t qa[NK][4];  // the warp's Q A fragments, one per 16 dims
-
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    tf32::cp_wait<0>();  // tile kt has landed
-    __syncthreads();     // ... for every thread, and tile kt - 1 is consumed
-    if (kt + 1 < k_tiles) load_stage(kt + 1);
-    tf32::cp_commit();
-    if (kt == 0 && warp_live) {
+  for (int j = 0; j < kGroups; ++j) {
+    float* x = grp(j);
+    if (8 * j + 8 <= kn) {  // a group of live keys (all but the last ones)
 #pragma unroll
-      for (int c = 0; c < NK; ++c) h16::a_frag(qa[c], qs, kLd, wr, 16 * c, lane);
+      for (int e = 0; e < 4; ++e) x[e] *= scale_log2;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[e] = 8 * j + 2 * t + (e & 1) < kn ? x[e] * scale_log2 : -INFINITY;
     }
-
-    const T* ks = ring + (kt % kStages) * 2 * kBK * kLd;
-    const T* vs = ks + kBK * kLd;
-    const int kn = min(kBK, n - kt * kBK);  // live keys of the tile
-    auto tile = [&](auto full) {
-      constexpr bool kFull = decltype(full)::value;
-      const int live_nt = kFull ? kNT : (kn + 7) / 8;
-
-      // S = Q K^T for the warp's 16 rows, live 8-key groups only
-      float s[kNT][4];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], x[e]);
+  }
 #pragma unroll
-      for (int c = 0; c < NK; ++c) {
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  float alpha[2];
 #pragma unroll
-        for (int jp = 0; jp < kNT / 2; ++jp) {
-          if (kFull || 2 * jp < live_nt) {
-            uint32_t b[4];
-            h16::b_frags_t(b, ks, kLd, 16 * jp, 16 * c, lane);
-            h16::mma<T>(s[2 * jp], qa[c], b[0], b[1]);
-            if (kFull || 2 * jp + 1 < live_nt) h16::mma<T>(s[2 * jp + 1], qa[c], b[2], b[3]);
-          }
-        }
-      }
-
-      // online softmax in log2 units, in float32: scale, mask keys past N,
-      // fold the tile into each row's max, rescale what was summed under
-      // the old one
-      float mx[2] = {m_run[0], m_run[1]};
+  for (int r = 0; r < 2; ++r) {
+    if constexpr (kOnline) {
+      alpha[r] = h16::exp2_ftz(m_run[r] - mx[r]);  // 0 on the first tile
+      l_run[r] *= alpha[r];
+    } else {
+      l_run[r] = 0.f;
+    }
+    m_run[r] = mx[r];
+  }
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
+  for (int j = 0; j < kGroups; ++j) {
+    float* x = grp(j);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool live = kFull || (j < live_nt && 8 * j + 2 * t + (e & 1) < kn);
-          s[j][e] = live ? s[j][e] * scale_log2 : -INFINITY;
-          mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        alpha[r] = exp2f(m_run[r] - mx[r]);  // 0 on the first tile
-        m_run[r] = mx[r];
-        l_run[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = exp2f(s[j][e] - m_run[e / 2]);
-          l_run[e / 2] += s[j][e];
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kDT; ++c) {
-        acc[c][0] *= alpha[0];
-        acc[c][1] *= alpha[0];
-        acc[c][2] *= alpha[1];
-        acc[c][3] *= alpha[1];
-      }
-
-      // O += P V, P rounded to T from the score registers, 16 keys a step
-#pragma unroll
-      for (int jp = 0; jp < kNT / 2; ++jp) {
-        if (kFull || 2 * jp < live_nt) {
-          uint32_t a[4];
-          h16::a_from_c<T>(a, s[2 * jp], s[2 * jp + 1]);
-#pragma unroll
-          for (int cp = 0; cp < kDT / 2; ++cp) {
-            uint32_t b[4];
-            h16::b_frags(b, vs, kLd, 16 * jp, 16 * cp, lane);
-            h16::mma<T>(acc[2 * cp], a, b[0], b[1]);
-            h16::mma<T>(acc[2 * cp + 1], a, b[2], b[3]);
-          }
-        }
-      }
-    };
-    if (warp_live) {
-      if (kn == kBK)
-        tile(std::true_type{});
-      else
-        tile(std::false_type{});
+    for (int e = 0; e < 4; ++e) {
+      x[e] = h16::exp2_ftz(x[e] - m_run[e / 2]);
+      l_run[e / 2] += x[e];
     }
   }
-  tf32::cp_wait<0>();
+  if constexpr (kOnline) {  // (on the first tile acc is overwritten below)
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[a][i] *= alpha[(i / 2) & 1];
+  }
 
-  if (!warp_live) return;
+  // O += P V, P rounded to T from the score registers, 16 keys a step
+  // (keys past N: P = 0 and V's rows zero)
+  uint32_t pa[KC][4];
+#pragma unroll
+  for (int u = 0; u < KC; ++u) h16::pack_a<T>(pa[u], grp(2 * u));  // groups 2u, 2u + 1
+  h16::fence();
+#pragma unroll
+  for (int u = 0; u < KC; ++u)
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+      h16::wgmma_rs<T, 1>(acc[a], pa[u],
+                          h16::desc(vs + a * kKeys * 128 + u * 16 * 128, kKeys * 128, 1024),
+                          kt > 0 || u > 0);
+  h16::commit();
+  h16::wait<0>();
+#pragma unroll
+  for (int a = 0; a < NA; ++a) h16::fence_operand(acc[a]);
+}
+
+// O / sum in T for the warpgroup's tile at query row q0 of a head, and the
+// log-sum-exp of each row into lse_h when it is not null.
+template <typename T, int NA>
+__device__ __forceinline__ void store_tile(T* oh, float* lse_h, int q0, int n, int d, int warp,
+                                           int g, int t, const float (&acc)[NA][32],
+                                           const float (&m_run)[2], float (&l_run)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  T* oh = o + head;
-  const int g = lane / 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + 8 * r;
+    const int row = q0 + 16 * warp + g + 8 * r;
     if (row >= n) continue;
     const float inv = 1.f / l_run[r];
 #pragma unroll
-    for (int c = 0; c < kDT; ++c)
-      h16::store_pair(oh + static_cast<size_t>(row) * d, 8 * c + 2 * t, d,
-                      acc[c][2 * r] * inv, acc[c][2 * r + 1] * inv);
-    // log-sum-exp of the row's scaled scores, for the backward pass
-    if (lse != nullptr && t == 0)
-      lse[static_cast<size_t>(bh) * n + row] = (m_run[r] + log2f(l_run[r])) * tf32::kLn2;
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        h16::store_pair(oh + static_cast<size_t>(row) * d, 64 * a + 8 * j + 2 * t, d,
+                        acc[a][4 * j + 2 * r] * inv, acc[a][4 * j + 2 * r + 1] * inv);
+    if (lse_h != nullptr && t == 0) lse_h[row] = (m_run[r] + log2f(l_run[r])) * tf32::kLn2;
   }
 }
 
-template <typename T, int NK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   long long bh, int n, int d, float scale, bool vec, cudaStream_t stream) {
-  const tf32::Tiling tl = tf32::tiling(n);
-  const int bytes = smem_elems<NK>(tl.warps) * static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_h16_fwd_kernel<T, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// The whole head in one key tile (N <= 16 KC): one block of one warpgroup
+// per (batch, head).  K and V are copied in once and stay; the warpgroup
+// walks the head's 64-row query tiles, each copied into one of two stages
+// while the one before it computes.  Three blocks an SM where their shared
+// memory fits (N <= 208 at D <= 64: 70 KB each), their registers capped to
+// match (168 a thread), else two.
+constexpr int kHeadThreads = 128;
+
+template <int NA, int KC>
+constexpr int head_smem_bytes() {
+  return 2 * NA * 16 * KC * 128 + 2 * NA * kBM * 128 + 1024;
+}
+
+template <int NA, int KC>
+constexpr int kHeadBlocks = 3 * head_smem_bytes<NA, KC>() <= 232448 ? 3 : 2;
+
+template <typename T, int NA, int KC>
+__global__ void __launch_bounds__(kHeadThreads, (kHeadBlocks<NA, KC>))
+    attention_h16_fwd_head_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                  const T* __restrict__ v, T* __restrict__ o,
+                                  float* __restrict__ lse, int n, int d, float scale_log2,
+                                  bool vec) {
+  constexpr int kKeys = 16 * KC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ks = h16::align1024(smem_raw);
+  unsigned char* vs = ks + NA * kKeys * 128;
+  auto stage = [&](int i) { return vs + NA * kKeys * 128 + (i & 1) * NA * kBM * 128; };
+  const int bh = blockIdx.x;
+  const size_t head = static_cast<size_t>(bh) * n * d;
+  const int q_tiles = (n + kBM - 1) / kBM;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+
+  h16::load_tile<NA>(ks, k + head, 0, kKeys, n, d, vec, tid, kHeadThreads);
+  h16::load_tile<NA>(vs, v + head, 0, kKeys, n, d, vec, tid, kHeadThreads);
+  h16::load_tile<NA>(stage(0), q + head, 0, kBM, n, d, vec, tid, kHeadThreads);
+  tf32::cp_commit();
+  for (int qt = 0; qt < q_tiles; ++qt) {
+    tf32::cp_wait<0>();  // tile qt (and at first K, V) has landed
+    h16::proxy_fence();
+    __syncthreads();     // ... for every thread; tile qt - 1 is consumed
+    if (qt + 1 < q_tiles)
+      h16::load_tile<NA>(stage(qt + 1), q + head, (qt + 1) * kBM, kBM, n, d, vec, tid,
+                         kHeadThreads);
+    tf32::cp_commit();
+    float acc[NA][32];
+    float m_run[2], l_run[2];
+    tile_product<T, NA, KC, false>(stage(qt), ks, vs, 0, n, scale_log2, t, acc, m_run, l_run);
+    store_tile<T, NA>(o + head, lse == nullptr ? nullptr : lse + static_cast<size_t>(bh) * n,
+                      qt * kBM, n, d, warp, g, t, acc, m_run, l_run);
+  }
+  tf32::cp_wait<0>();
+}
+
+// N past the keys a block holds: one block of one warpgroup per 64-row
+// query tile walks 128-key tiles of K and V with the online softmax, each
+// tile copied in after the last one is consumed.
+constexpr int kTiledThreads = 128;
+constexpr int kTileKc = 8;  // 16-key units of a key tile
+
+template <int NA>
+constexpr int tiled_smem_bytes() {
+  return 2 * NA * 16 * kTileKc * 128 + NA * kBM * 128 + 1024;
+}
+
+template <typename T, int NA>
+__global__ void __launch_bounds__(kTiledThreads)
+    attention_h16_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                   const T* __restrict__ v, T* __restrict__ o,
+                                   float* __restrict__ lse, int n, int d, float scale_log2,
+                                   bool vec) {
+  constexpr int kKeys = 16 * kTileKc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ks = h16::align1024(smem_raw);
+  unsigned char* vs = ks + NA * kKeys * 128;
+  unsigned char* qs = vs + NA * kKeys * 128;
+  const int q_tiles = (n + kBM - 1) / kBM;
+  const int bh = blockIdx.x / q_tiles, qt = blockIdx.x % q_tiles;
+  const size_t head = static_cast<size_t>(bh) * n * d;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+
+  float acc[NA][32];
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  h16::load_tile<NA>(qs, q + head, qt * kBM, kBM, n, d, vec, tid, kTiledThreads);
+  for (int kt = 0; kt * kKeys < n; ++kt) {
+    if (kt > 0) __syncthreads();  // every warp is done with the last key tile
+    h16::load_tile<NA>(ks, k + head, kt * kKeys, kKeys, n, d, vec, tid, kTiledThreads);
+    h16::load_tile<NA>(vs, v + head, kt * kKeys, kKeys, n, d, vec, tid, kTiledThreads);
+    tf32::cp_commit();
+    tf32::cp_wait<0>();
+    h16::proxy_fence();
+    __syncthreads();
+    tile_product<T, NA, kTileKc, true>(qs, ks, vs, kt, min(kKeys, n - kt * kKeys), scale_log2,
+                                       t, acc, m_run, l_run);
+  }
+  store_tile<T, NA>(o + head, lse == nullptr ? nullptr : lse + static_cast<size_t>(bh) * n,
+                    qt * kBM, n, d, warp, g, t, acc, m_run, l_run);
+}
+
+template <typename T, int NA, int KC>
+cudaError_t launch_head(const void* q, const void* k, const void* v, void* o, float* lse,
+                        long long bh, int n, int d, float scale, bool vec, cudaStream_t stream) {
+  constexpr int bytes = head_smem_bytes<NA, KC>();
+  cudaError_t err = cudaFuncSetAttribute(attention_h16_fwd_head_kernel<T, NA, KC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const long long blocks = bh * tl.tiles;
-  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  attention_h16_fwd_kernel<T, NK>
-      <<<static_cast<unsigned>(blocks), 32 * tl.warps, bytes, stream>>>(
+  if (bh > INT_MAX) return cudaErrorInvalidConfiguration;
+  attention_h16_fwd_head_kernel<T, NA, KC>
+      <<<static_cast<unsigned>(bh), kHeadThreads, bytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-          static_cast<T*>(o), lse, n, d, tl.tiles, scale * tf32::kLog2e, vec);
+          static_cast<T*>(o), lse, n, d, scale * tf32::kLog2e, vec);
   return cudaGetLastError();
 }
 
+template <typename T, int NA>
+cudaError_t launch_tiled(const void* q, const void* k, const void* v, void* o, float* lse,
+                         long long bh, int n, int d, float scale, bool vec, cudaStream_t stream) {
+  constexpr int bytes = tiled_smem_bytes<NA>();
+  cudaError_t err = cudaFuncSetAttribute(attention_h16_fwd_tiled_kernel<T, NA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = bh * ((n + kBM - 1) / kBM);
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  attention_h16_fwd_tiled_kernel<T, NA>
+      <<<static_cast<unsigned>(blocks), kTiledThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<T*>(o), lse, n, d, scale * tf32::kLog2e, vec);
+  return cudaGetLastError();
+}
+
+// The whole head at once, 16 * KC >= N keys (208 for ViT's 196 or 197 and
+// below, 256), while N <= 256 (D <= 64) or N <= 128 (D > 64, whose 64 more
+// output columns take the registers); else 128-key tiles.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                      long long bh, int n, int d, float scale, bool vec, cudaStream_t s) {
-  switch ((d + 15) / 16) {
-    case 1: return launch<T, 1>(q, k, v, o, lse, bh, n, d, scale, vec, s);
-    case 2: return launch<T, 2>(q, k, v, o, lse, bh, n, d, scale, vec, s);
-    case 3: return launch<T, 3>(q, k, v, o, lse, bh, n, d, scale, vec, s);
-    case 4: return launch<T, 4>(q, k, v, o, lse, bh, n, d, scale, vec, s);
-    case 5: return launch<T, 5>(q, k, v, o, lse, bh, n, d, scale, vec, s);
-    case 6: return launch<T, 6>(q, k, v, o, lse, bh, n, d, scale, vec, s);
-    case 7: return launch<T, 7>(q, k, v, o, lse, bh, n, d, scale, vec, s);
-    default: return launch<T, 8>(q, k, v, o, lse, bh, n, d, scale, vec, s);
+  if (d > 64) {
+    if (n <= 128) return launch_head<T, 2, 8>(q, k, v, o, lse, bh, n, d, scale, vec, s);
+    return launch_tiled<T, 2>(q, k, v, o, lse, bh, n, d, scale, vec, s);
   }
+  if (n <= 208) return launch_head<T, 1, 13>(q, k, v, o, lse, bh, n, d, scale, vec, s);
+  if (n <= 256) return launch_head<T, 1, 16>(q, k, v, o, lse, bh, n, d, scale, vec, s);
+  return launch_tiled<T, 1>(q, k, v, o, lse, bh, n, d, scale, vec, s);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }

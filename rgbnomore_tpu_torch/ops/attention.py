@@ -17,10 +17,12 @@ forward ``_fwd_kernel`` :39-48 and its VJP ``_bwd_kernel`` :51-69).
   ``csrc/attention_h16_fwd.cu`` and ``csrc/attention_h16_bwd.cu`` instead,
   as the Pallas kernels compute on such inputs (``attention.py:39-69``):
   products of the half-precision operands accumulated in float32 on the
-  tensor cores (``csrc/h16_mma.cuh``), the logits, softmax, log-sum-exp
+  tensor cores, the logits, softmax, log-sum-exp
   and dS in float32, P rounded to the input dtype only as an operand of
-  PV, outputs in the input dtype.  Nothing is upcast to float32 on the way
-  in; their launches are counted apart
+  PV, outputs in the input dtype.  Both issue their products as Hopper
+  warpgroup products (``wgmma``, ``csrc/wgmma.cuh``) and keep a whole head
+  in shared memory; the backward's dS never leaves it.  Nothing is upcast
+  to float32 on the way in; their launches are counted apart
   (``fused_attention_h16_fwd.launches``,
   ``fused_attention_h16_bwd.launches``).
 - On CPU tensors the forward is :func:`attention_plain`, the einsum path of
@@ -41,7 +43,7 @@ __all__ = ["attention_bwd_plain", "attention_plain", "fused_attention",
            "fused_attention_bwd", "fused_attention_fwd", "fused_attention_h16_bwd",
            "fused_attention_h16_fwd"]
 
-_MAX_HEAD_DIM = 128  # the kernels keep a warp's 16 x D output tile in registers
+_MAX_HEAD_DIM = 128  # the kernels keep a query tile's outputs in registers
 HALF_DTYPES = (torch.bfloat16, torch.float16)
 _DTYPES = (torch.float32, *HALF_DTYPES)
 
@@ -91,7 +93,7 @@ def _check_inputs(*tensors: torch.Tensor) -> None:
 _ENTRIES = {"attention_fwd": (5, False, "attention_error_string"),
             "attention_bwd": (11, False, "attention_bwd_error_string"),
             "attention_h16_fwd": (5, True, "attention_h16_fwd_error_string"),
-            "attention_h16_bwd": (11, True, "attention_h16_bwd_error_string")}
+            "attention_h16_bwd": (10, True, "attention_h16_bwd_error_string")}
 # the half-precision entries' element type argument
 _ELEMENT = {torch.float16: 0, torch.bfloat16: 1}
 
@@ -107,6 +109,10 @@ def _library(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         getattr(lib, err_name).argtypes = [ctypes.c_int]
         getattr(lib, err_name).restype = ctypes.c_char_p
+        if name == "attention_h16_bwd":
+            lib.attention_h16_bwd_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                                      ctypes.c_int]
+            lib.attention_h16_bwd_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -144,17 +150,26 @@ def _launch_bwd(name: str, q, k, v, out, lse, dout, scale):
         raise ValueError(f"lse must be contiguous float32 ({b}, {h}, {n}) on {q.device}")
     lib = _library(name)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # the kernel's scratch: rowsum(dout * out), and dS (float32 for every
-    # input dtype) from its dK/dV pass to its dQ pass
-    delta = torch.empty_like(lse)
-    ds = torch.empty((b, h, n, n), dtype=torch.float32, device=q.device)
+    if name == "attention_h16_bwd":
+        # scratch: dQ's float32 sums over key groups where one block cannot
+        # hold a head's keys (N > 256; N > 128 at D > 64); the kernel keeps
+        # dS on chip
+        elems = lib.attention_h16_bwd_scratch(b * h, n, d)
+        buf = torch.empty(elems, dtype=torch.float32, device=q.device) if elems else None
+        scratch = (None if buf is None else buf.data_ptr(),)
+    else:
+        # the float32 kernel's scratch: rowsum(dout * out), and dS from its
+        # dK/dV pass to its dQ pass
+        delta = torch.empty_like(lse)
+        ds = torch.empty((b, h, n, n), dtype=torch.float32, device=q.device)
+        scratch = (delta.data_ptr(), ds.data_ptr())
     typed = (_ELEMENT[q.dtype],) if _ENTRIES[name][1] else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                                 ds.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                 b * h, n, d, float(scale), *typed, stream)
+                                 dout.data_ptr(), lse.data_ptr(), *scratch, dq.data_ptr(),
+                                 dk.data_ptr(), dv.data_ptr(), b * h, n, d, float(scale),
+                                 *typed, stream)
     _raise_on(lib, name, err)
     return dq, dk, dv
 

@@ -7,10 +7,13 @@
   float32, float32 softmax, outputs cast to the input dtype).
 - The precision scheme of the half-precision CUDA kernels
   (``csrc/attention_h16_fwd.cu``, ``csrc/attention_h16_bwd.cu``), emulated
-  in plain PyTorch: operands in the input dtype, exact products summed in
-  float32, P (and dS) rounded to the input dtype only as an operand of its
-  product, fp16 rows of dS beyond 2^15 divided by a power of two around
-  their product.  Held to a float32 reference and to the Pallas kernel, as
+  in plain PyTorch at their rounding points: operands in the input dtype,
+  exact products summed in float32; the forward's one exact softmax over a
+  whole head (N <= 256; 128-key tiles with the online rescale above), P
+  rounded to the input dtype only as the A operand of PV; the backward's
+  P^T and dS rounded once each as operands of dV, dK and dQ; in fp16 a
+  head's dO divided by a power of two where a bound on its dS passes 2^15,
+  and the gradients multiplied by it.  Held to a float32 reference and to the Pallas kernel, as
   ``test_torch_port_attention_tf32.py`` holds the 3xTF32 scheme.
 - Tests marked ``cuda`` run the kernels on a card.
 
@@ -43,9 +46,15 @@ FWD_TOL = {"bf16": dict(atol=2**-6, rtol=2**-7), "fp16": dict(atol=2**-9, rtol=2
 GRAD_TOL = {"bf16": 2**-5, "fp16": 2**-8}
 VIT_SCALE = 1.0 / 192**0.5
 # (shape, scale): a ViT-Ti head (ViT-B's heads are the same 196 x 64), the
-# Pallas gradient test's, an odd N
-CASES = [((2, 3, 196, 64), VIT_SCALE), ((1, 2, 52, 24), 0.13), ((2, 2, 197, 32), VIT_SCALE)]
-IDS = ["vit_head", "pallas_grad", "odd_n"]
+# Pallas gradient test's, an odd N, and an N past the 256 keys the kernels
+# hold at once (the forward's 128-key tiles, the backward's key groups)
+CASES = [((2, 3, 196, 64), VIT_SCALE), ((1, 2, 52, 24), 0.13), ((2, 2, 197, 32), VIT_SCALE),
+         ((1, 2, 300, 64), VIT_SCALE)]
+IDS = ["vit_head", "pallas_grad", "odd_n", "long_n"]
+# keys the forward kernel holds at once: a whole head up to 256 (128 for D
+# > 64); past that, tiles of 128 keys with the online softmax
+WHOLE_HEAD_KEYS = {64: 256, 128: 128}
+KEY_TILE = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,49 +88,67 @@ def reference(q, k, v, g, scale):
 
 
 # ------------------------------------------------------------ the scheme
-def round_rows(x: torch.Tensor, dtype: torch.dtype, chunk: int = 16) -> torch.Tensor:
-    """``x`` (float32, ..., M, K) rounded to ``dtype`` as an A operand of
-    the kernels: in fp16, each row's 16-column chunk whose largest magnitude
-    reaches 2^15 is divided by the power of two 2^(e - 14) (e its exponent)
-    before the rounding and multiplied by it after (``h16::fp16_row_divisor``);
-    bf16 rounds as it is."""
-    if dtype != torch.float16:
-        return x.to(dtype).float()
-    *lead, m, kk = x.shape
-    pad = (-kk) % chunk
-    xc = torch.nn.functional.pad(x, (0, pad)).reshape(*lead, m, -1, chunk)
-    amax = xc.abs().amax(-1, keepdim=True)
+def fp16_divisor(amax: torch.Tensor) -> torch.Tensor:
+    """``h16::fp16_row_divisor``: 1 below 2^15 (or for a non-finite
+    ``amax``), else the power of two 2^(e - 14), e the exponent of
+    ``amax``."""
     e = torch.floor(torch.log2(amax.clamp_min(1.0)))
-    div = torch.where((amax >= 2.0**15) & torch.isfinite(amax), 2.0 ** (e - 14), 1.0)
-    out = (xc / div).to(dtype).float() * div
-    return out.reshape(*lead, m, -1)[..., :kk]
+    return torch.where((amax >= 2.0**15) & torch.isfinite(amax), 2.0 ** (e - 14), 1.0)
+
+
+def fp16_head_divisor(dout, v):
+    """The power of two by which the backward kernel divides a head's fp16
+    dO (and multiplies dq, dk, dv): ``fp16_divisor`` of the bound 2 max_i
+    |dO_i| max_j |V_j| on the head's |dS|, (..., 1, 1)."""
+    dmax = dout.float().norm(dim=-1).amax(-1)
+    vmax = v.float().norm(dim=-1).amax(-1)
+    return fp16_divisor(2 * dmax * vmax)[..., None, None]
 
 
 def h16_fwd(q, k, v, scale):
     """(out in the input dtype, float32 lse) as the forward kernel computes
-    them: exact products summed in float32, P rounded for PV."""
+    them: exact products summed in float32; while the kernel holds the
+    whole head's keys, one exact softmax (the row's max, P, its sum), P
+    rounded for PV; else per 128-key tile, P under the running max rounded
+    for PV, the sum and O rescaled as the max grows."""
     s = q.float() @ k.float().transpose(-1, -2) * scale
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True)
-    out = p.to(q.dtype).float() @ v.float() / l
-    return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    vf = v.float()
+    n, d = s.shape[-1], q.shape[-1]
+    tile = n if n <= WHOLE_HEAD_KEYS[64 if d <= 64 else 128] else KEY_TILE
+    m = torch.full(s.shape[:-1] + (1,), -torch.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (d,))
+    for k0 in range(0, n, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(q.dtype).float() @ vf[..., k0:k0 + tile, :]
+        m = m_new
+    return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
 def h16_bwd(q, k, v, out, lse, dout, scale, guard_range=True):
     """(dq, dk, dv) as the backward kernel computes them: P, dP, dS in
-    float32, P^T and dS rounded (fp16 rows guarded unless ``guard_range``
-    is False) as A operands, delta = rowsum(dO * O) in float32."""
+    float32, P^T rounded once as dV's A operand, dS rounded once as dK's A
+    operand (rows of dS^T) and once as dQ's (rows of dS, the tile it keeps
+    in shared memory); delta = rowsum(dO * O) in float32; in fp16 (unless
+    ``guard_range`` is False) dO divided by the head's ``fp16_head_divisor``
+    s, rounded to fp16, and dq, dk, dv multiplied by s."""
     t = q.dtype
+    s = torch.ones(())
+    if guard_range and t == torch.float16:
+        s = fp16_head_divisor(dout, v)
+        dout = (dout.float() / s).to(t)
     qf, kf, vf, gf = q.float(), k.float(), v.float(), dout.float()
     p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None])
-    dv = p.transpose(-1, -2).to(t).float() @ gf
+    dv = p.transpose(-1, -2).to(t).float() @ gf * s
     dp = gf @ vf.transpose(-1, -2)
     delta = (gf * out.float()).sum(-1, keepdim=True)
     ds = p * (dp - delta)
-    rows = round_rows if guard_range else (lambda x, dt: x.to(dt).float())
-    dq = rows(ds, t) @ kf * scale
-    dk = rows(ds.transpose(-1, -2), t) @ qf * scale
+    dq = ds.to(t).float() @ kf * (scale * s)
+    dk = ds.transpose(-1, -2).to(t).float() @ qf * (scale * s)
     return dq.to(t), dk.to(t), dv.to(t)
 
 
@@ -192,26 +219,39 @@ def large_dout_case(kind: str, seed: int = 3, shape=(1, 2, 196, 64)):
     """fp16 inputs with a loss-scaled output gradient (ViT-B's scale
     1/sqrt(768)).  "random": dO ~ N(0, 1) x 2^13, whose dO V^T passes
     fp16's 65504 while dS (bounded by P (1 - P) |dP|) stays below it;
-    "aligned": dO = 8000 V and q = k = 1.6 N(0, 1), so each row's own key
-    dominates its softmax and dS reaches about 1.9e5, past fp16's range,
-    while dq, dk and dv stay inside it."""
+    "aligned": dO = 8000 V and q = k = 1.6 sqrt(64 / D) N(0, 1) (a 64-wide
+    head's logits at any D), so each row's own key dominates its softmax and
+    dS reaches about 1.7e5 (3.5e5 at D = 128), past fp16's range, while dq,
+    dk and dv stay inside it.  (At D = 128 without the sqrt(64 / D), the
+    softmax is nearly one-hot and delta, summed from the fp16 O, cancels to
+    4.2e-3 of dq's largest entry, whatever the guard.)"""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     x, v, g = (torch.randn(shape, generator=gen) for _ in range(3))
     if kind == "random":
         q, k = x.half(), torch.randn(shape, generator=gen).half()
         return q, k, v.half(), (g * 2.0**13).half()
-    q = (1.6 * x).half()
+    q = (1.6 * (64 / shape[-1]) ** 0.5 * x).half()
     return q, q.clone(), v.half(), (8000.0 * v.half().float()).half()
 
 
-@pytest.mark.parametrize("kind", ["random", "aligned"])
-def test_fp16_scheme_guards_the_range_of_ds(kind):
+# loss-scaled fp16 cases: ViT-B's head, and the backward's key groups (N past
+# 256; N past 128 at D > 64), each with dO V^T past 65504 ("random") and dS
+# too ("aligned")
+LARGE_DOUT = [("random", (1, 2, 196, 64)), ("aligned", (1, 2, 196, 64)),
+              ("random", (1, 2, 300, 64)), ("aligned", (1, 2, 300, 64)),
+              ("random", (1, 2, 200, 128)), ("aligned", (1, 2, 200, 128))]
+LARGE_DOUT_IDS = ["random", "aligned", "random-long_n", "aligned-long_n", "random-d128",
+                  "aligned-d128"]
+
+
+@pytest.mark.parametrize("kind,shape", LARGE_DOUT, ids=LARGE_DOUT_IDS)
+def test_fp16_scheme_guards_the_range_of_ds(kind, shape):
     """A loss-scaled fp16 output gradient: the scheme's dq, dk, dv are
     finite wherever the float32 reference's are (rounded to fp16) and within
     GRAD_TOL; where dS passes fp16's range ("aligned"), rounding it to fp16
     without the row guard overflows dq and dk."""
     scale = 1.0 / 768**0.5
-    q, k, v, g = large_dout_case(kind)
+    q, k, v, g = large_dout_case(kind, shape=shape)
     _, ref = reference(q, k, v, g, scale)
     out, lse = h16_fwd(q, k, v, scale)
     dp = g.float() @ v.float().transpose(-1, -2)
@@ -228,14 +268,21 @@ def test_fp16_scheme_guards_the_range_of_ds(kind):
 
 
 def test_round_rows_is_exact_below_the_guard():
-    """Below 2^15 the guard does nothing; above, it keeps every mantissa
-    bit that fp16 keeps (a power-of-two division)."""
-    x = torch.tensor([[1.0, -3.5, 40000.0, 1.0e-3] + [0.0] * 12,
-                      [1.0, -3.5, 4.0, 1.0e-3] + [0.0] * 12])
-    got = round_rows(x, torch.float16)
-    assert torch.equal(got[1], x[1].half().float())
-    assert got[0, 2] == 40000.0 and torch.isfinite(got).all()
-    assert torch.equal(round_rows(x, torch.bfloat16), x.bfloat16().float())
+    """fp16's guard (the head's divisor of dO): 1 while the bound on |dS|
+    stays below 2^15, so the scheme is the unguarded one bit for bit; above,
+    a power of two that keeps every bit of each normal dO value."""
+    q, k, v, g = (x[:, :1] for x in large_dout_case("random"))
+    scale = 1.0 / 768**0.5
+    out, lse = h16_fwd(q, k, v, scale)
+    small = (g.float() * 2.0**-13).half()
+    assert float(fp16_head_divisor(small, v)) == 1.0
+    for a, b in zip(h16_bwd(q, k, v, out, lse, small, scale),
+                    h16_bwd(q, k, v, out, lse, small, scale, guard_range=False)):
+        assert torch.equal(a, b)
+    div = fp16_head_divisor(g, v)
+    assert float(div) >= 2.0 and float(torch.log2(div)) == int(torch.log2(div))
+    normal = g.float().abs() >= 2.0**-14 * div
+    assert torch.equal(((g.float() / div).half().float() * div)[normal], g.float()[normal])
 
 
 @pytest.mark.parametrize("bad", [
@@ -260,6 +307,28 @@ def test_half_kernel_wrappers_refuse_float32_and_cpu():
         fused_attention_h16_bwd(h, h, h, h, lse, h, 0.1)
 
 
+@pytest.mark.parametrize("symbol,want", [
+    ("_ZN53_GLOBAL__N__f5d8e41f_20_attention_h16_fwd_cu_dea5952629attention_h16_fwd_head_kernel"
+     "I13__nv_bfloat16Li1ELi13EEEvPKT_S4_S4_PS2_Pfiifb",
+     "attention_h16_fwd_head_kernel<bfloat16,1,13>"),
+    ("_ZN53_GLOBAL__N__f5d8e41f_20_attention_h16_fwd_cu_dea5952630attention_h16_fwd_tiled_kernel"
+     "I6__halfLi1EEEvPKT_S4_S4_PS2_Pfiifb", "attention_h16_fwd_tiled_kernel<half,1>"),
+    ("_ZN53_GLOBAL__N__6e49a609_20_attention_h16_bwd_cu_a929bba724attention_h16_bwd_kernel"
+     "I6__halfLi1ELi13EEEvPKT_S4_S4_S4_S4_PKfPfPS2_S8_S8_iiffb",
+     "attention_h16_bwd_kernel<half,1,13>"),
+], ids=["fwd_head", "fwd_tiled", "bwd"])
+def test_build_log_names_kernel_instances(symbol, want):
+    """``chip_smoke`` reads each kernel instance's name and template
+    arguments from ptxas's mangled symbol by its length prefixes (the
+    digits in ``h16`` are not one), which picks the main-path instance's
+    registers and spills for the report."""
+    import chip_smoke
+
+    assert chip_smoke.kernel_instance(symbol) == want
+    line = f"ptxas info    : Compiling entry function '{symbol}' for 'sm_90a'"
+    assert chip_smoke.mangled_kernel(line) == want.split("<")[0]
+
+
 def test_cpu_path_launches_no_kernel():
     q = torch.zeros((1, 1, 4, 8), dtype=torch.float16)
     before = (fused_attention_h16_fwd.launches, fused_attention_h16_bwd.launches)
@@ -274,7 +343,8 @@ def _card():
 
 
 CARD_SHAPES = [(256, 12, 196, 64), (256, 3, 196, 64), (2, 3, 197, 64), (1, 2, 52, 24),
-               (2, 3, 49, 32), (2, 3, 128, 128), (2, 2, 17, 20)]
+               (2, 3, 49, 32), (2, 3, 128, 128), (2, 2, 17, 20), (1, 2, 300, 64),
+               (1, 2, 200, 128)]
 
 
 @pytest.mark.cuda
@@ -315,14 +385,17 @@ def test_kernels_match_plain_on_card(shape, tag):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "aligned"])
-def test_fp16_large_output_gradient_on_card(kind):
+@pytest.mark.parametrize("kind,shape", [(kind, (8, 12, 196, 64) if shape == (1, 2, 196, 64)
+                                         else shape) for kind, shape in LARGE_DOUT],
+                         ids=LARGE_DOUT_IDS)
+def test_fp16_large_output_gradient_on_card(kind, shape):
     """A loss-scaled fp16 dO (``large_dout_case``: dO V^T, and for
-    "aligned" dS too, past 65504): the kernel's dq, dk, dv are finite
-    wherever the float32 reference's are, and within GRAD_TOL."""
+    "aligned" dS too, past 65504), at ViT-B's head and at each key-group
+    instance of the backward: the kernel's dq, dk, dv are finite wherever
+    the float32 reference's are, and within GRAD_TOL."""
     _card()
     scale = 1.0 / 768**0.5
-    q, k, v, g = (t.cuda() for t in large_dout_case(kind, shape=(8, 12, 196, 64)))
+    q, k, v, g = (t.cuda() for t in large_dout_case(kind, shape=shape))
     out, lse = fused_attention_h16_fwd(q, k, v, scale, with_lse=True)
     got = fused_attention_h16_bwd(q, k, v, out, lse, g, scale)
     _, ref = reference(q, k, v, g, scale)
@@ -345,3 +418,36 @@ def test_kernel_backward_is_deterministic_on_card(tag):
     again = fused_attention_h16_bwd(q, k, v, out, lse, g, 0.036)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", DTYPES)
+def test_backward_keeps_ds_on_chip_at_vitb_shape(tag):
+    """The backward at ViT-B's eval shape (256, 12, 196, 64) through
+    ``fused_attention``: one launch of the half-precision backward per
+    backward pass, no device buffer beyond dq, dk and dv while it runs (the
+    former design allocated a (B, H, N, N) float32 dS scratch, 472 MB at
+    this shape), and two runs give bit-identical gradients."""
+    _card()
+    dtype = DTYPES[tag][0]
+    shape = (256, 12, 196, 64)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fused_attention(*leaves, VIT_SCALE)
+        torch.cuda.synchronize()
+        before = fused_attention_h16_bwd.launches
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out.backward(g)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - base
+        assert fused_attention_h16_bwd.launches == before + 1
+        # dq, dk, dv and the contiguous copy autograd may make of g; a
+        # (B, H, N, N) float32 buffer would add 472 MB
+        assert grown <= 4 * q.numel() * q.element_size() + 2**20, grown
+        assert grown < shape[0] * shape[1] * shape[2] ** 2 * 4
+        grads.append([leaf.grad for leaf in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))

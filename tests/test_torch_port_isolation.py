@@ -74,6 +74,35 @@ def test_attention_h16_ab_needs_a_card_and_imports_no_jax():
                            "unused")
 
 
+def test_attention_h16_probe_needs_a_card_and_imports_no_jax():
+    """The kernel A/B script's probes exit non-zero without a card, before
+    building, and pull in no JAX."""
+    _run_tool_without_card("tools/kernel_ab.py", "--family", "attention_h16", "--probe",
+                           "bwd_no_dq")
+
+
+def _kernel_ab():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("kernel_ab", REPO / "tools" / "kernel_ab.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("probe", sorted(_kernel_ab().H16_PROBES))
+def test_attention_h16_probe_applies_to_the_sources(probe, tmp_path):
+    """Each probe's replaced lines are in this checkout's kernel source as
+    many times as the probe says, so an edit of those lines shows here and
+    not first on the card."""
+    ab = _kernel_ab()
+    out = ab.probe_dir(tmp_path, probe)
+    source, subs = ab.H16_PROBES[probe]
+    text = (out / source).read_text()
+    for old, new, count in subs:
+        assert text.count(new) >= count and (old not in new) == (old not in text)
+
+
 def test_fp16_skip_ab_needs_a_card_and_imports_no_jax():
     """The fp16 skip A/B script (host read against device selection)."""
     _run_tool_without_card("tools/fp16_skip_ab.py")

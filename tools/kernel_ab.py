@@ -6,11 +6,14 @@ Run from the root of a checkout, on a machine with a card:
 
     python3 tools/kernel_ab.py --family window --other DIR
     python3 tools/kernel_ab.py --family attention_h16 --other DIR
+    python3 tools/kernel_ab.py --family attention_h16 --probe NAME [NAME ...]
 
 ``DIR`` holds the family's two sources (with any headers they include) of
 another version, for example the ``rgbnomore_tpu_torch/csrc`` of an earlier
 commit unpacked with ``git archive``, or a copy of this one with a tile
-size changed; their C entries must take the arguments of this checkout's.
+size changed.  The window family's C entries must take the arguments of this
+checkout's; the half-precision attention family binds each version by the
+parameter names of its own C entries.
 Both versions are built with ``nvcc`` (the port's flags) and bound through
 ctypes in one process.  At each case each version's outputs are held to the
 plain PyTorch versions first, then each version's calls are timed with CUDA
@@ -29,7 +32,16 @@ The families:
 - ``attention_h16``: ``attention_h16_fwd.cu`` and ``attention_h16_bwd.cu``
   (#1 and #2 on half-precision inputs) at ViT-B's (256, 12, 196, 64) and
   ViT-Ti's (256, 3, 196, 64) shapes, in bf16 and fp16, held to
-  ``chip_smoke``'s half-precision tolerances.
+  ``chip_smoke``'s half-precision tolerances; and in fp16 with a
+  loss-scaled output gradient whose dS passes fp16's range in every row of
+  every head (``chip_smoke``'s "aligned" case), the backward's range guard
+  at its most work, held to the float32 reference.
+
+``--probe`` takes, in place of ``DIR``, copies of this checkout's
+attention_h16 sources with a few lines replaced (``H16_PROBES``: a part left
+out, a tile size changed), one version each, timed at ViT-B's shape only,
+for the kernel the probe changes.  A probe that leaves a part out computes
+wrong values, so its outputs are not checked.
 """
 
 from __future__ import annotations
@@ -37,6 +49,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -47,27 +61,41 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 
 
-def build_other(family: dict, src_dir: Path, out_dir: Path) -> dict:
-    """The other version's libraries, compiled together and bound with this
-    checkout's C signatures."""
+def start_build(src_dir: Path, name: str, out_dir: Path):
+    """Start compiling ``src_dir/name.cu`` (the port's flags) into
+    ``out_dir/lib<name>.so``; returns (library, process)."""
     from rgbnomore_tpu_torch.ops import cuda_build
 
-    jobs = {}
-    for name in family["names"]:
-        lib = out_dir / f"lib{name}.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(src_dir), "-o", str(lib),
-               str(src_dir / f"{name}.cu")]
-        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (lib, proc) in jobs.items():
-        out, _ = proc.communicate()
-        cs.check(proc.returncode == 0, f"{name} of {src_dir} did not build:\n{out}")
-        fn = getattr(ctypes.CDLL(str(lib)), name)
-        fn.argtypes = family["argtypes"](name)
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+    lib = out_dir / f"lib{name}.so"
+    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(src_dir), "-o", str(lib),
+           str(src_dir / f"{name}.cu")]
+    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def bind_build(family: dict, name: str, src_dir: Path, job):
+    """Wait for a build from ``start_build``, keep its ptxas lines beside the
+    library, and bind its C entry ``name`` with the signature of the
+    sources it was built from."""
+    lib, proc = job
+    out, _ = proc.communicate()
+    cs.check(proc.returncode == 0, f"{name} of {src_dir} did not build:\n{out}")
+    Path(f"{lib}.log").write_text(out)
+    fn = getattr(ctypes.CDLL(str(lib)), name)
+    fn.argtypes = family["argtypes"](name, src_dir)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def start_other(family: dict, src_dir: Path, out_dir: Path) -> dict:
+    """Start compiling the other version's libraries, one nvcc each."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return {name: start_build(src_dir, name, out_dir) for name in family["names"]}
+
+
+def bind_other(family: dict, src_dir: Path, jobs: dict) -> dict:
+    """The other version's libraries from ``start_other``, bound with the C
+    signatures of its own sources."""
+    return {name: bind_build(family, name, src_dir, job) for name, job in jobs.items()}
 
 
 def launch(fn, *args) -> None:
@@ -78,7 +106,7 @@ def launch(fn, *args) -> None:
 
 
 # ------------------------------------------------------------------ window
-def window_argtypes(name: str) -> list:
+def window_argtypes(name: str, src_dir: Path) -> list:
     from rgbnomore_tpu_torch.ops.window_attention import _ENTRIES
 
     n_ptrs, n_ints = _ENTRIES[name]
@@ -86,7 +114,7 @@ def window_argtypes(name: str) -> list:
             + [ctypes.c_void_p])
 
 
-def window_versions(fns: dict) -> dict:
+def window_versions(fns: dict, src_dir: Path | None = None) -> dict:
     """tag -> (forward, backward) on CUDA tensors; the other version's
     backward takes the wrapper's default chunk."""
     import torch
@@ -115,7 +143,7 @@ def window_versions(fns: dict) -> dict:
     return {"other": (fwd, bwd), "this": (W.window_attention_fwd, W.window_attention_bwd)}
 
 
-def window_cases(gen, versions: dict):
+def window_cases(gen, versions: dict, probe: str | None = None):
     import torch
 
     from rgbnomore_tpu_torch.ops.window_attention import (
@@ -165,16 +193,26 @@ def window_summary(rows: list[dict]) -> dict:
 
 
 # ----------------------------------------------------------- attention_h16
-def h16_argtypes(name: str) -> list:
-    from rgbnomore_tpu_torch.ops.attention import _ENTRIES
+def h16_params(src_dir: Path, name: str) -> list[str]:
+    """The parameter names of the C entry ``name`` in ``src_dir/name.cu``.
+    The backward's differ between versions (an older one takes float32
+    ``delta`` and ``ds`` scratch, a newer one one ``scratch`` buffer), so
+    each version is bound, and its scratch made, by its own names."""
+    text = (src_dir / f"{name}.cu").read_text()
+    sig = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+    cs.check(sig is not None, f"no C entry {name} in {src_dir}")
+    return [p.split()[-1].lstrip("*") for p in sig.group(1).split(",")]
 
-    return [ctypes.c_void_p] * _ENTRIES[name][0] + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
+
+def h16_argtypes(name: str, params: list[str]) -> list:
+    return [ctypes.c_void_p if p not in ("bh", "n", "d", "scale", "element") else
+            {"bh": ctypes.c_longlong, "scale": ctypes.c_float}.get(p, ctypes.c_int)
+            for p in params]
 
 
-def h16_versions(fns: dict) -> dict:
-    """tag -> (forward with lse, backward) on CUDA tensors."""
+def h16_versions(fns: dict, params: dict) -> dict:
+    """tag -> (forward with lse, backward) on CUDA tensors; the other
+    version's scratch is made from its entry's parameter names."""
     import torch
 
     from rgbnomore_tpu_torch.ops import attention as A
@@ -190,11 +228,14 @@ def h16_versions(fns: dict) -> dict:
     def bwd(q, k, v, out, lse, g, scale):
         b, h, n, d = q.shape
         grads = [torch.empty_like(q) for _ in range(3)]
-        delta = torch.empty_like(lse)
-        ds = torch.empty((b, h, n, n), device=q.device)
-        launch(fns["attention_h16_bwd"], *[x.data_ptr() for x in (q, k, v, out, g, lse, delta,
-                                                                    ds, *grads)],
-               b * h, n, d, scale, A._ELEMENT[q.dtype])
+        tensors = {"q": q, "k": k, "v": v, "o": out, "dout": g, "lse": lse,
+                   "dq": grads[0], "dk": grads[1], "dv": grads[2],
+                   "delta": torch.empty_like(lse),
+                   "ds": torch.empty((b, h, n, n), device=q.device),
+                   "scratch": torch.empty(b * h * (n * d + 1), device=q.device)}
+        ptrs = [tensors[p].data_ptr() for p in params["attention_h16_bwd"]
+                if p not in ("bh", "n", "d", "scale", "element", "stream")]
+        launch(fns["attention_h16_bwd"], *ptrs, b * h, n, d, scale, A._ELEMENT[q.dtype])
         return grads
 
     return {"other": (fwd, bwd),
@@ -202,36 +243,111 @@ def h16_versions(fns: dict) -> dict:
                      A.fused_attention_h16_bwd)}
 
 
-def h16_cases(gen, versions: dict):
+def h16_inputs(gen, shape, dtype, kind: str = "random"):
+    """q, k, v, dO of ``shape`` on the card: N(0, 1) ("random"), or
+    ``chip_smoke``'s loss-scaled "aligned" fp16 case (dO = 8000 V, q = k =
+    1.6 sqrt(64 / D) N(0, 1)), whose dS passes 2^15 in every row."""
+    import torch
+
+    x, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+    if kind == "random":
+        return x.to(dtype), torch.randn(shape, generator=gen, device="cuda").to(dtype), \
+            v.to(dtype), g.to(dtype)
+    q = (1.6 * (64 / shape[-1]) ** 0.5 * x).to(dtype)
+    return q, q.clone(), v.to(dtype), (8000.0 * v.to(dtype).float()).to(dtype)
+
+
+def h16_cases(gen, versions: dict, probe: str | None = None):
+    """Each case's calls of each version, checked first: against the plain
+    version in the dtype ("random"), or against the float32 reference
+    ("aligned", where the plain fp16 backward overflows).  A probe: ViT-B's
+    shape only, the kernel it changes only, its outputs unchecked."""
     import torch
 
     from rgbnomore_tpu_torch.ops.attention import attention_bwd_plain, attention_plain
 
-    for dtype in (torch.bfloat16, torch.float16):
+    cases = [(dtype, kind, shape) for dtype in (torch.bfloat16, torch.float16)
+             for kind in (("random", "aligned") if dtype == torch.float16 else ("random",))
+             for shape in ((256, 12, 196, 64), (256, 3, 196, 64))]
+    kinds = ("fwd", "bwd")
+    if probe is not None:
+        cases = [c for c in cases if c[2][1] == 12]
+        kinds = (H16_PROBES[probe][0].removesuffix(".cu").removeprefix("attention_h16_"),)
+    for dtype, kind, shape in cases:
         name = str(dtype).removeprefix("torch.")
         ftol, gtol = cs.H16_FWD_TOL[name], cs.H16_GRAD_TOL[name]
-        for b, h, n, d, scale in ((256, 12, 196, 64, cs.VITB_SCALE),
-                                  (256, 3, 196, 64, cs.ATTN_SCALE)):
-            q, k, v, g = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype)
-                          for _ in range(4))
-            with torch.inference_mode():
-                want = attention_plain(q, k, v, scale).float()
-            wgrads = attention_bwd_plain(q, k, v, g, scale)
-            calls = {}
-            for tag, (fwd, bwd) in versions.items():
-                out, lse = fwd(q, k, v, scale)
+        # ("aligned" at ViT-B's scale at both shapes, as chip_smoke's)
+        scale = cs.VITB_SCALE if shape[1] == 12 or kind == "aligned" else cs.ATTN_SCALE
+        q, k, v, g = h16_inputs(gen, shape, dtype, kind)
+        with torch.inference_mode():
+            want = attention_plain(q, k, v, scale).float()
+        wgrads = (attention_bwd_plain(q, k, v, g, scale) if kind == "random" else
+                  attention_bwd_plain(q.float(), k.float(), v.float(), g.float(), scale))
+        calls = {}
+        for tag, (fwd, bwd) in versions.items():
+            out, lse = fwd(q, k, v, scale)
+            if probe is None or tag == "this":
                 cs.check(torch.allclose(out.float(), want, atol=2 * ftol["atol"],
                                         rtol=2 * ftol["rtol"]),
-                         f"{tag} forward {name} {(b, h, n, d)} beyond 2x {ftol}")
+                         f"{tag} forward {name} {shape} beyond 2x {ftol}")
                 for a, w in zip(bwd(q, k, v, out, lse, g, scale), wgrads):
                     err = float((a.float() - w.float()).abs().max()) / float(w.abs().max())
-                    cs.check(err <= 2 * gtol,
-                             f"{tag} backward {name} {(b, h, n, d)}: {err} beyond 2x {gtol}")
-                calls[tag] = {"fwd": lambda fwd=fwd: fwd(q, k, v, scale),
-                              "bwd": lambda bwd=bwd, out=out, lse=lse:
-                                  bwd(q, k, v, out, lse, g, scale)}
-            del want, wgrads
-            yield {"dtype": name, "shape": [b, h, n, d]}, calls
+                    tol = 2 * gtol if kind == "random" else gtol
+                    cs.check(bool(torch.isfinite(a)[torch.isfinite(w.to(dtype))].all())
+                             and err <= tol, f"{tag} backward {name} {kind} {shape}: {err} "
+                             f"beyond {tol}, or not finite where the reference is")
+            calls[tag] = {"fwd": lambda fwd=fwd: fwd(q, k, v, scale),
+                          "bwd": lambda bwd=bwd, out=out, lse=lse:
+                              bwd(q, k, v, out, lse, g, scale)}
+            calls[tag] = {key: calls[tag][key] for key in kinds}
+        del want, wgrads
+        yield {"dtype": name, "kind": kind, "shape": list(shape)}, calls
+
+
+# probe -> (kernel source, [(text, replacement, occurrences), ...])
+H16_PROBES = {
+    # #1h with two blocks an SM (255 registers) where three fit
+    "fwd_two_blocks": ("attention_h16_fwd.cu", [(
+        "constexpr int kHeadBlocks = 3 * head_smem_bytes<NA, KC>() <= 232448 ? 3 : 2;",
+        "constexpr int kHeadBlocks = 2;", 1)]),
+    # #2h's parts left out: the softmax and dS arithmetic, the dQ product of
+    # each tile but the last, the dV and dK products
+    "bwd_no_softmax": ("attention_h16_bwd.cu", [(
+        "live ? h16::exp2_ftz(fmaf(sT[4 * j + e], scale_log2, -lse_t[col])) : 0.f;",
+        "sT[4 * j + e];", 1)]),
+    "bwd_no_dq": ("attention_h16_bwd.cu", [("      if (it > 0) dq_tile(it - 1, kg);\n", "", 1)]),
+    "bwd_no_dkdv": ("attention_h16_bwd.cu", [("h16::wgmma_rs<T, 1>(", "if (false) h16::wgmma_rs<T, 1>(",
+                                              2)]),
+    # #2h with key groups of 256 where 208 hold the head (16 dQ steps, not 13)
+    "bwd_256_key_groups": ("attention_h16_bwd.cu", [(
+        "  if (n <= 208)\n    return launch<T, 1, 13>", "  if (false)\n    return launch<T, 1, 13>",
+        1)]),
+    # #2h with 16-query products (fewer registers, more products)
+    "bwd_16_query_products": ("attention_h16_bwd.cu", [(
+        "  constexpr int kBN = 32;", "  constexpr int kBN = 16;", 1)]),
+    # fp16's #2h without its range guard (wrong where dS passes 2^15), and
+    # without the pass over the head's dO that bounds dS (its divisor 1)
+    "bwd_fp16_no_guard": ("attention_h16_bwd.cu", [(
+        "constexpr bool kGuard = std::is_same<T, __half>::value;", "constexpr bool kGuard = false;",
+        1)]),
+    "bwd_fp16_no_dout_pass": ("attention_h16_bwd.cu", [(
+        "          dmax = fmaxf(dmax, row_sq<NA>(dout + head, row, d, vec));\n", "", 1)]),
+}
+
+
+def probe_dir(root: Path, name: str) -> Path:
+    """A copy of this checkout's kernel sources with the probe's lines
+    replaced."""
+    out = root / name
+    shutil.copytree(Path(__file__).resolve().parent.parent / "rgbnomore_tpu_torch" / "csrc", out)
+    source, subs = H16_PROBES[name]
+    text = (out / source).read_text()
+    for old, new, count in subs:
+        cs.check(text.count(old) == count, f"probe {name}: {old!r} is not in {source} "
+                 f"{count} times")
+        text = text.replace(old, new)
+    (out / source).write_text(text)
+    return out
 
 
 FAMILIES = {
@@ -239,9 +355,27 @@ FAMILIES = {
                "argtypes": window_argtypes, "versions": window_versions,
                "cases": window_cases, "summary": window_summary},
     "attention_h16": {"names": ("attention_h16_fwd", "attention_h16_bwd"),
-                      "argtypes": h16_argtypes, "versions": h16_versions,
+                      "argtypes": lambda name, src_dir: h16_argtypes(
+                          name, h16_params(src_dir, name)),
+                      "versions": lambda fns, src_dir: h16_versions(
+                          fns, {name: h16_params(src_dir, name) for name in fns}),
                       "cases": h16_cases, "summary": lambda rows: {}},
 }
+
+
+def ptxas_lines(src_dir: Path) -> dict[str, str]:
+    """kernel<args> -> "registers, spilled bytes" of the main-path instances
+    (D = 64, at most 208 keys a head) in the build logs under ``src_dir``."""
+    lines, instance, spills = {}, None, None
+    for line in "".join(p.read_text() for p in src_dir.glob("*.log")).splitlines():
+        if "Compiling entry function" in line:
+            instance = cs.kernel_instance(line.split("'")[1])
+        elif "spill stores" in line:
+            spills = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif "Used" in line and instance and re.search(r",1,13[,>]", instance):
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines[instance] = f"{regs} regs, {spills} B spilled"
+    return lines
 
 
 def main() -> int:
@@ -249,9 +383,15 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--family", required=True, choices=sorted(FAMILIES))
-    parser.add_argument("--other", required=True, type=Path,
+    versus = parser.add_mutually_exclusive_group(required=True)
+    versus.add_argument("--other", type=Path,
                         help="directory with the other version's sources of the family")
+    versus.add_argument("--probe", nargs="+", choices=sorted(H16_PROBES),
+                        help="attention_h16: this checkout's sources with a probe's lines "
+                        "replaced, as the other version")
     args = parser.parse_args()
+    if args.probe and args.family != "attention_h16":
+        parser.error("--probe takes the attention_h16 family")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -264,18 +404,28 @@ def main() -> int:
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     rows = []
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as tmp:
-        versions = family["versions"](build_other(family, args.other.resolve(), Path(tmp)))
-        gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-        for label, calls in family["cases"](gen, versions):
-            row = dict(label)
-            for tag in ("other", "this", "this", "other"):
-                for kind, call in calls[tag].items():
-                    row.setdefault(f"{tag}_{kind}_ms", []).append(cs.time_ms(call))
-                    row.setdefault(f"{tag}_{kind}_device_ms", []).append(cs.device_ms(call))
-            rows.append(row)
-            print(f"{' '.join(str(x) for x in label.values())}: " + "; ".join(
-                f"{key} {'/'.join(cs.ms_text(x) for x in vals)}" for key, vals in row.items()
-                if key.endswith("ms")), flush=True)
+        others = {None: args.other.resolve()} if args.other else {
+            name: probe_dir(Path(tmp), name) for name in args.probe}
+        # every version's libraries compile at once
+        jobs = {probe: start_other(family, src, Path(tmp) / f"build_{probe}")
+                for probe, src in others.items()}
+        for probe, src in others.items():
+            versions = family["versions"](bind_other(family, src, jobs[probe]), src)
+            gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+            for label, calls in family["cases"](gen, versions, probe):
+                row = ({"probe": probe, "ptxas": ptxas_lines(Path(tmp) / f"build_{probe}")}
+                       if probe else {})
+                row.update(label)
+                for tag in ("other", "this", "this", "other"):
+                    for kind, call in calls[tag].items():
+                        row.setdefault(f"{tag}_{kind}_ms", []).append(cs.time_ms(call))
+                        row.setdefault(f"{tag}_{kind}_device_ms", []).append(cs.device_ms(call))
+                rows.append(row)
+                print(f"{' '.join(str(x) for x in label.values())}"
+                      f"{f' (probe {probe})' if probe else ''}: " + "; ".join(
+                          f"{key} {'/'.join(cs.ms_text(x) for x in vals)}"
+                          for key, vals in row.items() if key.endswith("ms"))
+                      + (f"; {row['ptxas']}" if probe else ""), flush=True)
     print(json.dumps({"family": args.family, "cases": rows, **family["summary"](rows)}))
     return 0
 
