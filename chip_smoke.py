@@ -14,8 +14,10 @@ over the K=16 wire (batch 256) through ``Trainer.train_step``; then SwinV2-T
 (float32) the same two ways (eval batch 256, train batch 128, 32x32 blocks)
 and JPEG files through the host codec and ``DctCroppedLoader`` into the
 SwinV2 eval; then mixed precision: ViT-B/16 and SwinV2-T under their bf16
-presets, and ViT-Ti in fp16 with the loss scaler.  It checks that every
-kernel of each path was launched and that what comes out is right.
+presets, and ViT-Ti in fp16 with the loss scaler; then the trainer users
+run: ``train_and_eval`` with dropout, checkpoints and an exact resume, the
+data-parallel path over NCCL, and the train and eval CLIs.  It checks that
+every kernel of each path was launched and that what comes out is right.
 
 Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
@@ -79,7 +81,26 @@ Phases, each raising on failure (the script then exits non-zero):
  13. determinism: two SwinV2-T train steps from one state with
      ``cfg.train.deterministic``, in a child process (``--determinism``),
      must leave bit-identical parameters; the same without the flag is
-     reported beside it.
+     reported beside it;
+ 14. trainer: dropout's cost (the ViT-Ti step at drop 0 and 0.1 in turns:
+     ms a step and peak memory); then 1,280 JPEGs written by the port's
+     codec and ``train_and_eval`` of ViT-Ti at batch 256, drop 0.1, 2
+     epochs of 3 steps, a checkpoint per epoch, TensorBoard on, with
+     ``cfg.train.deterministic``, each run a child process (``--trainer``):
+     straight, epoch 1 alone (stopped after its checkpoint) and a run
+     resumed from that checkpoint, whose parameters and AdamW moments must
+     be bit-identical to the straight run's; launch counts per run (1 wire
+     launch, 12 attention forward and 12 backward per train step; 1 and 12
+     per eval batch); per-epoch train and eval img/s, the checkpoint's size
+     and save and restore times, the TensorBoard event files, peak memory;
+ 15. ddp: three ViT-Ti steps and an eval in a process group of one over
+     NCCL (``--ddp``), through the data-parallel path (gradient all-reduce,
+     mixup's ring, eval sums all-reduced), bit-identical to the plain
+     ``Trainer`` from the same state; NCCL's version and the world size;
+ 16. cli: ``python -m rgbnomore_tpu_torch.cli --train --eval`` for one
+     epoch on the phase-14 corpus writes its weights, and ``python -m
+     rgbnomore_tpu_torch.eval --loadpath`` on them reproduces its test
+     result.
 
 On every path the input stage is one launch of the augmentation kernel's
 wire reader per eval batch and per train step, with no launch of its dense
@@ -196,6 +217,16 @@ WIN_TOL = dict(atol=2e-5, rtol=1e-5)
 WIN_JAX_CASES = [(4, 2, 16, 8, 4), (8, 2, 16, 8, 4), (12, 2, 16, 8, 4)]
 N_CODEC = 256  # JPEG files of the codec phase
 N_CELL_IMAGES = 16  # of them, constant 16x16 colour cells at quality 100
+# the trainer phases: ViT-Ti at its preset's width, batch 256, on JPEGs the
+# port's codec writes.  1,280 files with a 20% minival leave 1,024 to train
+# on (4 batches of 256, capped at 3 steps an epoch) and a minival of one
+# full batch; the test split is the first 256 files
+N_TRAINER = 1280
+TRAINER_SPLIT = 0.2
+TRAINER_STEPS = 3  # max_steps_per_epoch
+TRAINER_EPOCHS = 2
+TRAINER_DROP = 0.1
+DROP_AB_STEPS = 10  # counted steps of each side of the dropout A/B, after a warm-up
 # kernel library -> {kernel<template args>: "registers, spill bytes"}, from
 # the build logs' ptxas lines
 PTXAS: dict[str, dict[str, str]] = {}
@@ -1539,6 +1570,8 @@ def phase_train_breakdown(trainer, packed, tag: str = "breakdown") -> None:
         ev[0].record()
         y, c, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy)
         extra = {} if draws.drop_keep is None else {"drop_keep": draws.drop_keep.cuda()}
+        if draws.dropout is not None:
+            extra["dropout"] = draws.dropout
         ev[1].record()
         (y, c), targets = mixup_batch((y, c), labels, classes, draws.lam)
         loss = softmax_cross_entropy(trainer.model(y, c, **extra), targets)
@@ -2140,6 +2173,14 @@ def swin_steps_from_one_state(cfg) -> tuple[list[float], bool]:
     return losses, same
 
 
+def run_child(tag: str, args: list[str], timeout: int = 600) -> dict:
+    """``chip_smoke.py <args>`` in a child process; its last line's JSON."""
+    res = subprocess.run([sys.executable, __file__, *args], capture_output=True, text=True,
+                         timeout=timeout)
+    check(res.returncode == 0, f"{tag} child exit {res.returncode}: {res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def determinism_child() -> int:
     """The child of ``phase_determinism``: ``swin_steps_from_one_state`` with
     ``cfg.train.deterministic`` set, in a process whose first cuBLAS handle
@@ -2164,11 +2205,7 @@ def phase_determinism() -> None:
     process: this one made its cuBLAS handles long ago.  Two steps from one
     state must give bit-identical parameters, or the phase fails.  The same
     two steps without the flag, in this process, are reported beside it."""
-    res = subprocess.run([sys.executable, __file__, "--determinism"], capture_output=True,
-                         text=True, timeout=600)
-    check(res.returncode == 0,
-          f"determinism child exit {res.returncode}: {res.stderr[-4000:]}")
-    got = json.loads(res.stdout.strip().splitlines()[-1])["determinism"]
+    got = run_child("determinism", ["--determinism"])["determinism"]
     off_losses, off_same = swin_steps_from_one_state(swin_config(
         SWIN_TRAIN_BATCH, epochs=1, warmup_steps=1, lr=3e-3))
     print(f"determinism: SwinV2-T train step at batch {SWIN_TRAIN_BATCH}, twice from one "
@@ -2178,6 +2215,350 @@ def phase_determinism() -> None:
           f"{got['losses']}); without it: {off_same} (losses {off_losses})", flush=True)
     check(got["deterministic_algorithms"] and got["bit_identical"],
           f"SwinV2-T's deterministic train step is not bit-reproducible: {got}")
+
+
+def trainer_config(**kw):
+    """ViT-Ti as its preset gives it (12 x 192, 3 heads, 28x28 blocks, 1000
+    classes, float32, AUGLIST_DCT_VITTI), at batch 256, seed 0, 2 epochs,
+    warmup 2, dropout 0.1 and ``cfg.train.deterministic``; ``kw`` overrides
+    ``generate_config``'s arguments."""
+    from rgbnomore_tpu_torch.train.config import generate_config
+
+    args = dict(modelver=1, batchsize=BATCH, seed=SEED, epochs=TRAINER_EPOCHS, warmup_steps=2,
+                drop=TRAINER_DROP, deterministic=True)
+    cfg = generate_config("vitti", "dct", **{**args, **kw})
+    cfg.train.split = TRAINER_SPLIT
+    return cfg
+
+
+def phase_dropout_cost(rows: np.ndarray) -> None:
+    """Dropout's cost: the ViT-Ti train step at batch 256 on one resident
+    batch at drop 0 (the step without dropout) and at drop 0.1, in turns (0,
+    0.1, 0.1, 0), each 1 + 10 steps: ms a step (CUDA-synchronised host
+    clock) and the peak device memory after the warm-up; then the stages
+    and kernels of a step at drop 0.1."""
+    import torch
+
+    from rgbnomore_tpu_torch.train.config import generate_config
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    out = {0.0: [], TRAINER_DROP: []}
+    for drop in (0.0, TRAINER_DROP, TRAINER_DROP, 0.0):
+        cfg = generate_config("vitti", "dct", modelver=1, batchsize=BATCH, seed=SEED, epochs=1,
+                              warmup_steps=1, lr=3e-3, drop=drop)
+        trainer = Trainer(cfg, device="cuda")
+        trainer.create_state(steps_per_epoch=DROP_AB_STEPS + 1)
+        packed = trainer.put_batch({"packed": rows})["packed"]
+        trainer.train_step(packed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(packed) for _ in range(DROP_AB_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / DROP_AB_STEPS
+        check(all(math.isfinite(float(v)) for v in losses), f"dropout {drop}: losses {losses}")
+        out[drop].append((ms, torch.cuda.max_memory_allocated() / 2**30))
+        if drop and len(out[drop]) == 2:
+            phase_train_breakdown(trainer, packed, "dropout breakdown")
+        del trainer, packed
+        torch.cuda.empty_cache()
+    for drop, runs in out.items():
+        print(f"dropout cost: ViT-Ti train step at batch {BATCH}, drop {drop}: " + ", ".join(
+            f"{ms:.3f} ms ({BATCH * 1e3 / ms:.1f} img/s), peak {gib:.3f} GiB"
+            for ms, gib in runs), flush=True)
+
+
+def write_trainer_corpus(root: str) -> tuple[str, str]:
+    """``N_TRAINER`` photo-like JPEGs of 320x240 or 240x320 (40x30 blocks)
+    at quality 90 written by the port's codec, labels ``i % 1000``; the
+    train index lists them all, the test index the first 256."""
+    from rgbnomore_tpu_torch import codec
+
+    rng = np.random.default_rng(SEED + 5)
+    lines = []
+    t0 = time.perf_counter()
+    for i in range(N_TRAINER):
+        h, w = (240, 320) if i % 2 else (320, 240)
+        ys, xs = np.mgrid[0:h, 0:w]
+        f = 0.01 + 0.05 * rng.random(3)
+        img = np.stack([(128 + 90 * np.sin(ys * f[ch] + ch) * np.cos(xs * f[2 - ch])
+                         + 12 * rng.standard_normal((h, w))).clip(0, 255)
+                        for ch in range(3)]).astype(np.uint8)
+        path = f"{root}/t{i:04d}.jpg"
+        codec.write_tensor(path, img, quality=90)
+        lines.append(f"{path},{i % 1000}")
+    index_train, index_val = f"{root}/index_train.csv", f"{root}/index_test.csv"
+    for index, rows in ((index_train, lines), (index_val, lines[:BATCH])):
+        with open(index, "w") as fh:
+            fh.write("\n".join(["Filepath,Label", *rows]) + "\n")
+    print(f"trainer: wrote {N_TRAINER} JPEGs in {time.perf_counter() - t0:.1f} s", flush=True)
+    return index_train, index_val
+
+
+class Preempted(Exception):
+    """Ends a trainer child right after a checkpoint, as a lost job ends."""
+
+
+def trainer_child(spec: dict) -> int:
+    """A child of ``phase_trainer``: ``train_and_eval`` of ``trainer_config``
+    on the card, from the checkpoint directory ``spec["load_ckpt_dir"]`` if
+    given, stopped by ``Preempted`` right after the checkpoint of epoch
+    ``spec["stop_after"]`` if given.  The launch counts are set to 0 just
+    before the run and read just after; each checkpoint's save and restore
+    are timed (host clock, synchronised).  Prints one JSON line."""
+    import torch
+
+    from rgbnomore_tpu_torch.train import checkpoint as ckpt
+    from rgbnomore_tpu_torch.train import loop
+
+    save, restore = ckpt.save_checkpoint, ckpt.restore_checkpoint
+    saves, restores = [], []
+
+    def timed_save(ckpt_dir, trainer, epoch, metrics=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(ckpt_dir, trainer, epoch, metrics)
+        saves.append({"epoch": epoch, "s": time.perf_counter() - t0,
+                      "bytes": path.stat().st_size})
+        if epoch == spec.get("stop_after"):
+            raise Preempted
+        return path
+
+    def timed_restore(ckpt_dir, trainer, step=None):
+        t0 = time.perf_counter()
+        meta = restore(ckpt_dir, trainer, step)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        return meta
+
+    ckpt.save_checkpoint, ckpt.restore_checkpoint = timed_save, timed_restore
+    cfg = trainer_config()
+    reset_launches()
+    results, stopped = {}, False
+    t0 = time.perf_counter()
+    try:
+        results = loop.train_and_eval(
+            cfg, spec["index_train"], spec["index_val"], savepath=spec["savepath"],
+            load_ckpt_dir=spec.get("load_ckpt_dir", ""), max_steps_per_epoch=TRAINER_STEPS,
+            num_threads=8, device="cuda")
+    except Preempted:
+        stopped = True
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    try:
+        import tensorboard  # noqa: F401
+        has_tb = True
+    except ImportError:
+        has_tb = False
+    events = list(loop.tensorboard_dir(spec["savepath"], cfg).rglob("events.out.tfevents*"))
+    print(json.dumps({"trainer": {
+        "stopped": stopped, "wall_s": wall, "launches": launches, "saves": saves,
+        "restores": restores, "history": results.get("history", []),
+        "test": results.get("test"), "tensorboard": has_tb, "event_files": len(events),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "deterministic": torch.are_deterministic_algorithms_enabled()}}))
+    return 0
+
+
+def check_trainer_launches(tag: str, launches: dict, steps: int) -> int:
+    """A ``train_and_eval`` run's launches: per train step 1 wire launch, 12
+    attention forward and 12 backward; per eval batch 1 wire launch and 12
+    attention forward; nothing else.  Returns the eval batches."""
+    evals = launches["wire_to_range"]
+    want = {"fused_attention": 12 * (steps + evals), "fused_attention_bwd": 12 * steps,
+            "wire_flip_aug_range": steps, "wire_to_range": evals}
+    check_launches(tag, launches, want)
+    check(launches["wire_flip_aug_range"] == steps and launches["fused_flip_aug_range"] == 0
+          and evals > 0, f"{tag}: input stage launches {launches}, want {steps} train steps")
+    return evals
+
+
+def phase_trainer(tmp: str, index_train: str, index_val: str) -> None:
+    """``train_and_eval`` as users run it, ViT-Ti at full width, batch 256,
+    drop 0.1, 2 epochs of 3 steps, a checkpoint per epoch, TensorBoard on,
+    with ``cfg.train.deterministic``, each run in a child process (the flag
+    must precede the first cuBLAS handle): straight through, then epoch 1
+    alone, stopped after its checkpoint, and a third run that restores it
+    and runs epoch 2.  The resumed run's final parameters and AdamW state
+    must be bit-identical to the straight run's."""
+    import torch
+
+    from rgbnomore_tpu_torch.train.checkpoint import checkpoint_dir
+    from rgbnomore_tpu_torch.train.loop import make_loaders
+
+    train_loader = make_loaders(trainer_config(), index_train, index_val,
+                                num_threads=8)["train"]
+    t0 = time.perf_counter()
+    n = sum(int(b["weights"].sum()) for b in train_loader.iter_cycle(TRAINER_STEPS))
+    print(f"trainer: host decode of the train loader alone (random-resized crop to "
+          f"{GRID}x{GRID} blocks, K={K_TRAIN}, 8 threads): {n / (time.perf_counter() - t0):.1f} "
+          f"img/s over {n} images", flush=True)
+    runs = {}
+    for name, extra in (("straight", {}), ("epoch 1", {"stop_after": 0}),
+                        ("resumed", {"load_ckpt_dir": str(checkpoint_dir(
+                            f"{tmp}/resumed/vitti.pt", "vitti_dct"))})):
+        save_dir = "straight" if name == "straight" else "resumed"
+        spec = {"index_train": index_train, "index_val": index_val,
+                "savepath": f"{tmp}/{save_dir}/vitti.pt", **extra}
+        got = run_child(f"trainer {name}", ["--trainer", json.dumps(spec)])["trainer"]
+        check(got["deterministic"], f"trainer {name}: deterministic algorithms off")
+        runs[name] = got
+    straight, first, resumed = runs["straight"], runs["epoch 1"], runs["resumed"]
+    check(first["stopped"] and not straight["stopped"] and not resumed["stopped"],
+          "trainer: the epoch-1 run did not stop at its checkpoint")
+    for name, steps in (("straight", TRAINER_EPOCHS * TRAINER_STEPS),
+                        ("epoch 1", TRAINER_STEPS), ("resumed", TRAINER_STEPS)):
+        evals = check_trainer_launches(f"trainer {name}", runs[name]["launches"], steps)
+        print(f"trainer {name}: {steps} train steps and {evals} eval batches in "
+              f"{runs[name]['wall_s']:.1f} s, launches {runs[name]['launches']}", flush=True)
+    want = torch.load(checkpoint_dir(f"{tmp}/straight/vitti.pt", "vitti_dct") / "epoch_1.pt",
+                      map_location="cpu", weights_only=True)
+    got = torch.load(checkpoint_dir(f"{tmp}/resumed/vitti.pt", "vitti_dct") / "epoch_1.pt",
+                     map_location="cpu", weights_only=True)
+    same_params = want["model"].keys() == got["model"].keys() and all(
+        torch.equal(want["model"][k], got["model"][k]) for k in want["model"])
+    ws, gs = want["optimizer"]["state"], got["optimizer"]["state"]
+    same_moments = ws.keys() == gs.keys() and all(
+        torch.equal(ws[i][k], gs[i][k]) for i in ws for k in ("exp_avg", "exp_avg_sq", "step"))
+    weights = torch.load(f"{tmp}/resumed/vitti.pt", map_location="cpu", weights_only=True)
+    same_weights = all(torch.equal(weights[k], want["model"][k]) for k in want["model"])
+    print(f"trainer: resumed run (epoch 1, stop, restore, epoch 2) against the straight run: "
+          f"parameters bit-identical {same_params}, AdamW moments and counts {same_moments}, "
+          f"weights file {same_weights}; schedule counts {got['count']} / {want['count']}; "
+          f"test {resumed['test']} / {straight['test']}", flush=True)
+    check(same_params and same_moments and same_weights and got["count"] == want["count"]
+          and resumed["test"] == straight["test"],
+          "trainer: the resumed run is not bit-identical to the straight run")
+    for h in straight["history"] + resumed["history"]:
+        run = "straight" if h in straight["history"] else "resumed"
+        print(f"trainer {run}: epoch {h['epoch'] + 1}: train {h['train_img_s']:.1f} img/s, "
+              f"eval {h['eval_img_s']:.1f} img/s (minival + trainval, host decode included), "
+              f"loss {h['train_loss']:.4f}", flush=True)
+    size = straight["saves"][-1]["bytes"]
+    save_s = ", ".join(f"{entry['s']:.3f}" for entry in straight["saves"])
+    print(f"trainer: checkpoint {size} bytes ({size / 2**20:.1f} MiB), saved in {save_s} s, "
+          f"restored in {resumed['restores'][0]:.3f} s", flush=True)
+    tb = (f"{straight['event_files']} event file(s) written" if straight["tensorboard"]
+          else "tensorboard is not installed here: the writer logged instead "
+               f"({straight['event_files']} event files)")
+    print(f"trainer: TensorBoard: {tb}; peak memory of the straight run "
+          f"{straight['peak_gib']:.3f} GiB (torch.cuda.max_memory_allocated)", flush=True)
+    check(not straight["tensorboard"] or straight["event_files"] == 1,
+          f"trainer: tensorboard is installed but {straight['event_files']} event files")
+
+
+def ddp_child() -> int:
+    """The child of ``phase_ddp``: three ViT-Ti train steps at batch 256
+    (drop 0.1, mixup) and the eval of two batches, with the plain
+    ``Trainer``, then the same from the same seeded state in a process
+    group of one over NCCL, which takes the data-parallel path (gradient
+    all-reduce, mixup's ring, eval sums all-reduced), each collective
+    counted.  Prints one JSON line."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from rgbnomore_tpu_torch import parallel
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    cfg = trainer_config(epochs=1)
+    rng = np.random.default_rng(SEED + 6)
+    labels = (np.arange(BATCH) % 1000).astype(np.int32)
+    train_rows = [write_rows(*synthetic_planes(rng, BATCH, GRID), labels, K_TRAIN)
+                  for _ in range(3)]
+    eval_rows = [{"packed": write_rows(*synthetic_planes(rng, BATCH, GRID), labels, K_EVAL)}
+                 for _ in range(2)]
+
+    def run():
+        trainer = Trainer(cfg, device="cuda")
+        trainer.create_state(steps_per_epoch=len(train_rows))
+        losses = [float(trainer.train_step(trainer.put_batch({"packed": r})["packed"]))
+                  for r in train_rows]
+        return trainer, losses, trainer.evaluate(eval_rows)
+
+    plain, plain_losses, plain_eval = run()
+    calls = {"all_reduce_mean_": 0, "ring_roll": 0, "all_reduce_sum_": 0}
+    for name in calls:
+        fn = getattr(parallel, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        setattr(parallel, name, counted)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    parallel.init_distributed(f"localhost:{port}", num_processes=1, process_id=0,
+                              device="cuda")
+    ddp, ddp_losses, ddp_eval = run()
+    backend, world = dist.get_backend(), dist.get_world_size()
+    dist.destroy_process_group()
+    pp, dp = dict(plain.model.named_parameters()), dict(ddp.model.named_parameters())
+    po, do = plain.optimizer.opt.state_dict()["state"], ddp.optimizer.opt.state_dict()["state"]
+    print(json.dumps({"ddp": {
+        "distributed": ddp.distributed, "backend": backend, "world": world,
+        "nccl": ".".join(map(str, torch.cuda.nccl.version())), "calls": calls,
+        "losses": [plain_losses, ddp_losses], "eval": [plain_eval, ddp_eval],
+        "params_same": all(torch.equal(pp[k], dp[k]) for k in pp),
+        "moments_same": all(torch.equal(po[i][k], do[i][k])
+                            for i in po for k in ("exp_avg", "exp_avg_sq"))}}))
+    return 0
+
+
+def phase_ddp() -> None:
+    """The data-parallel path on the one card: a process group of one over
+    NCCL, in a child process with ``cfg.train.deterministic``, must give
+    parameters, AdamW moments, losses and eval sums bit-identical to the
+    plain ``Trainer``'s from the same state."""
+    got = run_child("ddp", ["--ddp"])["ddp"]
+    want_calls = {"all_reduce_mean_": 3, "ring_roll": 3, "all_reduce_sum_": 1}
+    print(f"ddp: backend {got['backend']}, world size {got['world']}, NCCL {got['nccl']}; "
+          f"collectives {got['calls']}; 3 ViT-Ti steps at batch {BATCH} (drop "
+          f"{TRAINER_DROP}, mixup) against the plain Trainer: parameters bit-identical "
+          f"{got['params_same']}, AdamW moments {got['moments_same']}, losses "
+          f"{got['losses'][1]} / {got['losses'][0]}, eval {got['eval'][1]} / {got['eval'][0]}",
+          flush=True)
+    check(got["distributed"] and got["backend"] == "nccl" and got["world"] == 1
+          and got["calls"] == want_calls, f"ddp: the data-parallel path did not run: {got}")
+    check(got["params_same"] and got["moments_same"] and got["losses"][0] == got["losses"][1]
+          and got["eval"][0] == got["eval"][1],
+          "ddp: the process group of one is not bit-identical to the plain Trainer")
+
+
+def phase_cli(tmp: str, index_train: str, index_val: str) -> None:
+    """The CLIs on the card: ``python -m rgbnomore_tpu_torch.cli --train
+    --eval`` for one epoch of 3 steps of ViT-Ti at batch 256 on the trainer
+    corpus must exit 0 and write its weights; ``python -m
+    rgbnomore_tpu_torch.eval --loadpath`` on them must score its test
+    split's result again (both with ``--deterministic``)."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    weights = f"{tmp}/cli/vitti.pt"
+    common = ["--model_arch", "vitti", "--embed_type", "1", "--indexpaths",
+              f"{index_train},{index_val}", "--batch", str(BATCH), "--seed", str(SEED),
+              "--num_cpus", "8", "--deterministic", "--warmup_steps", "2", "--verbose", "0"]
+    out = {}
+    for name, args in (("cli", ["-m", "rgbnomore_tpu_torch.cli", "--train", "--eval",
+                                "--epochs", "1", "--max_steps_per_epoch", str(TRAINER_STEPS),
+                                "--savepath", weights, *common]),
+                       ("eval", ["-m", "rgbnomore_tpu_torch.eval", "--loadpath", weights,
+                                 *common])):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, *args], cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        check(res.returncode == 0, f"{name} CLI exit {res.returncode}: {res.stderr[-4000:]}")
+        out[name] = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"cli: python {' '.join(args[:2])} exited 0 in {time.perf_counter() - t0:.1f} s: "
+              f"test {out[name]['test']}", flush=True)
+        if name == "cli":
+            check(Path(weights).is_file(), f"cli: no weights file at {weights}")
+    check(out["eval"]["test"] == out["cli"]["test"] and out["cli"]["test"]["count"] == BATCH,
+          f"cli: the eval CLI scored {out['eval']['test']}, the run {out['cli']['test']}")
+    print("cli: the eval CLI on the run's weights file reproduces its test result", flush=True)
 
 
 def main() -> int:
@@ -2193,14 +2574,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--determinism"]:
         return determinism_child()
+    if len(sys.argv) == 3 and sys.argv[1] == "--trainer":
+        return trainer_child(json.loads(sys.argv[2]))
+    if sys.argv[1:] == ["--ddp"]:
+        return ddp_child()
     print(phase_card(), flush=True)
     phase_build()
     report = phase_kernels()
     trainer, batch = phase_slice(report)
     phase_breakdown(trainer, batch)
     del trainer
-    trainer, packed, rows = phase_train(report)
-    phase_train_vs_cpu(rows)
+    trainer, packed, vit_rows = phase_train(report)
+    phase_train_vs_cpu(vit_rows)
     phase_train_breakdown(trainer, packed)
     del trainer, packed
     trainer, batch = phase_swin_eval(report)
@@ -2222,6 +2607,14 @@ def main() -> int:
     del trainer, packed
     phase_fp16(report)
     phase_determinism()
+    phase_dropout_cost(vit_rows)
+    from rgbnomore_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        index_train, index_val = write_trainer_corpus(tmp)
+        phase_trainer(tmp, index_train, index_val)
+        phase_ddp()
+        phase_cli(tmp, index_train, index_val)
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

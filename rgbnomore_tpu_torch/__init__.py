@@ -22,9 +22,15 @@ Subpackages
                  batched DCT RandAugment.
 - ``codec``    — the host JPEG codec (C++/libjpeg extension + wrappers).
 - ``data``     — index datasets and the crop-before-pack loader.
-- ``models``   — the ViT with the grouped DCT patch embedding.
-- ``train``    — config, mixup and loss, clip + AdamW + schedule, and the
-                 trainer's train step and eval.
+- ``models``   — the ViT with the grouped DCT patch embedding, SwinV2, and
+                 flax's dtype rules and dropout.
+- ``train``    — config, mixup and loss, clip + AdamW + schedule, the
+                 trainer's train step and eval, checkpoints and the epoch
+                 loop ``train_and_eval``.
+- ``parallel`` — data parallelism: one process per GPU over NCCL.
+- ``utils``    — the loss window.
+- ``cli``, ``eval`` — the train and eval CLIs (``python -m``), with
+                 ``train.py``'s flags.
 """
 
 __version__ = "0.1.0"

@@ -1,21 +1,25 @@
-"""Library entry point for evaluation (port of ``evaluate_model``, the JAX
-package's ``eval.py:17-22``).  The CLI comes with the trainer slice."""
+"""Evaluation entry points: the library's ``evaluate_model`` (the JAX
+package's ``eval.py:17-22``) and the eval CLI.
+
+    python -m rgbnomore_tpu_torch.eval --loadpath models/vitti.pt --model_arch vitti ...
+
+takes the train CLI's flags (``rgbnomore_tpu_torch/cli.py``) with
+``--eval`` forced and ``--train`` dropped, as the JAX ``eval.py:25-35``
+does, so it can never start a training run.
+"""
 
 from __future__ import annotations
 
-from pathlib import Path
+import sys
 
-import torch
-
-from rgbnomore_tpu_torch.device import resolve_device
 from rgbnomore_tpu_torch.train.config import Config
-from rgbnomore_tpu_torch.train.loop import Trainer, make_loaders
+from rgbnomore_tpu_torch.train.loop import train_and_eval
 
 __all__ = ["evaluate_model"]
 
 
 def evaluate_model(cfg: Config, index_train: str, index_val: str, loadpath: str = "",
-                   *, device=None, num_threads: int = 4) -> dict:
+                   **kw) -> dict:
     """Evaluate the config's model (the ViT or SwinV2) on the test
     (``index_val``), minival and trainval splits over the cropped DCT wire:
     the K=48 mask16 rows of the center crop for the ViT, of the whole-image
@@ -25,20 +29,29 @@ def evaluate_model(cfg: Config, index_train: str, index_val: str, loadpath: str 
 
     ``loadpath`` names a ``state_dict`` saved with ``torch.save`` (see
     ``convert.py`` for weights trained by the JAX package); without it the
-    weights are drawn from ``cfg.seed``.  Runs on ``device`` (default
-    ``cuda``).  Returns ``{"test": ..., "val": ..., "trainval": ...}``, each
+    weights are drawn from ``cfg.seed``.  ``kw`` goes to ``train_and_eval``
+    (``device``, default ``cuda``; ``num_threads``; the wire's K and
+    formats).  Returns ``{"test": ..., "val": ..., "trainval": ...}``, each
     ``{"accuracy", "loss", "count"}``.
     """
-    dev = resolve_device(device)
-    trainer = Trainer(cfg, device=dev)
-    if loadpath:
-        if not Path(loadpath).exists():
-            raise FileNotFoundError(f"no weights at {loadpath}")
-        state = torch.load(loadpath, map_location=dev, weights_only=True)
-        trainer.model.load_state_dict(state)
-    loaders = make_loaders(cfg, index_train, index_val, num_threads=num_threads)
-    return {
-        "test": trainer.evaluate(loaders["test"]),
-        "val": trainer.evaluate(loaders["minival"]),
-        "trainval": trainer.evaluate(loaders["trainval"]),
-    }
+    if not loadpath:
+        kw.setdefault("savepath", "")  # no weights file: the seed's weights
+    return train_and_eval(cfg, index_train, index_val, loadpath=loadpath, run_train=False,
+                          run_eval=True, **kw)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """The eval CLI: ``cli.main`` with ``--eval`` forced and ``--train``
+    dropped."""
+    from rgbnomore_tpu_torch import cli
+
+    argv = [a for a in (sys.argv[1:] if argv is None else argv) if a != "--train"]
+    if "--eval" not in argv:
+        argv.insert(0, "--eval")
+    return cli.main(argv)
+
+
+if __name__ == "__main__":
+    import json
+
+    print(json.dumps(main()))

@@ -1,5 +1,5 @@
 """The two layers whose dtype rules the port takes from flax, for mixed
-precision.
+precision, and flax's dropout.
 
 The JAX package's AMP is not an autocast: ``amp_compute_dtype``
 (``rgbnomore_tpu/train/config.py:240-268``) hands one compute dtype to every
@@ -18,6 +18,11 @@ from PyTorch's layers:
 Both subclass the PyTorch layers, so parameter names, ``state_dict`` keys
 and the ``isinstance`` tests of the init and of the weight-decay mask stay
 as they were.  At float32 each is the PyTorch layer unchanged.
+
+:class:`Dropout` is flax's ``nn.Dropout``: ``select(mask, x / keep, 0)``
+with ``keep = 1 - rate`` rounded to x's dtype (flax divides by a
+weak-typed Python float), which ``x * (1 / keep)`` would round differently
+in bf16.  Its masks come from the forward's :class:`DropoutMasks`.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["LayerNorm", "Linear"]
+__all__ = ["Dropout", "DropoutMasks", "LayerNorm", "Linear"]
 
 
 class Linear(nn.Linear):
@@ -50,3 +55,48 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.to(torch.float32))
+
+
+class DropoutMasks:
+    """The keep masks of one forward pass's dropout sites, in the order the
+    model reaches them: drawn on the device of each input from
+    ``generator`` (each element kept with probability ``1 - rate``), or
+    taken from ``masks``, one bool tensor of the input's shape per site
+    (a test hands over flax's)."""
+
+    def __init__(self, generator: torch.Generator | None = None, masks=None):
+        if (generator is None) == (masks is None):
+            raise ValueError("give DropoutMasks a generator or a list of masks, not both")
+        self.generator = generator
+        self._masks = None if masks is None else iter(masks)
+
+    def apply(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """``x`` through the next site's dropout at ``rate`` (0 < rate)."""
+        if rate >= 1.0:  # flax: zeros, without drawing a mask
+            return torch.zeros_like(x)
+        keep = 1.0 - rate
+        if self._masks is None:  # drawn straight into bool: one byte an element
+            mask = torch.empty(x.shape, dtype=torch.bool, device=x.device).bernoulli_(
+                keep, generator=self.generator)
+        else:
+            mask = next(self._masks).to(x.device)
+        keep_x = torch.tensor(keep, dtype=x.dtype).item()  # exact in x's dtype
+        return torch.where(mask, x / keep_x, 0.0)
+
+
+class Dropout(nn.Module):
+    """Dropout at ``rate`` in training (flax ``nn.Dropout``); the identity at
+    rate 0 and in eval mode.  ``forward(x, masks)`` takes the forward's
+    :class:`DropoutMasks`, which it reads only when it drops."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, masks: DropoutMasks | None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        if masks is None:
+            raise ValueError(f"dropout at rate {self.rate} in training needs the step's "
+                             "DropoutMasks")
+        return masks.apply(x, self.rate)

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rgbnomore_tpu_torch.models.embeddings import PatchEmbeddingDCTGroup
-from rgbnomore_tpu_torch.models.layers import LayerNorm, Linear
+from rgbnomore_tpu_torch.models.layers import Dropout, DropoutMasks, LayerNorm, Linear
 from rgbnomore_tpu_torch.ops.window_attention import window_attention
 
 __all__ = ["DropPath", "PatchMerging", "SwinBlock", "SwinTransformerV2", "WindowAttention",
@@ -200,7 +200,7 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, input_resolution: tuple[int, int], num_heads: int,
                  window_size: int = 7, shift_size: int = 0, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, drop_path: float = 0.0,
+                 qkv_bias: bool = True, drop: float = 0.0, drop_path: float = 0.0,
                  pretrained_window_size: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
         h, w = input_resolution
@@ -216,11 +216,14 @@ class SwinBlock(nn.Module):
         hidden = int(dim * mlp_ratio)
         self.mlp1 = Linear(dim, hidden, dtype=dtype)
         self.mlp2 = Linear(hidden, dim, dtype=dtype)
+        self.drop = Dropout(drop)
         self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
-        """``keep``: (2, B) bool keep masks of the two drop-path branches."""
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None,
+                dropout: DropoutMasks | None = None) -> torch.Tensor:
+        """``keep``: (2, B) bool keep masks of the two drop-path branches;
+        ``dropout``: the masks of the dropout after GELU and after mlp2."""
         h, w = self.input_resolution
         ws, shift = self.window_size, self.shift_size
         b, l, c = x.shape
@@ -233,7 +236,8 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         x = shortcut + self.drop_path1(self.norm1(x.reshape(b, l, c)),
                                        None if keep is None else keep[0])
-        y = self.norm2(self.mlp2(F.gelu(self.mlp1(x))))
+        y = self.drop(F.gelu(self.mlp1(x)), dropout)
+        y = self.norm2(self.drop(self.mlp2(y), dropout))
         return x + self.drop_path2(y, None if keep is None else keep[1])
 
 
@@ -260,13 +264,16 @@ class SwinTransformerV2(nn.Module):
     """SwinV2 classifier over (y, cbcr) DCT coefficients
     (``models/swinv2.py:578-712``).
 
-    ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8), drop_keep)``
-    returns (B, num_classes) float32 logits; ``drop_keep`` (blocks, 2, B)
-    bool holds the drop-path keep masks of a train step
-    (``drop_path_rates`` gives each block's rate); ``dtype`` is the compute
-    dtype of mixed precision (float32, bf16 or fp16).  Only ``pixel_space="dct"``
-    (whose patch is always 4) is ported; dropout (``drop_rate > 0``) and the
-    absolute position embedding (``ape``) are not.
+    ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8), drop_keep,
+    dropout)`` returns (B, num_classes) float32 logits; ``drop_keep``
+    (blocks, 2, B) bool holds the drop-path keep masks of a train step
+    (``drop_path_rates`` gives each block's rate); in training at
+    ``drop_rate > 0``, ``dropout`` gives the masks of the dropout after the
+    patch embedding and, in each block, after GELU and after mlp2
+    (``swinv2.py:286-290, 383-384``); ``dtype`` is the compute dtype of
+    mixed precision (float32, bf16 or fp16).  Only ``pixel_space="dct"``
+    (whose patch is always 4) is ported; the absolute position embedding
+    (``ape``) is not.
     """
 
     def __init__(self, img_size: int = 224, num_classes: int = 1000,
@@ -283,9 +290,6 @@ class SwinTransformerV2(nn.Module):
                 "the RGB SwinV2 is still to be ported (ROADMAP.md, port queue: RGB)")
         if space != "dct":
             raise ValueError(f"Unknown pixel space: {pixel_space}")
-        if drop_rate > 0:
-            raise NotImplementedError(
-                "dropout is still to be ported (ROADMAP.md, port queue)")
         if ape:
             raise NotImplementedError("the absolute position embedding is not ported")
         # DCT: grouped embedding at patch 4 (8x8 blocks -> 4x4 sub-blocks),
@@ -294,6 +298,7 @@ class SwinTransformerV2(nn.Module):
         self.patch_embed = PatchEmbeddingDCTGroup(4, embed_dim, use_subblock=True,
                                                   add_sincos=False, use_norm=patch_norm,
                                                   dtype=dtype)
+        self.pos_drop = Dropout(drop_rate)
         res = img_size // 4
         self.depths = tuple(depths)
         self.drop_path_rates = np.linspace(0.0, drop_path_rate, sum(self.depths)).tolist()
@@ -304,7 +309,7 @@ class SwinTransformerV2(nn.Module):
             for d in range(depth):
                 self.add_module(f"layer{i}_block{d}", SwinBlock(
                     dim, layer_res, num_heads[i], window_size,
-                    0 if d % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias,
+                    0 if d % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias, drop_rate,
                     self.drop_path_rates[block], pretrained_window_sizes[i], dtype))
                 block += 1
             if i < len(self.depths) - 1:
@@ -319,13 +324,15 @@ class SwinTransformerV2(nn.Module):
                 for i, depth in enumerate(self.depths) for d in range(depth)]
 
     def forward(self, y: torch.Tensor, cbcr: torch.Tensor,
-                drop_keep: torch.Tensor | None = None) -> torch.Tensor:
-        feats = self.patch_embed(y, cbcr).to(self.dtype)
+                drop_keep: torch.Tensor | None = None,
+                dropout: DropoutMasks | None = None) -> torch.Tensor:
+        # dropped in the patch norm's float32, then cast (swinv2.py:383-385)
+        feats = self.pos_drop(self.patch_embed(y, cbcr), dropout).to(self.dtype)
         block = 0
         for i, depth in enumerate(self.depths):
             for d in range(depth):
                 keep = None if drop_keep is None else drop_keep[block]
-                feats = getattr(self, f"layer{i}_block{d}")(feats, keep)
+                feats = getattr(self, f"layer{i}_block{d}")(feats, keep, dropout)
                 block += 1
             if i < len(self.depths) - 1:
                 feats = getattr(self, f"layer{i}_downsample")(feats)

@@ -15,6 +15,11 @@ after the embedding (``vit.py:184``), so the residual stream stays in it
 next Linear casts back; the head's ``linear2`` takes a float32 input and
 gives float32 logits (``vit.py:119-128``).
 
+Dropout is the JAX ViT's (``vit.py:95-106``): in training at ``drop_p``,
+after the attention projection, after GELU and after mlp2, never on the
+attention probabilities, so the kernels stay on the path at every rate.
+Its masks come from the forward's ``DropoutMasks`` (``models/layers.py``).
+
 Every encoder block's attention runs through ``ops.attention.fused_attention``:
 on the GPU that is a hand-written CUDA kernel (3xTF32 in float32, the
 half-precision kernels in bf16 and fp16), 12 launches per forward.  Module
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rgbnomore_tpu_torch.models.embeddings import PatchEmbeddingDCTGroup
-from rgbnomore_tpu_torch.models.layers import LayerNorm, Linear
+from rgbnomore_tpu_torch.models.layers import Dropout, DropoutMasks, LayerNorm, Linear
 from rgbnomore_tpu_torch.ops.attention import fused_attention
 
 __all__ = ["MultiHeadAttention", "EncoderBlock", "ClassificationHead", "ViT"]
@@ -77,17 +82,20 @@ class EncoderBlock(nn.Module):
     """Pre-LN transformer block (``plainvit.py:493-529``)."""
 
     def __init__(self, emb_size: int, num_heads: int, head_size: int = 64,
-                 forward_expansion: int = 4, dtype: torch.dtype = torch.float32):
+                 forward_expansion: int = 4, drop_p: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ln1 = LayerNorm(emb_size, eps=LN_EPS)
         self.mha = MultiHeadAttention(emb_size, num_heads, head_size, dtype)
         self.ln2 = LayerNorm(emb_size, eps=LN_EPS)
         self.mlp1 = Linear(emb_size, forward_expansion * emb_size, dtype=dtype)
         self.mlp2 = Linear(forward_expansion * emb_size, emb_size, dtype=dtype)
+        self.drop = Dropout(drop_p)  # the JAX block's drop_p = forward_drop_p
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.mha(self.ln1(x))
-        return x + self.mlp2(F.gelu(self.mlp1(self.ln2(x))))
+    def forward(self, x: torch.Tensor, dropout: DropoutMasks | None = None) -> torch.Tensor:
+        x = x + self.drop(self.mha(self.ln1(x)), dropout)
+        h = self.drop(F.gelu(self.mlp1(self.ln2(x))), dropout)
+        return x + self.drop(self.mlp2(h), dropout)
 
 
 class ClassificationHead(nn.Module):
@@ -108,16 +116,17 @@ class ClassificationHead(nn.Module):
 class ViT(nn.Module):
     """ViT over (y, cbcr) DCT coefficients with the grouped embedding.
 
-    ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8))`` returns
-    (B, n_classes) float32 logits; ``dtype`` is the compute dtype of mixed
-    precision (float32, bf16 or fp16).  Only ``pixel_space="dct"`` with
+    ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8), dropout)``
+    returns (B, n_classes) float32 logits; ``dtype`` is the compute dtype of
+    mixed precision (float32, bf16 or fp16); in training at ``drop_p > 0``,
+    ``dropout`` gives the masks of the 3 x depth dropout sites.  Only ``pixel_space="dct"`` with
     ``ver=1`` is ported; the other embeddings raise ``NotImplementedError``.
     """
 
     def __init__(self, patch_size: int = 16, emb_size: int = 768, depth: int = 12,
                  num_heads: int = 8, head_size: int = 64, n_classes: int = 1000,
-                 pixel_space: str = "DCT", ver: int = 1, use_subblock: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 drop_p: float = 0.0, pixel_space: str = "DCT", ver: int = 1,
+                 use_subblock: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         space = pixel_space.lower()
         if space == "rgb":
@@ -134,14 +143,15 @@ class ViT(nn.Module):
         self.patchembed = PatchEmbeddingDCTGroup(patch_size, emb_size, use_subblock,
                                                  dtype=dtype)
         for i in range(depth):
-            self.add_module(f"encoder_{i}",
-                            EncoderBlock(emb_size, num_heads, head_size, dtype=dtype))
+            self.add_module(f"encoder_{i}", EncoderBlock(emb_size, num_heads, head_size,
+                                                          drop_p=drop_p, dtype=dtype))
         self.head = ClassificationHead(emb_size, n_classes, dtype)
 
-    def forward(self, y: torch.Tensor, cbcr: torch.Tensor) -> torch.Tensor:
+    def forward(self, y: torch.Tensor, cbcr: torch.Tensor,
+                dropout: DropoutMasks | None = None) -> torch.Tensor:
         tokens = self.patchembed(y, cbcr).to(self.dtype)
         for i in range(self.depth):
-            tokens = getattr(self, f"encoder_{i}")(tokens)
+            tokens = getattr(self, f"encoder_{i}")(tokens, dropout)
         return self.head(tokens)
 
     @torch.no_grad()

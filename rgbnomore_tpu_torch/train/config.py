@@ -323,6 +323,7 @@ def build_model(cfg: Config, device=None):
             num_heads=int(cfg.model.heads),
             head_size=cfg.model.head_size,
             n_classes=cfg.model.classes,
+            drop_p=cfg.train.drop,
             pixel_space=cfg.model.domain,
             ver=cfg.model.version,
             use_subblock=cfg.model.subblock,

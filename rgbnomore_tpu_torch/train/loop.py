@@ -1,31 +1,46 @@
-"""Training and evaluation orchestration: ``rgbnomore_tpu/train/loop.py`` on
-one device.
+"""Training and evaluation orchestration: ``rgbnomore_tpu/train/loop.py``.
 
 ``Trainer`` owns the model (the ViT or SwinV2), the input pipelines, and
 once ``create_state`` has run, the optimizer and the step count.
 ``train_step`` takes one uploaded ``(B, row)`` uint8 batch of the cropped
-K=16 mask16 train wire through pipeline (one ``wire_flip_aug_range``) ->
-mixup -> forward (in train mode: SwinV2's drop path) -> softmax
-cross-entropy -> backward -> global-norm clip -> AdamW, the body of the JAX
+train wire (K=16 mask16 unless the caller picks another K or format)
+through pipeline (one ``wire_flip_aug_range``) -> mixup -> forward (in
+train mode: dropout and SwinV2's drop path) -> softmax cross-entropy ->
+backward -> global-norm clip -> AdamW, the body of the JAX
 ``Trainer._train_body`` (``loop.py:246-303``).  The model computes in the
 config's AMP dtype (``amp_compute_dtype``: float32, bf16 or fp16); with
 fp16 the step runs the fp16 branch of that body (``loop.py:273-300``): the
 loss scaled by the hand-written loss scaler (``train/scaler.py``), the
 gradients unscaled, an update skipped on a non-finite gradient.
-``evaluate`` uploads each K=48 eval
-batch in one non-blocking copy from a reused pinned buffer and runs
-pipeline (one ``wire_to_range``) -> model (in eval mode) -> weighted sums
-on the device.  ``cfg.train.deterministic`` turns on deterministic
-algorithms (``configure_determinism``).  ``make_loaders`` builds the cropped
-DCT loaders: the ViT's eval crop is the center crop, SwinV2's the
-whole-image resize.  Checkpoints, ``train_and_eval`` and multi-GPU data parallelism
-come with later slices (ROADMAP.md, port queue).
+``evaluate`` uploads each eval batch in one non-blocking copy from a reused
+pinned buffer and runs pipeline (one ``wire_to_range``) -> model (in eval
+mode) -> weighted sums on the device.  ``cfg.train.deterministic`` turns on
+deterministic algorithms (``configure_determinism``).  ``make_loaders``
+builds the cropped DCT loaders: the ViT's eval crop is the center crop,
+SwinV2's the whole-image resize.
+
+Data parallelism (``parallel/``): in a process group of N ranks each
+process holds the model on its own GPU and takes its slice of every global
+batch; the Trainer averages the gradients over the ranks after backward
+(before the fp16 unscale, the finite check and the clip), draws the whole
+global batch's random decisions from the shared-seed generators and keeps
+its rows, rolls mixup's pairs across the ranks, and adds the eval sums up,
+so that N processes on one global batch compute what one process computes
+on it.  Dropout's masks are drawn per rank.
+
+``train_and_eval`` is the epoch loop users run (``loop.py:511-663``): per
+step the loss stays on the device until the logging cadence; per epoch the
+minival and trainval evals, TensorBoard scalars and a checkpoint
+(``train/checkpoint.py``); the final weights as a bare ``state_dict``; or,
+eval-only, test, minival and trainval on saved weights.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -35,12 +50,16 @@ from rgbnomore_tpu_torch.augment.pipeline import (
     make_cropped_train_pipeline,
 )
 from rgbnomore_tpu_torch.data.index import load_index, split_train_minival
+from rgbnomore_tpu_torch import parallel
 from rgbnomore_tpu_torch.device import resolve_device
+from rgbnomore_tpu_torch.models.layers import DropoutMasks
+from rgbnomore_tpu_torch.train import checkpoint as ckpt
 from rgbnomore_tpu_torch.train.config import (
     Config,
     amp_compute_dtype,
     build_model,
     configure_determinism,
+    update_runtime,
 )
 from rgbnomore_tpu_torch.train.optim import Optimizer
 from rgbnomore_tpu_torch.train.scaler import (
@@ -56,13 +75,48 @@ from rgbnomore_tpu_torch.train.steps import (
     mixup_batch,
     softmax_cross_entropy,
 )
+from rgbnomore_tpu_torch.utils.metrics import LocalWindow
 
 log = logging.getLogger(__name__)
 
-__all__ = ["PinnedUploader", "StepDraws", "Trainer", "cropped_eval_defaults",
-           "guard_eval_sums", "make_loaders"]
+__all__ = ["PinnedUploader", "StepDraws", "SummaryWriter", "Trainer", "cropped_eval_defaults",
+           "guard_eval_sums", "load_params", "make_loaders", "save_params", "tensorboard_dir",
+           "train_and_eval"]
 
-TRAIN_K, TRAIN_FMT = 16, "mask16"  # the train side of the crop-before-pack wire
+# the train side of the crop-before-pack wire (the JAX Trainer's defaults
+# for transfer="cropped", loop.py:121-123, 154)
+TRAIN_K, TRAIN_FMT = 16, "mask16"
+
+
+class SummaryWriter:
+    """TensorBoard writer with a no-op fallback when tensorboard is absent
+    (``rgbnomore_tpu/train/loop.py:38-58``)."""
+
+    def __init__(self, logdir: str | Path | None):
+        self._writer = None
+        if logdir is None:
+            return
+        try:
+            from torch.utils.tensorboard import SummaryWriter as TBWriter
+        except ImportError:
+            log.warning("tensorboard unavailable; metrics will only be logged")
+            return
+        self._writer = TBWriter(str(logdir))
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        if self._writer is not None:
+            self._writer.add_scalar(tag, value, step)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+
+
+def tensorboard_dir(savepath: str, cfg: Config) -> Path:
+    """Writer dir derived from savepath + lr/wd/drop (``pipeline_utils.py:411-425``)."""
+    stem = Path(savepath).stem
+    name = f"{stem}_lr{cfg.train.lr}_wd{cfg.train.wd}_drop{cfg.train.drop}"
+    return Path(savepath).resolve().parent / "tb_logs" / name
 
 
 def cropped_eval_defaults(domain: str) -> tuple[int, str]:
@@ -79,14 +133,15 @@ def cropped_eval_defaults(domain: str) -> tuple[int, str]:
 @dataclasses.dataclass
 class StepDraws:
     """The random decisions of one train step: the flip bits (B,), the
-    RandAugment policy (``RandAugmentDCT.draw_policy``), the mixup lambda
-    and, for SwinV2, the drop-path keep masks (blocks, 2, B) bool (None for
-    the ViT)."""
+    RandAugment policy (``RandAugmentDCT.draw_policy``), the mixup lambda,
+    for SwinV2 the drop-path keep masks (blocks, 2, B) bool (None for the
+    ViT) and, at ``cfg.train.drop > 0``, the forward's dropout masks."""
 
     flip: torch.Tensor
     policy: tuple
     lam: float
     drop_keep: torch.Tensor | None = None
+    dropout: DropoutMasks | None = None
 
 
 class PinnedUploader:
@@ -135,35 +190,54 @@ class Trainer:
     ``device`` defaults to ``cuda``; pass ``"cpu"`` to run on the CPU.  The
     model's parameters are drawn from a ``torch.Generator`` seeded with
     ``cfg.seed``; ``model.load_state_dict`` replaces them.  The input is the
-    cropped DCT wire (the JAX Trainer's ``transfer="cropped"``): K=16
-    mask16 rows for training, ``cropped_eval_defaults`` for eval.  The
-    step's random draws come from a ``torch.Generator`` (flip, policy, the
-    drop-path keep masks) and a numpy generator (the mixup lambda), both
-    seeded from ``cfg.seed``.
+    cropped DCT wire (the JAX Trainer's ``transfer="cropped"``): for
+    training ``packed_k`` ACs a block (default 16) in ``train_fmt``
+    (default mask16), for eval ``packed_k_eval`` in ``eval_fmt`` (defaults
+    ``cropped_eval_defaults``).  The step's random draws come from a
+    ``torch.Generator`` (flip, policy, the drop-path keep masks) and a
+    numpy generator (the mixup lambda), both seeded from ``cfg.seed``, and
+    dropout's from a generator on the device (``dropout_masks``).
+
+    In a process group (``parallel.init_distributed``) the Trainer is one
+    rank of a data-parallel run: ``cfg.train.batch_size`` is the global
+    batch and ``cfg.train.batch_per_device`` each rank's slice
+    (``update_runtime``).
 
     The model computes in ``compute_dtype`` (``amp_compute_dtype``); with
     fp16, ``create_state`` also makes the loss scaler's state
     (``loss_scale``), which bf16 and float32 do without.
     """
 
-    def __init__(self, cfg: Config, device=None):
+    def __init__(self, cfg: Config, device=None, *, packed_k: int | None = None,
+                 packed_k_eval: int | None = None, eval_fmt: str | None = None,
+                 train_fmt: str | None = None):
         self.device = resolve_device(device)
         if cfg.model.domain != "DCT":
             raise NotImplementedError(
                 "the RGB domain is still to be ported (ROADMAP.md, port queue: RGB)")
-        self.cfg = cfg
+        self.distributed = parallel.is_initialized()
+        self.rank, self.world = parallel.rank(), parallel.world_size()
+        self.cfg = update_runtime(cfg, self.world)
         configure_determinism(cfg)  # before the model's first cuBLAS handle
         self.compute_dtype = amp_compute_dtype(cfg)
         self.model = build_model(cfg, device=self.device)
-        self.packed_k_eval, self.eval_fmt = cropped_eval_defaults(cfg.model.domain)
+        ek, ef = cropped_eval_defaults(cfg.model.domain)
+        self.packed_k, self.train_fmt = packed_k or TRAIN_K, train_fmt or TRAIN_FMT
+        self.packed_k_eval, self.eval_fmt = packed_k_eval or ek, eval_fmt or ef
         self.eval_pipe = make_cropped_eval_pipeline(
             cfg, k=self.packed_k_eval, fmt=self.eval_fmt)
-        self.train_pipe = make_cropped_train_pipeline(cfg, k=TRAIN_K, fmt=TRAIN_FMT)
+        self.train_pipe = make_cropped_train_pipeline(cfg, k=self.packed_k, fmt=self.train_fmt)
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self.rng = np.random.default_rng(cfg.seed)
+        self._dropout_generator = (torch.Generator(device=self.device)
+                                   if cfg.train.drop > 0 else None)
         self.optimizer: Optimizer | None = None
         self.loss_scale: LossScaleState | None = None
         self._uploader: PinnedUploader | None = None
+
+    def global_batch(self) -> int:
+        """The batch of one step over every rank."""
+        return self.cfg.train.batch_per_device * self.world
 
     def put_batch(self, batch: dict) -> dict:
         """Upload the consolidated (B, row) uint8 buffer (labels and weights
@@ -181,20 +255,16 @@ class Trainer:
         """Build the optimizer (clip + AdamW + warmup-cosine schedule over
         ``steps_per_epoch * cfg.train.epochs`` steps) and zero the step
         count; with fp16, start the loss scaler at 2**15."""
-        if self.cfg.train.drop > 0:
-            raise NotImplementedError(
-                "dropout is still to be ported (ROADMAP.md, port queue): the JAX ViT drops "
-                "after the attention projection, after GELU and after mlp2, and never "
-                "drops attention probabilities")
         t = self.cfg.train
         self.optimizer = Optimizer(self.model, t.lr, t.wd, t.warmup,
                                    steps_per_epoch * t.epochs)
         if self.compute_dtype == torch.float16:
             self.loss_scale = init_loss_scale(device=self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
-        log.info("model %s/%s: %.2fM params on %s in %s, batch %d, %d steps/epoch",
-                 self.cfg.model.arch, self.cfg.model.domain, n_params / 1e6, self.device,
-                 self.compute_dtype, t.batch_size, steps_per_epoch)
+        log.info("model %s/%s: %.2fM params on %s in %s, %d process(es), global batch %d, "
+                 "%d steps/epoch", self.cfg.model.arch, self.cfg.model.domain, n_params / 1e6,
+                 self.device, self.compute_dtype, self.world, self.global_batch(),
+                 steps_per_epoch)
         return self.optimizer
 
     @property
@@ -203,17 +273,38 @@ class Trainer:
         return self.optimizer.count if self.optimizer is not None else 0
 
     def draw(self, batch: int) -> StepDraws:
-        """The next step's draws from the Trainer's generators.  SwinV2's
-        block ``i`` keeps each sample's branch with probability ``1 -
-        drop_path_rates[i]`` (always, at rate 0)."""
-        flip, policy = self.train_pipe.draw(self.generator, batch)
+        """The next step's draws for this rank's ``batch`` rows.  The host
+        generators draw for the whole global batch (``batch`` x ranks) and
+        the rank keeps its rows ``[rank * batch, (rank + 1) * batch)``, so
+        every rank's generators stay in step and the draws are one
+        process's.  SwinV2's block ``i`` keeps each sample's branch with
+        probability ``1 - drop_path_rates[i]`` (always, at rate 0)."""
+        total = batch * self.world
+        flip, policy = self.train_pipe.draw(self.generator, total)
         keep = None
         rates = getattr(self.model, "drop_path_rates", None)
         if rates is not None:
-            u = torch.rand((len(rates), 2, batch), generator=self.generator)
+            u = torch.rand((len(rates), 2, total), generator=self.generator)
             keep = u >= torch.tensor(rates, dtype=u.dtype)[:, None, None]
-        return StepDraws(flip, policy, draw_mixup_lambda(self.rng, self.cfg.train.mixup_alpha),
-                         keep)
+        lam = draw_mixup_lambda(self.rng, self.cfg.train.mixup_alpha)
+        if self.world > 1:
+            rows = slice(self.rank * batch, (self.rank + 1) * batch)
+            flip, policy = flip[rows], tuple(p[rows] for p in policy)
+            keep = None if keep is None else keep[..., rows]
+        return StepDraws(flip, policy, lam, keep, self.dropout_masks())
+
+    def dropout_masks(self) -> DropoutMasks | None:
+        """The dropout masks of the next step (None at ``cfg.train.drop``
+        0): drawn in the forward on the device, from a generator seeded from
+        ``(cfg.seed, step, rank)``, the counterpart of JAX's ``fold_in(rng,
+        state.step)`` (``loop.py:247``).  A resumed run draws the same masks
+        with no generator state saved; the ranks of a data-parallel run
+        draw their own."""
+        if self._dropout_generator is None:
+            return None
+        seq = np.random.SeedSequence([self.cfg.seed, self.step, self.rank])
+        self._dropout_generator.manual_seed(int(seq.generate_state(1, np.uint64)[0]) >> 1)
+        return DropoutMasks(generator=self._dropout_generator)
 
     def compute_grads(self, packed: torch.Tensor, draws: StepDraws) -> torch.Tensor:
         """Pipeline -> mixup -> forward -> loss -> backward on an uploaded
@@ -221,27 +312,40 @@ class Trainer:
         returns the loss as a 0-d tensor on the device.  With the loss
         scaler's state (fp16), the backward runs on the loss times the scale
         and the gradients are divided by it; the loss returned is the
-        scaled loss divided by the scale, as the JAX step reports it."""
+        scaled loss divided by the scale, as the JAX step reports it.  In a
+        process group the gradients are averaged over the ranks right after
+        the backward, and mixup pairs across them; the loss returned is
+        this rank's."""
         y, c, labels, _ = self.train_pipe(packed, draws.flip, draws.policy)
         num_classes = self.cfg.model.classes
         if self.cfg.model.mixup:
-            (y, c), targets = mixup_batch((y, c), labels, num_classes, draws.lam)
+            (y, c), targets = mixup_batch((y, c), labels, num_classes, draws.lam,
+                                          parallel.ring_roll if self.distributed else None)
         else:
             targets = torch.nn.functional.one_hot(
                 labels.to(torch.int64), num_classes).to(torch.float32)
         self.model.train()
         extra = {} if draws.drop_keep is None else {
             "drop_keep": draws.drop_keep.to(self.device, non_blocking=True)}
+        if draws.dropout is not None:
+            extra["dropout"] = draws.dropout
         loss = softmax_cross_entropy(self.model(y, c, **extra), targets)
         self.model.zero_grad(set_to_none=True)
         if self.loss_scale is None:
             loss.backward()
+            self._sync_grads()
             return loss.detach()
         scale = self.loss_scale.scale
         scaled = loss * scale
         scaled.backward()
+        self._sync_grads()
         torch._foreach_div_([p.grad for p in self.model.parameters()], scale)
         return (scaled / scale).detach()
+
+    def _sync_grads(self) -> None:
+        """Average the gradients over the ranks (none outside a process group)."""
+        if self.distributed:
+            parallel.all_reduce_mean_([p.grad for p in self.model.parameters()])
 
     def train_step(self, packed: torch.Tensor, draws: StepDraws | None = None) -> torch.Tensor:
         """One optimizer step on an uploaded (B, row) batch; returns the
@@ -275,8 +379,15 @@ class Trainer:
     def evaluate(self, loader) -> dict:
         """Accuracy, mean loss and weighted count over every batch of
         ``loader`` (an iterable of ``{"packed": uint8 (B, row)}`` dicts).
-        The per-batch sums stay on the device until the merge."""
+        The per-batch sums stay on the device until the merge; in a process
+        group they are added up over the ranks first (each rank's loader
+        holds its shard, padded with weight-0 rows to one batch count)."""
         sums = [self.eval_step(self.put_batch(batch)["packed"]) for batch in loader]
+        if self.distributed and sums:
+            keys = ("correct", "loss_sum", "count")
+            table = parallel.all_reduce_sum_(
+                torch.stack([torch.stack([s[k] for k in keys]) for s in sums]))
+            sums = [dict(zip(keys, row)) for row in table]
         return guard_eval_sums(sums)
 
 
@@ -301,15 +412,21 @@ def guard_eval_sums(sums: list) -> dict:
     return out
 
 
-def make_loaders(cfg: Config, index_train: str, index_val: str, *, num_threads: int = 4):
+def make_loaders(cfg: Config, index_train: str, index_val: str, *, num_threads: int = 4,
+                 global_batch: int | None = None, packed_k: int | None = None,
+                 packed_k_eval: int | None = None, eval_fmt: str | None = None,
+                 train_fmt: str | None = None):
     """Build the train / minival / trainval / test loaders of the cropped DCT
-    transfer (``datasets.py:445-582``; the JAX ``make_loaders`` :453-470):
-    batches of ``cfg.train.batch_size``; train: the random-resized-crop
-    boxes, the K=16 mask16 wire, shuffled, the last partial batch dropped;
-    eval: to ``cfg.model.dct_blocks`` blocks by the deterministic center
-    crop (ViT, ``datasets.py:364``) or the whole-image resize (SwinV2,
-    ``datasets.py:381``) on the ``cropped_eval_defaults`` wire, in order,
-    padded."""
+    transfer (``datasets.py:445-582``; the JAX ``make_loaders`` :427-470):
+    each process's batch is ``global_batch`` (default
+    ``cfg.train.batch_size``) over the ranks, and it reads its strided shard
+    of every split (``shard_id`` its rank).  Train: the random-resized-crop
+    boxes, ``packed_k`` ACs (default 16) in ``train_fmt`` (default mask16),
+    shuffled, the last partial batch dropped; eval: to ``cfg.model.
+    dct_blocks`` blocks by the deterministic center crop (ViT,
+    ``datasets.py:364``) or the whole-image resize (SwinV2,
+    ``datasets.py:381``), ``packed_k_eval`` in ``eval_fmt`` (defaults
+    ``cropped_eval_defaults``), in order, padded with weight-0 rows."""
     # imported here: the loader's codec needs libjpeg, the rest of this
     # module does not
     from rgbnomore_tpu_torch.data.loader import DctCroppedLoader
@@ -322,16 +439,206 @@ def make_loaders(cfg: Config, index_train: str, index_val: str, *, num_threads: 
     train_ds, minival_ds, trainval_ds = split_train_minival(
         train_all, split=cfg.train.split, seed=cfg.seed
     )
-    k_eval, fmt_eval = cropped_eval_defaults("DCT")
+    world = parallel.world_size()
+    bsz = (global_batch or cfg.train.batch_size) // world
+    ek, ef = cropped_eval_defaults("DCT")
+    k_train, fmt_train = packed_k or TRAIN_K, train_fmt or TRAIN_FMT
+    k_eval, fmt_eval = packed_k_eval or ek, eval_fmt or ef
     eval_mode = "full" if cfg.model.arch == "swinv2" else "center"
 
     def mk(ds, train: bool):
         return DctCroppedLoader(
-            ds, cfg.train.batch_size, target=cfg.model.dct_blocks,
-            k=TRAIN_K if train else k_eval, fmt=TRAIN_FMT if train else fmt_eval,
+            ds, bsz, target=cfg.model.dct_blocks,
+            k=k_train if train else k_eval, fmt=fmt_train if train else fmt_eval,
             mode="train" if train else eval_mode, shuffle=train, drop_last=train,
-            seed=cfg.seed, num_threads=num_threads,
+            seed=cfg.seed, num_threads=num_threads, shard_id=parallel.rank(),
+            num_shards=world,
         )
 
     return {"train": mk(train_ds, True), "minival": mk(minival_ds, False),
             "trainval": mk(trainval_ds, False), "test": mk(test_ds, False)}
+
+
+def save_params(path: str | Path, model: torch.nn.Module) -> None:
+    """Save the final weights as a bare ``state_dict`` (the reference's
+    save, ``train.py:202-204``), written to a temporary file and renamed."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(model.state_dict(), tmp)
+    tmp.replace(path)
+
+
+def load_params(path: str | Path, model: torch.nn.Module) -> None:
+    """Load a bare ``state_dict`` (``save_params``, or ``convert.py``'s
+    mapping of flax parameters) into ``model``."""
+    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def _flush_losses(pending: list, window: LocalWindow, world: int) -> float:
+    """Feed the pending per-step losses, averaged over the ranks, to the
+    window (one device read); returns the window's mean."""
+    if pending:
+        losses = parallel.all_reduce_sum_(torch.stack(pending))
+        for v in (losses / world).tolist():
+            window.put(v)
+        pending.clear()
+    return window.mean()
+
+
+def train_and_eval(
+    cfg: Config,
+    index_train: str,
+    index_val: str,
+    savepath: str = "./models/model.pt",
+    loadpath: str = "",
+    load_ckpt_dir: str = "",
+    run_train: bool = True,
+    run_eval: bool = True,
+    verbose: int = 1,
+    num_threads: int = 4,
+    max_steps_per_epoch: int | None = None,
+    packed_k: int | None = None,
+    packed_k_eval: int | None = None,
+    eval_fmt: str | None = None,
+    train_fmt: str | None = None,
+    ckpt_every: int = 1,
+    device=None,
+) -> dict:
+    """The main train / eval flow (reference ``train.py:traineval``; the JAX
+    ``train_and_eval``, ``loop.py:511-663``), on ``device`` (default
+    ``cuda``), as one rank of the process group if there is one.
+
+    Training: ``cfg.train.epochs`` epochs of at most ``max_steps_per_epoch``
+    steps (which also caps the schedule's steps per epoch), from the
+    checkpoint under ``load_ckpt_dir`` if given.  Each step's loss stays on
+    the device; every 50 steps and at an epoch's last step the pending
+    losses are read (averaged over the ranks) into a 100-step window.  Each
+    epoch ends with the minival and trainval evals, the TensorBoard scalars
+    (rank 0, under ``tensorboard_dir``) and, every ``ckpt_every`` epochs
+    and at the last, a checkpoint under ``<dir(savepath)>/checkpoints/
+    <arch>_dct``.  The final weights go to ``savepath`` (rank 0).
+
+    Eval: test, then minival (and trainval without training) on the trained
+    weights, or, eval-only, on ``loadpath`` or ``savepath``.
+
+    Returns ``{"test", "val", "trainval"}`` (each ``{"accuracy", "loss",
+    "count"}``) and, after training, ``"epoch"`` and ``"history"``: per
+    epoch the train loss and this process's train and eval img/s.
+    """
+    trainer = Trainer(cfg, device=device, packed_k=packed_k, packed_k_eval=packed_k_eval,
+                      eval_fmt=eval_fmt, train_fmt=train_fmt)
+    if run_eval and not run_train and loadpath and not Path(loadpath).is_file():
+        raise FileNotFoundError(f"no weights at {loadpath}")
+    cfg = trainer.cfg
+    loaders = make_loaders(
+        cfg, index_train, index_val, num_threads=num_threads,
+        global_batch=trainer.global_batch(), packed_k=trainer.packed_k,
+        packed_k_eval=trainer.packed_k_eval, eval_fmt=trainer.eval_fmt,
+        train_fmt=trainer.train_fmt)
+    steps_per_epoch = len(loaders["train"])
+    if max_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
+    if run_train or load_ckpt_dir:
+        trainer.create_state(steps_per_epoch)
+
+    if verbose >= 1:
+        log.info("config: %s", cfg)
+    if verbose >= 2:
+        log.info("model summary: not printed; utils/summary.py is still to be ported "
+                 "(ROADMAP.md, port queue: module 7)")
+    savepath = str(savepath)
+    if run_train:
+        Path(savepath).resolve().parent.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = ckpt.checkpoint_dir(savepath, f"{cfg.model.arch}_{cfg.model.domain.lower()}")
+    # TensorBoard and the final weights file are rank 0's (the reference's
+    # rank-0 gating, train.py:117/:202); every rank calls the checkpoint
+    is_rank0 = parallel.is_rank0()
+    writer = SummaryWriter(tensorboard_dir(savepath, cfg) if run_train and is_rank0 else None)
+
+    start_epoch = 0
+    if load_ckpt_dir:
+        meta = ckpt.restore_checkpoint(load_ckpt_dir, trainer)
+        start_epoch = int(meta["epoch"]) + 1
+        log.info("resumed from %s at epoch %d (step %d)", load_ckpt_dir, start_epoch,
+                 trainer.step)
+
+    results: dict = {}
+    if run_train:
+        window = LocalWindow(100)
+        n_train_batches = len(loaders["train"])
+        history = []
+        for epoch in range(start_epoch, cfg.train.epochs):
+            loaders["train"].set_epoch(epoch)
+            t0 = time.perf_counter()
+            n_img = 0
+            pending: list = []  # per-step device losses, read at the logging cadence
+            for i, batch in enumerate(loaders["train"]):
+                if max_steps_per_epoch and i >= max_steps_per_epoch:
+                    break
+                pending.append(trainer.train_step(trainer.put_batch(batch)["packed"]))
+                n_img += int(batch["weights"].sum())
+                if verbose >= 2 or i % 50 == 0 or i + 1 == n_train_batches:
+                    running = _flush_losses(pending, window, trainer.world)
+                    writer.scalar("Loss/Peritr_Train", running, trainer.step)
+                    if verbose >= 2:
+                        log.info("[Epoch %d/%d It %d] loss %.4f lr %.3e", epoch + 1,
+                                 cfg.train.epochs, i + 1, running,
+                                 trainer.optimizer.schedule(trainer.step))
+            train_loss = _flush_losses(pending, window, trainer.world)  # after an early break
+            dt = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            val = trainer.evaluate(loaders["minival"])
+            tval = trainer.evaluate(loaders["trainval"])
+            eval_dt = time.perf_counter() - t0
+            train_img_s = n_img / max(dt, 1e-9)
+            eval_img_s = (val["count"] + tval["count"]) / trainer.world / max(eval_dt, 1e-9)
+            if verbose >= 1:
+                log.info("epoch %d: loss %.4f | val acc %.2f%% loss %.4f | trainval acc %.2f%% "
+                         "| train %.1f img/s, eval %.1f img/s (this process)", epoch + 1,
+                         train_loss, val["accuracy"] * 100, val["loss"],
+                         tval["accuracy"] * 100, train_img_s, eval_img_s)
+            writer.scalar("Loss/Train", train_loss, epoch)
+            writer.scalar("Loss/Val", val["loss"], epoch)
+            writer.scalar("Acc/Val", val["accuracy"], epoch)
+            writer.scalar("Loss/Train_val", tval["loss"], epoch)
+            writer.scalar("Acc/Train_val", tval["accuracy"], epoch)
+            writer.scalar("Learning Rate", trainer.optimizer.schedule(trainer.step), epoch)
+            # the reference checkpoints every epoch (train.py:196-199);
+            # ckpt_every thins the cadence, always keeping the last
+            if (epoch + 1) % ckpt_every == 0 or epoch + 1 == cfg.train.epochs:
+                ckpt.save_checkpoint(ckpt_dir, trainer, epoch, {
+                    "val_acc": val["accuracy"], "val_loss": val["loss"],
+                    "train_loss": train_loss})
+            history.append({"epoch": epoch, "train_loss": train_loss,
+                            "train_img_s": train_img_s, "eval_img_s": eval_img_s})
+            results.update({"val": val, "trainval": tval, "epoch": epoch, "history": history})
+        if is_rank0:
+            save_params(savepath, trainer.model)
+            log.info("training complete; saved weights to %s", savepath)
+        parallel.barrier()
+
+    if run_eval and not run_train:
+        weights = loadpath or savepath
+        if weights and Path(weights).is_file():
+            load_params(weights, trainer.model)
+            log.info("loaded weights from %s", weights)
+        else:
+            log.warning("no weights file %r: evaluating the weights drawn from the seed",
+                        weights)
+    if run_eval:
+        test = trainer.evaluate(loaders["test"])
+        results["test"] = test
+        writer.scalar("Acc/Test", test["accuracy"], 0)
+        writer.scalar("Loss/Test", test["loss"], 0)
+        if verbose >= 1:
+            log.info("test acc %.2f%% loss %.4f (n=%d)", test["accuracy"] * 100,
+                     test["loss"], int(test["count"]))
+        # eval-only mode also scores minival + trainval (train.py:206-219);
+        # after a train run 'val' is already the last epoch's
+        if "val" not in results:
+            results["val"] = trainer.evaluate(loaders["minival"])
+        if not run_train:
+            results["trainval"] = trainer.evaluate(loaders["trainval"])
+
+    writer.close()
+    return results

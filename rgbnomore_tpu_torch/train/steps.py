@@ -31,13 +31,21 @@ def draw_mixup_lambda(rng: np.random.Generator, alpha: float) -> float:
     return float(max(u, np.float32(1.0) - u))
 
 
-def mixup_batch(inputs: tuple, labels: torch.Tensor, num_classes: int, lam: float):
+def mixup_batch(inputs: tuple, labels: torch.Tensor, num_classes: int, lam: float,
+                roll=None):
     """Batch-level mixup with a given ``lam``: pairs are formed by rolling
     the batch by one (``utils/cls_transforms.py:100-182``).  Returns
-    ``(mixed_inputs, mixed_targets)``; the targets are float32 (B, classes)."""
+    ``(mixed_inputs, mixed_targets)``; the targets are float32 (B, classes).
+    ``roll`` rolls a tuple of batches by one: ``torch.roll`` by default;
+    the data-parallel trainer passes ``parallel.ring_roll``, which rolls the
+    global batch across the ranks as the JAX mixup rolls it."""
     targets = torch.nn.functional.one_hot(labels.to(torch.int64), num_classes).to(torch.float32)
-    mixed = tuple(lam * x + (1.0 - lam) * torch.roll(x, 1, dims=0) for x in inputs)
-    return mixed, lam * targets + (1.0 - lam) * torch.roll(targets, 1, dims=0)
+    if roll is None:
+        rolled = tuple(torch.roll(x, 1, dims=0) for x in (*inputs, targets))
+    else:
+        rolled = roll((*inputs, targets))
+    mixed = tuple(lam * x + (1.0 - lam) * r for x, r in zip(inputs, rolled))
+    return mixed, lam * targets + (1.0 - lam) * rolled[-1]
 
 
 def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from rgbnomore_tpu_torch import cli, parallel
 from rgbnomore_tpu_torch.device import resolve_device
 from rgbnomore_tpu_torch.eval import evaluate_model
 from rgbnomore_tpu_torch.train.config import build_model, example_inputs, generate_config
-from rgbnomore_tpu_torch.train.loop import Trainer
+from rgbnomore_tpu_torch.train.loop import Trainer, train_and_eval
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -28,7 +29,7 @@ for name in names:
 import chip_smoke
 chip_smoke.synthetic_planes, chip_smoke.pack_mask16, chip_smoke.write_rows
 banned = sorted(m for m in set(sys.modules) - preloaded
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "rgbnomore_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "rgbnomore_tpu"))
 print(len(names), banned)
 """
 
@@ -124,6 +125,26 @@ def test_amp_modules_import_alone(module):
     assert res.stdout.strip().splitlines()[-1] == "[]"
 
 
+@pytest.mark.parametrize("module", ["rgbnomore_tpu_torch.cli",
+                                    "rgbnomore_tpu_torch.eval",
+                                    "rgbnomore_tpu_torch.parallel",
+                                    "rgbnomore_tpu_torch.parallel.dist",
+                                    "rgbnomore_tpu_torch.utils.metrics",
+                                    "rgbnomore_tpu_torch.train.checkpoint",
+                                    "rgbnomore_tpu_torch.train.loop"])
+def test_trainer_modules_import_alone(module):
+    """The trainer's modules (the CLIs, data parallelism, the loss window,
+    checkpoints, the epoch loop) import on their own with nothing of JAX,
+    flax, Orbax or the JAX package."""
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orbax', 'rgbnomore_tpu')))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
+                         capture_output=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
 # what a kernel source may include: the CUDA runtime and its 16-bit types,
 # the C++ standard library, and the port's own headers beside it
 _ALLOWED_INCLUDES = {"<cuda_runtime.h>", "<cuda_bf16.h>", "<cuda_fp16.h>", "<algorithm>",
@@ -180,9 +201,13 @@ def _swin_cfg():
     lambda: example_inputs(_swin_cfg()),
     lambda: Trainer(_swin_cfg()),
     lambda: evaluate_model(_swin_cfg(), "unused.csv", "unused.csv"),
+    lambda: train_and_eval(_cfg(), "unused.csv", "unused.csv"),
+    lambda: cli.main(["--train", "--eval", "--model_arch", "vitti", "--embed_type", "1"]),
+    lambda: parallel.init_distributed("localhost:1", num_processes=1, process_id=0),
 ], ids=["resolve_device", "resolve_cuda", "build_model", "example_inputs", "Trainer",
         "create_state", "train_step", "train_pipe", "evaluate_model", "swin_build_model",
-        "swin_example_inputs", "swin_Trainer", "swin_evaluate_model"])
+        "swin_example_inputs", "swin_Trainer", "swin_evaluate_model", "train_and_eval",
+        "cli", "init_distributed"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()

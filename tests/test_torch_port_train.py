@@ -215,9 +215,22 @@ def test_deterministic_flag(flag):
 
 
 def test_dropout_refusal_states_the_reference():
-    """The port refuses dropout until it is ported, and says what the JAX
-    ViT drops: never the attention probabilities."""
+    """Dropout is ported, so ``create_state`` no longer refuses it; the
+    train step drops where the JAX ViT does: after the attention
+    projection, after GELU and after mlp2, never the attention
+    probabilities (no (B, H, N, N) site)."""
+    settle_inspect_module_walk()
     cfg = generate_config("vitti", "dct", modelver=1, drop=0.1)
-    cfg.model.depth = 1
-    with pytest.raises(NotImplementedError, match="never drops attention probabilities"):
-        Trainer(cfg, device="cpu").create_state(1)
+    cfg.model.depth, cfg.model.dct_blocks = 2, 8
+    trainer = Trainer(cfg, device="cpu")
+    trainer.create_state(1)
+    draws = trainer.draw(2)
+    sites = []
+    apply = draws.dropout.apply
+    draws.dropout.apply = lambda x, rate: sites.append((tuple(x.shape), rate)) or apply(x, rate)
+    y, c = chip_smoke.synthetic_planes(np.random.default_rng(0), 2, 8)
+    rows = chip_smoke.write_rows(y, c, np.array([1, 2], np.int32), 16)
+    trainer.train_step(torch.from_numpy(rows), draws)
+    tokens, emb = 16, cfg.model.embed_size
+    assert sites == [((2, tokens, emb), 0.1), ((2, tokens, 4 * emb), 0.1),
+                     ((2, tokens, emb), 0.1)] * 2

@@ -1,5 +1,6 @@
 """Support shared by the port's tests (``tests/test_torch_port_*.py``)."""
 
+import contextlib
 import inspect
 import sys
 
@@ -161,3 +162,47 @@ def port_swin_trainer(jax_trainer, cfg):
     trainer.model.load_state_dict(
         flax_to_state_dict(jax.tree.map(np.asarray, jax_trainer.state.params)))
     return trainer
+
+
+def write_corpus(root, n: int = 16, size: int = 64):
+    """``n`` synthetic ``size`` x ``size`` JPEGs across 4 classes, written
+    by the port's codec (``tests/test_distributed.py``'s corpus), and their
+    ``index.csv``; returns the index's path."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from rgbnomore_tpu_torch import codec
+
+    root = Path(root)
+    rng = np.random.default_rng(7)
+    rows = ["Filepath,Label"]
+    ys, xs = np.mgrid[0:size, 0:size]
+    for i in range(n):
+        cls = i % 4
+        img = np.stack([
+            (128 + 80 * np.sin(ys / (2 + cls)) * np.cos(xs / (3 + cls))).astype(np.uint8),
+            (128 + 50 * np.cos(xs / (2 + cls)) + rng.integers(-9, 9)).astype(np.uint8),
+            (128 + 50 * np.sin(ys / (4 + cls))).astype(np.uint8),
+        ])
+        p = root / f"img_{i}.jpg"
+        codec.write_tensor(p, img, quality=92)
+        rows.append(f"{p},{cls}")
+    index = root / "index.csv"
+    index.write_text("\n".join(rows) + "\n")
+    return index
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """PyTorch's CPU ops on ``n`` threads inside the block: the trainer
+    tests' models are small, and the test run shares the cores between
+    several workers."""
+    import torch
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
