@@ -16,8 +16,13 @@ and JPEG files through the host codec and ``DctCroppedLoader`` into the
 SwinV2 eval; then mixed precision: ViT-B/16 and SwinV2-T under their bf16
 presets, and ViT-Ti in fp16 with the loss scaler; then the trainer users
 run: ``train_and_eval`` with dropout, checkpoints and an exact resume, the
-data-parallel path over NCCL, and the train and eval CLIs.  It checks that
-every kernel of each path was launched and that what comes out is right.
+data-parallel path over NCCL, and the train and eval CLIs; then the CLI's
+default model, ViT-S/16 with the separate DCT embedding, the other
+embeddings at its width (the concatenated one's attention at 294 tokens),
+SwinV2-T's absolute position embedding, the packed and dense transfers
+(the augmentation kernel's dense entry) and the benchmark harness.  It
+checks that every kernel of each path was launched and that what comes out
+is right.
 
 Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
@@ -100,11 +105,33 @@ Phases, each raising on failure (the script then exits non-zero):
  16. cli: ``python -m rgbnomore_tpu_torch.cli --train --eval`` for one
      epoch on the phase-14 corpus writes its weights, and ``python -m
      rgbnomore_tpu_torch.eval --loadpath`` on them reproduces its test
-     result.
+     result;
+ 17. vits: ViT-S/16 as the CLI's defaults build it (``vits``, embed_type 2
+     with sub-blocks, float32) at full width: 1 + 5 train steps at the
+     preset's batch of 1024 (512 where that does not fit the card) with 1
+     wire, 12 #1 and 12 #2 launches a step, finite falling losses, the peak
+     memory; one step card vs CPU at 2 images; the stages and kernels of a
+     step; 512 images through the eval;
+ 18. embed: ViT-S's width at batch 256, 1 + 3 train steps and 512 eval
+     images each for embed_type 2 without sub-blocks, embed_type 3 (294
+     tokens: #1 and #2 at N = 294) and embed_type 3 under bf16 (#1h's tiled
+     kernel and #2h's key groups at N = 294, none of the float32 kernels);
+ 19. ape: SwinV2-T with its absolute position embedding, one train step and
+     one eval batch, logits card vs CPU;
+ 20. packed: ViT-Ti through ``Trainer(transfer="packed")`` and ``"dense"``
+     on the phase-14 JPEGs, 1 + 3 train steps each with 1 launch of #5's
+     dense entry a step and none of its wire reader, one eval batch, the
+     pipeline stage card vs CPU;
+ 21. benchmark: ``python -m rgbnomore_tpu_torch.cli --benchmark 20`` prints
+     the six FPS metrics, each > 0, and ``python -m rgbnomore_tpu_torch.bench``
+     its one line.
 
-On every path the input stage is one launch of the augmentation kernel's
-wire reader per eval batch and per train step, with no launch of its dense
-entry and no call of the plain unpack.
+Phase 3 also holds #1, #2, #1h and #2h (bf16) at ViT-S's shapes (256, 6,
+196, 64) and (256, 6, 294, 64).  On every cropped path the input stage is
+one launch of the augmentation kernel's wire reader per eval batch and per
+train step, with no launch of its dense entry and no call of the plain
+unpack; on the packed and dense paths it is one launch of the dense entry
+per train step.
 
 Every comparison of a SwinV2 first sets the scales of its blocks'
 res-post norms, which start at 0 (each block then is the identity and no
@@ -123,6 +150,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -227,6 +255,29 @@ TRAINER_STEPS = 3  # max_steps_per_epoch
 TRAINER_EPOCHS = 2
 TRAINER_DROP = 0.1
 DROP_AB_STEPS = 10  # counted steps of each side of the dropout A/B, after a warm-up
+# ViT-S/16 (the CLI's defaults: vits, embed_type 2 with sub-blocks), float32:
+# the attention kernels at its 196 tokens and at embed_type 3's 294
+# (196 luma + 2 x 49 chroma tokens), 6 heads of 64, scale 1/sqrt(384)
+VITS_ATTN_SHAPES = [(256, 6, 196, 64), (256, 6, 294, 64)]
+VITS_SCALE = 1.0 / math.sqrt(384)
+# the preset's batch of 1024 (a global batch over GPUs) where it fits one
+# card, else 512
+VITS_BATCHES = (1024, 512)
+VITS_TRAIN_STEPS = 5  # counted steps, after one warm-up step
+VITS_CPU_BATCH = 2
+# (tag, generate_config arguments, embedding, tokens) of the embed phase
+EMBED_PATHS = [
+    ("embed2 no_subblock", dict(modelver=2, subblock=False), "PatchEmbeddingDCTSeparate", 196),
+    ("embed3", dict(modelver=3), "PatchEmbeddingDCTConcat", 294),
+    ("embed3 bf16", dict(modelver=3, amp=True, ampdtype="bf16"), "PatchEmbeddingDCTConcat",
+     294),
+]
+EMBED_STEPS = 3  # counted steps of each embed path, after one warm-up step
+PACKED_STEPS = 3  # counted steps of each full-canvas transfer, after one warm-up step
+# the dequantized crop of the full-canvas transfers, card against CPU:
+# float32 sums of up to 512 products of coefficients up to 1,024 in
+# another order; 1e-2 is 1e-5 of the coefficients' range
+PACKED_CROP_ATOL = 1e-2
 # kernel library -> {kernel<template args>: "registers, spill bytes"}, from
 # the build logs' ptxas lines
 PTXAS: dict[str, dict[str, str]] = {}
@@ -901,8 +952,9 @@ def kernel_augpipe() -> dict:
         "name": "fused_flip_aug_range", "route": "cuda",
         "source": "rgbnomore_tpu_torch/csrc/augpipe.cu",
         "replaces": "rgbnomore_tpu/ops/pallas/augpipe.py:345",
-        "entry": "the dense reader (augpipe_fwd): the TPU kernel's own contract; the main "
-                 "paths launch the same kernel's wire reader (augpipe_wire)",
+        "entry": "the dense reader (augpipe_fwd): the TPU kernel's own contract, launched "
+                 "once a train step by the packed and dense transfers; the cropped paths "
+                 "launch the same kernel's wire reader (augpipe_wire)",
         "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "device_ms": dev_ms,
     }
@@ -988,7 +1040,7 @@ def kernel_augpipe_wire() -> dict:
     vit_pipe = make_cropped_train_pipeline(target=GRID, auglist=list(AUGLIST_DCT_VITTI),
                                            num_ops=2, magnitude=3, k=K_TRAIN)
     for fmt in WIRE_FORMATS:  # every format at the ViT-Ti shapes, random rows
-        flip, policy = vit_pipe.draw(gen, BATCH)
+        flip, policy, _ = vit_pipe.draw(gen, BATCH)
         err = held(f"{fmt} random rows ({BATCH}, {GRID}x{GRID})",
                    random_wire_rows(rng, BATCH, GRID, K_TRAIN, fmt), flip, policy, target=GRID,
                    k=K_TRAIN, fmt=fmt, ops_list=list(AUGLIST_DCT_VITTI), num_ops=2, magnitude=3)
@@ -1018,7 +1070,7 @@ def kernel_augpipe_wire() -> dict:
                 kw.update(ops_list=list(auglist), num_ops=2, magnitude=3)
                 pipe = make_cropped_train_pipeline(target=grid, auglist=list(auglist), num_ops=2,
                                                    magnitude=3, k=k)
-                flip, policy = pipe.draw(gen, batch)
+                flip, policy, _ = pipe.draw(gen, batch)
                 max_err = max(max_err, held(f"{tag} ({batch}, {grid}x{grid}, K={k})", rows,
                                             flip, policy, **kw))
             flip, policy = flip.cuda(), tuple(p.cuda() for p in policy)
@@ -1256,6 +1308,122 @@ def kernel_window_attention(gen) -> tuple[dict, dict]:
     return fwd, bwd
 
 
+def kernel_attention_vits(report: dict, gen) -> None:
+    """#1, #2 (float32) and #1h, #2h (bf16) at ViT-S's shapes: the grouped
+    and separate embeddings' 196 tokens and the concatenated one's 294,
+    where #1h takes its tiled kernel with the online softmax and #2h its key
+    groups.  Each against its plain version (the float32 kernels at the
+    Pallas tests' tolerances; bf16 against a float32 reference on the same
+    rounded inputs and against the plain version at twice that), then timed
+    beside the plain version and SDPA, with its device time and bound; kept
+    under each entry's ``vits_shapes``."""
+    import torch
+    import torch.nn.functional as F
+
+    from rgbnomore_tpu_torch.ops.attention import (
+        attention_bwd_plain,
+        attention_plain,
+        fused_attention,
+        fused_attention_bwd,
+        fused_attention_fwd,
+        fused_attention_h16_bwd,
+        fused_attention_h16_fwd,
+    )
+
+    def rel(a, b) -> float:
+        return float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    scale = VITS_SCALE
+    for shape in VITS_ATTN_SHAPES:
+        b, h, n, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            half = dtype == torch.bfloat16
+            fwd, bwd = ((fused_attention_h16_fwd, fused_attention_h16_bwd) if half
+                        else (fused_attention_fwd, fused_attention_bwd))
+            names = (("fused_attention_bf16", "fused_attention_bwd_bf16") if half
+                     else ("fused_attention", "fused_attention_bwd"))
+            tag = "bf16" if half else "float32"
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                          for _ in range(4))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fused_attention(*leaves, scale)
+            out.backward(g)
+            with torch.inference_mode():
+                plain = attention_plain(q, k, v, scale)
+            plain_grads = attention_bwd_plain(q, k, v, g, scale)
+            torch.cuda.synchronize()
+            fwd_err = float((out.detach() - plain).abs().max())
+            bwd_err = max(float((leaf.grad - p).abs().max())
+                          for leaf, p in zip(leaves, plain_grads))
+            if half:
+                ftol, gtol = H16_FWD_TOL["bfloat16"], H16_GRAD_TOL["bfloat16"]
+                with torch.inference_mode():
+                    ref = attention_plain(q.float(), k.float(), v.float(), scale)
+                ref_grads = attention_bwd_plain(q.float(), k.float(), v.float(), g.float(),
+                                                scale)
+                o = out.detach().float()
+                check(torch.allclose(o, ref, **ftol) and torch.allclose(
+                    o, plain.float(), atol=2 * ftol["atol"], rtol=2 * ftol["rtol"]),
+                      f"fused_attention bf16 {shape}: err against float32 "
+                      f"{float((o - ref).abs().max())}, against plain {fwd_err}, beyond {ftol}")
+                g_ref = max(rel(leaf.grad, r) for leaf, r in zip(leaves, ref_grads))
+                g_pair = max(rel(leaf.grad, p) for leaf, p in zip(leaves, plain_grads))
+                check(g_ref <= gtol and g_pair <= 2 * gtol,
+                      f"fused_attention_bwd bf16 {shape}: gradient errors of the largest "
+                      f"entry {g_ref} against float32, {g_pair} against plain; tolerance {gtol}")
+                del ref, ref_grads
+            else:
+                check(torch.allclose(out.detach(), plain, **ATTN_TOL),
+                      f"fused_attention {shape}: max abs err {fwd_err} beyond {ATTN_TOL}")
+                check(all(torch.allclose(leaf.grad, p, **GRAD_TOL)
+                          for leaf, p in zip(leaves, plain_grads)),
+                      f"fused_attention_bwd {shape}: max abs err {bwd_err} beyond {GRAD_TOL}")
+            del leaves, out, plain, plain_grads
+            with torch.inference_mode():
+                rf = {"ms": time_ms(lambda: fwd(q, k, v, scale)),
+                      "device_ms": device_ms(lambda: fwd(q, k, v, scale)),
+                      "plain_ms": time_ms(lambda: attention_plain(q, k, v, scale), reps=10,
+                                          warmup=2),
+                      "library_ms": time_ms(
+                          lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+                      "library_device_ms": device_ms(
+                          lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+                      "max_abs_err": fwd_err}
+            o, lse = fwd(q, k, v, scale, with_lse=True)
+            rb = {"ms": time_ms(lambda: bwd(q, k, v, o, lse, g, scale)),
+                  "device_ms": device_ms(lambda: bwd(q, k, v, o, lse, g, scale)),
+                  "max_abs_err": bwd_err}
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            plain_out = attention_plain(*leaves, scale)
+            rb["plain_ms"] = time_ms(
+                lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True), reps=10,
+                warmup=2)
+            del plain_out
+            sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+            rb["library_ms"] = time_ms(
+                lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+            rb["library_device_ms"] = device_ms(
+                lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+            if half:
+                rf["bound_ms"], rf["bound_by"] = h16_bound_ms(4 * n * n * d * b * h,
+                                                              4 * q.numel() * 2)
+                rb["bound_ms"], rb["bound_by"] = h16_bound_ms(
+                    10 * n * n * d * b * h, 8 * q.numel() * 2 + lse.numel() * 4)
+            else:
+                rf.update(product_kernel_entry(rf["ms"], attention_bound_ms(b, h, n, d)))
+                rb.update(product_kernel_entry(rb["ms"], product_bounds_ms(
+                    10 * n * n * d * b * h, (8 * q.numel() + lse.numel()) * 4)))
+            for name, r in zip(names, (rf, rb)):
+                report[name].setdefault("vits_shapes", {})[str(list(shape))] = r
+                print(f"kernels: {name} {tag} {shape} (ViT-S): {r['ms']:.4f} ms (device "
+                      f"{ms_text(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, sdpa "
+                      f"{r['library_ms']:.4f} ms (device {ms_text(r['library_device_ms'])}); "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); max abs err against "
+                      f"plain {r['max_abs_err']:.2e}", flush=True)
+            del q, k, v, g, o, lse, leaves, sdpa_out
+            torch.cuda.empty_cache()
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -1267,6 +1435,7 @@ def phase_kernels() -> dict:
     report["fused_flip_aug_range"] = kernel_augpipe()
     report["augpipe_wire"] = kernel_augpipe_wire()
     report["window_attention"], report["window_attention_bwd"] = kernel_window_attention(gen)
+    kernel_attention_vits(report, gen)
     return report
 
 
@@ -1304,12 +1473,21 @@ def plain_unpacks():
 
 
 def check_input_stage(report: dict, path: str, launches: dict, unpacks: int, *,
-                      eval_batches: int = 0, train_steps: int = 0) -> None:
-    """One wire launch per eval batch and per train step, no launch of the
-    dense entry and no plain unpack on ``path``; the #5 entries' launches
-    are kept per path, and their ``launches`` is the sum over the paths."""
-    want = {"fused_flip_aug_range": 0, "wire_flip_aug_range": train_steps,
-            "wire_to_range": eval_batches}
+                      eval_batches: int = 0, train_steps: int = 0,
+                      dense_steps: int | None = None) -> None:
+    """On the cropped wire: one wire launch per eval batch and per train
+    step, no launch of the dense entry and no plain unpack on ``path``.  On
+    the full-canvas transfers (``dense_steps`` given): one launch of the
+    dense entry per train step (``dense_steps``) and none of the wire
+    reader; the rows are unpacked, dequantized and cropped by tensor code
+    first.  The #5 entries' launches are kept per path, and their
+    ``launches`` is the sum over the paths."""
+    if dense_steps is None:
+        want = {"fused_flip_aug_range": 0, "wire_flip_aug_range": train_steps,
+                "wire_to_range": eval_batches}
+    else:
+        want, unpacks = {"fused_flip_aug_range": dense_steps, "wire_flip_aug_range": 0,
+                         "wire_to_range": 0}, 0
     got = {name: launches[name] for name in want}
     check(got == want and unpacks == 0,
           f"{path}: input stage launches {got} and {unpacks} plain unpacks; want {want} and none")
@@ -1568,7 +1746,7 @@ def phase_train_breakdown(trainer, packed, tag: str = "breakdown") -> None:
         draws = trainer.draw(batch)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
-        y, c, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy)
+        y, c, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy, draws.crop)
         extra = {} if draws.drop_keep is None else {"drop_keep": draws.drop_keep.cuda()}
         if draws.dropout is not None:
             extra["dropout"] = draws.dropout
@@ -2561,6 +2739,450 @@ def phase_cli(tmp: str, index_train: str, index_val: str) -> None:
     print("cli: the eval CLI on the run's weights file reproduces its test result", flush=True)
 
 
+# ------------------------------------------------- ViT-S, embeddings, APE
+def vits_config(**kw):
+    """ViT-S/16 as the CLI's defaults build it (``--model_arch vits
+    --embed_type 2``: 12 x 384, 6 heads of 64, the separate sub-block DCT
+    embedding, 28x28 blocks = 196 tokens, 1000 classes, float32, lr 3e-3,
+    the preset's global batch of 1024); warmup 1 over one epoch, so that a
+    few steps move the loss.  ``kw`` overrides ``generate_config``'s
+    arguments."""
+    from rgbnomore_tpu_torch.train.config import generate_config
+
+    args = dict(modelver=2, subblock=True, seed=SEED, epochs=1, warmup_steps=1)
+    cfg = generate_config("vits", "dct", **{**args, **kw})
+    m = cfg.model
+    check(m.embed_size == 384 and m.depth == 12 and m.heads == 6 and m.head_size == 64
+          and m.dct_blocks == GRID and m.classes == 1000 and m.patch_size == 16
+          and cfg.train.lr == 3e-3, f"the vits preset changed: {cfg}")
+    return cfg
+
+
+def record_launches(report: dict, path: str, launches: dict) -> None:
+    """Keep each attention and window kernel's launches on ``path`` under its
+    report entry's ``launches_by_path`` (the half-precision wrappers' count
+    under the entry of the path's dtype, bf16 here)."""
+    names = {"fused_attention": "fused_attention", "fused_attention_bwd": "fused_attention_bwd",
+             "fused_attention_h16": "fused_attention_bf16",
+             "fused_attention_h16_bwd": "fused_attention_bwd_bf16",
+             "window_attention": "window_attention",
+             "window_attention_bwd": "window_attention_bwd"}
+    for wrapper, entry in names.items():
+        if launches.get(wrapper):
+            report[entry].setdefault("launches_by_path", {})[path] = launches[wrapper]
+
+
+def vit_rows(rng: np.random.Generator, n: int, k: int, classes: int = 1000) -> np.ndarray:
+    """``n`` rows of the ViT's 28x28 grid on the K-``k`` wire, labels
+    ``arange % classes``."""
+    y, c = synthetic_planes(rng, n, GRID)
+    return write_rows(y, c, (np.arange(n) % classes).astype(np.int32), k)
+
+
+def used_class_loss(trainer, packed, draws) -> float:
+    """The batch's cross-entropy over only the classes its labels use, in
+    eval mode, without mixup, on one fixed draw.  The head's bias cannot
+    lower it by pushing the unused classes' logits down, so it falls only
+    as the model tells the used classes apart."""
+    import torch
+
+    trainer.model.eval()
+    with torch.inference_mode():
+        y, c, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy, draws.crop)
+        labels = labels.long()
+        used = torch.unique(labels)
+        logits = trainer.model(y, c).float()[:, used]
+        return float(torch.nn.functional.cross_entropy(logits, torch.searchsorted(used, labels)))
+
+
+def train_path(report: dict, tag: str, trainer, packed, steps: int, want: dict) -> list[float]:
+    """1 + ``steps`` train steps on one resident batch: the launches of the
+    counted steps (1 wire launch a step, ``want`` of the attention kernels,
+    no other), finite losses, the last below the first; returns the
+    losses.  With few steps and rows that leave classes unused, the falling
+    loss is a check of the head and of the gradient path only: the head's
+    bias lowers it by pushing the unused classes' logits down, and
+    ``step_card_vs_cpu`` holds the backbone's gradients.  The loss over
+    the used classes (``used_class_loss``) before and after the steps is
+    printed beside it, and not checked."""
+    import torch
+
+    fixed = trainer.draw(packed.shape[0])
+    used_before = used_class_loss(trainer, packed, fixed)
+    losses = [trainer.train_step(packed)]  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(trainer.train_step(packed))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    launches = all_launches()
+    check_input_stage(report, tag.replace(" ", "_"), launches, len(unpacks), train_steps=steps)
+    check_launches(tag, launches, want)
+    record_launches(report, tag.replace(" ", "_"), launches)
+    losses = [float(v) for v in losses]
+    batch = packed.shape[0]
+    used_after = used_class_loss(trainer, packed, fixed)
+    print(f"{tag}: {steps} steps of {batch} in {train_s:.3f} s, {steps * batch / train_s:.1f} "
+          f"img/s (pipeline + step, one resident batch) | launches {launches} | losses "
+          f"{[round(v, 4) for v in losses]} | loss over the used classes, eval mode, one "
+          f"fixed draw: {used_before:.5f} -> {used_after:.5f}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"{tag}: losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"{tag}: loss did not fall over {steps} steps: {losses}")
+    return losses
+
+
+def eval_path(report: dict, tag: str, trainer, want_per_batch: dict) -> None:
+    """``N_IMAGES`` on the K=48 wire through ``Trainer.evaluate`` in batches
+    of ``BATCH``: one wire launch and ``want_per_batch`` attention launches
+    per batch, finite sums over every image."""
+    rng = np.random.default_rng(SEED + 11)
+    rows = vit_rows(rng, N_IMAGES, K_EVAL)
+    batches = [{"packed": rows[i:i + BATCH]} for i in range(0, N_IMAGES, BATCH)]
+    trainer.evaluate(batches[:1])  # warm-up
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        res = trainer.evaluate(batches)
+        eval_s = time.perf_counter() - t0
+    launches = all_launches()
+    check_input_stage(report, tag.replace(" ", "_"), launches, len(unpacks),
+                      eval_batches=len(batches))
+    check_launches(tag, launches, {k: v * len(batches) for k, v in want_per_batch.items()})
+    record_launches(report, tag.replace(" ", "_"), launches)
+    check(res["count"] == N_IMAGES and math.isfinite(res["loss"])
+          and math.isfinite(res["accuracy"]), f"{tag}: eval gave {res}")
+    print(f"{tag}: {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + forward, rows "
+          f"premade, batches of {BATCH}) | launches {launches}", flush=True)
+
+
+def phase_vits(report: dict):
+    """ViT-S/16 with the CLI's default embedding at full width: 1 + 5 train
+    steps at the preset's batch of 1024 (512 where 1024 does not fit one
+    card: the preset's batch is the global one) with 1 wire, 12 #1 and 12 #2
+    launches a step, finite falling losses, the peak memory; then 512
+    images through the eval."""
+    import gc
+
+    import torch
+
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(SEED + 10)
+    for batch in VITS_BATCHES:
+        cfg = vits_config(batchsize=batch)
+        trainer = Trainer(cfg, device="cuda")
+        embed = type(trainer.model.patchembed).__name__
+        check(embed == "PatchEmbeddingDCTSeparateSubblock" and trainer.compute_dtype ==
+              torch.float32, f"vits builds {embed} in {trainer.compute_dtype}")
+        trainer.create_state(steps_per_epoch=VITS_TRAIN_STEPS + 1)
+        # labels of 256 classes, as phase 6's: the 744 unused classes' logits
+        # make the loss fall in a few steps (with every class of a batch of
+        # 1,024 used once, 5 steps from ln 1000 move it by less than its
+        # noise); the falling loss checks the head and the gradient path,
+        # step_card_vs_cpu the backbone's gradients (train_path)
+        rows = vit_rows(rng, batch, K_TRAIN, classes=BATCH)
+        packed = trainer.put_batch({"packed": rows})["packed"]
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            train_path(report, "vits train", trainer, packed, VITS_TRAIN_STEPS,
+                       {"fused_attention": 12 * VITS_TRAIN_STEPS,
+                        "fused_attention_bwd": 12 * VITS_TRAIN_STEPS})
+        except torch.cuda.OutOfMemoryError as exc:
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"vits train: batch {batch} does not fit one card (peak {peak:.2f} GiB "
+                  f"before: {str(exc).splitlines()[0]})", flush=True)
+            del trainer, packed, exc
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"vits train: batch {batch}, peak memory {peak:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated)", flush=True)
+        break
+    else:
+        check(False, f"vits train: no batch of {VITS_BATCHES} fits one card")
+    step_card_vs_cpu("vits train", vits_config(batchsize=VITS_CPU_BATCH),
+                     rows[:VITS_CPU_BATCH])
+    phase_train_breakdown(trainer, packed, "vits breakdown")
+    eval_path(report, "vits eval", trainer, {"fused_attention": 12})
+    del trainer, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_embed(report: dict) -> None:
+    """ViT-S's width with the other embeddings, at batch 256: 1 + 3 train
+    steps and 512 images through the eval each, for embed_type 2 without
+    sub-blocks (196 tokens), embed_type 3 in float32 (294 tokens: #1 and #2
+    at N = 294) and embed_type 3 under bf16 AMP (#1h's tiled kernel and
+    #2h's key groups at N = 294, none of the float32 kernels)."""
+    import gc
+
+    import torch
+
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(SEED + 12)
+    for tag, kw, embed, tokens in EMBED_PATHS:
+        cfg = vits_config(batchsize=BATCH, **kw)
+        trainer = Trainer(cfg, device="cuda")
+        got = type(trainer.model.patchembed).__name__
+        with torch.inference_mode():
+            y = torch.zeros((1, 1, GRID, GRID, 8, 8), device="cuda")
+            c = torch.zeros((1, 2, GRID // 2, GRID // 2, 8, 8), device="cuda")
+            n = trainer.model.patchembed(y, c).shape[1]
+        check(got == embed and n == tokens, f"{tag}: {got} with {n} tokens, want {embed}, "
+              f"{tokens}")
+        half = trainer.compute_dtype == torch.bfloat16
+        fwd, bwd = (("fused_attention_h16", "fused_attention_h16_bwd") if half
+                    else ("fused_attention", "fused_attention_bwd"))
+        trainer.create_state(steps_per_epoch=EMBED_STEPS + 1)
+        packed = trainer.put_batch({"packed": vit_rows(rng, BATCH, K_TRAIN)})["packed"]
+        print(f"{tag}: {got}, {n} tokens, {trainer.compute_dtype}", flush=True)
+        train_path(report, f"{tag} train", trainer, packed, EMBED_STEPS,
+                   {fwd: 12 * EMBED_STEPS, bwd: 12 * EMBED_STEPS})
+        eval_path(report, f"{tag} eval", trainer, {fwd: 12})
+        del trainer, packed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_ape(report: dict) -> None:
+    """SwinV2-T (float32) with its absolute position embedding (``ape``,
+    drawn at N(0, 1) so that it moves the logits, norms perturbed): one
+    train step at batch 128 (1 wire, 12 window forward and 24 backward
+    launches) and one eval batch of 256 (1 wire, 12 window launches); the
+    logits of 4 images on the card against the CPU."""
+    import copy
+
+    import torch
+
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    cfg = swin_config(SWIN_TRAIN_BATCH, epochs=1, warmup_steps=1, lr=3e-3)
+    cfg.model.ape = True
+    trainer = Trainer(cfg, device="cuda")
+    ape = trainer.model.absolute_pos_embed
+    check(ape is not None and tuple(ape.shape) == (1, 64 * 64, 96),
+          f"ape: absolute_pos_embed {None if ape is None else tuple(ape.shape)}")
+    perturb_norms(trainer.model)
+    with torch.no_grad():
+        ape.copy_(torch.randn(ape.shape, generator=torch.Generator().manual_seed(SEED)))
+    cpu_model = copy.deepcopy(trainer.model).cpu().eval()
+    trainer.create_state(steps_per_epoch=2)
+    rng = np.random.default_rng(SEED + 13)
+    y, c = synthetic_planes(rng, SWIN_TRAIN_BATCH, SWIN_GRID)
+    rows = write_rows(y, c, (np.arange(SWIN_TRAIN_BATCH) % 1000).astype(np.int32), K_TRAIN)
+    packed = trainer.put_batch({"packed": rows})["packed"]
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        loss = float(trainer.train_step(packed))
+        torch.cuda.synchronize()
+    launches = all_launches()
+    check_input_stage(report, "ape_train", launches, len(unpacks), train_steps=1)
+    check_launches("ape train", launches, {"window_attention": 12, "window_attention_bwd": 24})
+    record_launches(report, "ape_train", launches)
+    check(math.isfinite(loss) and ape.grad is not None and bool(ape.grad.abs().max() > 0),
+          f"ape train: loss {loss}, the embedding got no gradient")
+    y, c = synthetic_planes(rng, SWIN_EVAL_BATCH, SWIN_GRID)
+    rows = write_rows(y, c, (np.arange(SWIN_EVAL_BATCH) % 1000).astype(np.int32), K_EVAL)
+    trainer.model.load_state_dict(cpu_model.state_dict())  # the weights before the step
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        res = trainer.evaluate([{"packed": rows}])
+    launches = all_launches()
+    check_input_stage(report, "ape_eval", launches, len(unpacks), eval_batches=1)
+    check_launches("ape eval", launches, {"window_attention": 12})
+    record_launches(report, "ape_eval", launches)
+    check(res["count"] == SWIN_EVAL_BATCH and math.isfinite(res["loss"]),
+          f"ape eval gave {res}")
+    without = copy.deepcopy(cpu_model)
+    with torch.no_grad():
+        without.absolute_pos_embed.zero_()
+    with torch.inference_mode():
+        yd, cd, _, _ = trainer.eval_pipe(trainer.put_batch({"packed": rows})["packed"])
+        yd, cd = yd[:SWIN_CPU_BATCH], cd[:SWIN_CPU_BATCH]
+        got = trainer.model.eval()(yd, cd).cpu()
+        want = cpu_model(yd.cpu(), cd.cpu())
+        moved = float((without(yd.cpu(), cd.cpu()) - want).abs().max())
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **LOGIT_TOL),
+          f"ape: logits card vs CPU max abs err {err} beyond {LOGIT_TOL}")
+    check(moved > 100 * LOGIT_TOL["atol"], f"ape: the embedding moves the logits by {moved}")
+    print(f"ape: train loss {loss:.4f}, eval {res}; logits card vs CPU max abs err {err:.3e} "
+          f"(the embedding moves them by {moved:.3f})", flush=True)
+
+
+def phase_packed(report: dict, index_train: str, index_val: str) -> None:
+    """ViT-Ti through ``Trainer(transfer="packed")`` (``DctPackedLoader``,
+    the mask wire at K=16 on the 64-block canvas) and ``"dense"``
+    (``DctCanvasLoader``) on the trainer corpus: 1 + 3 train steps each, 1
+    launch of #5's dense entry a step and none of its wire reader; one eval
+    batch; the pipeline stage on the card against the CPU on the same batch
+    and draws: the dequantized crop, then the dense entry against its plain
+    version on the card's crop."""
+    import torch
+
+    from rgbnomore_tpu_torch.ops.augpipe import flip_aug_range_plain
+    from rgbnomore_tpu_torch.train.loop import Trainer, make_loaders
+
+    for transfer in ("packed", "dense"):
+        cfg = trainer_config(epochs=1, warmup_steps=1, drop=0.0, deterministic=False)
+        trainer = Trainer(cfg, device="cuda", transfer=transfer)
+        loaders = make_loaders(cfg, index_train, index_val, num_threads=8,
+                               global_batch=BATCH, transfer=transfer)
+        batches = [b for _, b in zip(range(PACKED_STEPS + 1), loaders["train"])]
+        check(len(batches) == PACKED_STEPS + 1, f"{transfer}: {len(batches)} train batches")
+        trainer.create_state(steps_per_epoch=PACKED_STEPS + 1)
+        losses = [float(trainer.train_step(trainer.upload(batches[0])))]  # warm-up
+        inputs = [trainer.upload(b) for b in batches[1:]]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for x in inputs:
+            losses.append(trainer.train_step(x))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = all_launches()
+        check_input_stage(report, f"{transfer}_train", launches, 0,
+                          dense_steps=PACKED_STEPS)
+        check_launches(f"{transfer} train", launches,
+                       {"fused_attention": 12 * PACKED_STEPS,
+                        "fused_attention_bwd": 12 * PACKED_STEPS})
+        record_launches(report, f"{transfer}_train", launches)
+        losses = [float(v) for v in losses]
+        check(all(math.isfinite(v) for v in losses), f"{transfer}: losses {losses}")
+        print(f"{transfer} train: {PACKED_STEPS} steps of {BATCH} in {train_s:.3f} s, "
+              f"{PACKED_STEPS * BATCH / train_s:.1f} img/s (batches uploaded first) | launches "
+              f"{launches} | losses {[round(v, 4) for v in losses]}", flush=True)
+
+        test = next(iter(loaders["test"]))
+        reset_launches()
+        res = trainer.evaluate([test])
+        launches = all_launches()
+        check_input_stage(report, f"{transfer}_eval", launches, 0, dense_steps=0)
+        check_launches(f"{transfer} eval", launches, {"fused_attention": 12})
+        record_launches(report, f"{transfer}_eval", launches)
+        check(res["count"] == BATCH and math.isfinite(res["loss"]),
+              f"{transfer} eval gave {res}")
+        print(f"{transfer} eval: {res} | launches {launches}", flush=True)
+
+        # the stage on the card against the CPU, the same batch and draws
+        cpu = Trainer(cfg, device="cpu", transfer=transfer)
+        draws = cpu.draw(BATCH)
+        pipe, cpu_pipe = trainer.train_pipe, cpu.train_pipe
+        with torch.inference_mode():
+            card_in, cpu_in = trainer.upload(batches[1]), cpu.upload(batches[1])
+            yd, cd, _, _ = pipe.dequantized(card_in)
+            yd, cd = pipe.rrc.crop(yd, cd, draws.crop)
+            yc, cc, _, _ = cpu_pipe.dequantized(cpu_in)
+            yc, cc = cpu_pipe.rrc.crop(yc, cc, draws.crop)
+            crop_err = max(float((yd.cpu() - yc).abs().max()), float((cd.cpu() - cc).abs().max()))
+            reset_launches()
+            got = pipe(card_in, draws.flip, draws.policy, draws.crop)
+            check(all_launches()["fused_flip_aug_range"] == 1,
+                  f"{transfer}: the stage did not launch the dense entry once")
+            want = flip_aug_range_plain(yd.cpu(), cd.cpu(), draws.policy, draws.flip,
+                                        ops_list=pipe.ops_list, num_ops=pipe.num_ops,
+                                        magnitude=pipe.magnitude)
+            cpu_out = cpu_pipe(cpu_in, draws.flip, draws.policy, draws.crop)
+        kern_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got[:2], want))
+        stage_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got[:2], cpu_out[:2]))
+        check(crop_err <= PACKED_CROP_ATOL,
+              f"{transfer}: crop card vs CPU max abs err {crop_err} beyond {PACKED_CROP_ATOL}")
+        check(kern_err <= AUG_TOL["atol"],
+              f"{transfer}: dense entry vs plain max abs err {kern_err} beyond {AUG_TOL}")
+        check(torch.equal(got[2].cpu(), cpu_out[2]) and torch.equal(got[3].cpu(), cpu_out[3]),
+              f"{transfer}: labels or weights differ card vs CPU")
+        print(f"{transfer}: pipeline stage card vs CPU: crop max abs err {crop_err:.3e} "
+              f"(coefficients up to {float(yc.abs().max()):.1f}), dense entry vs plain "
+              f"{kern_err:.3e}, whole stage {stage_err:.3e}", flush=True)
+        packed_stage_split(transfer, pipe, card_in, draws)
+        del trainer, cpu, inputs, batches
+
+
+def packed_stage_split(transfer: str, pipe, inputs, draws) -> None:
+    """Where the full-canvas train stage's time goes on the card: the
+    unpack of the packed rows (none for the dense canvases), the
+    dequantization, the random resized crop's two batched products and #5's
+    dense entry, each alone (``utils.timing.timeit_fifo``, CUDA events), and
+    the whole stage as ``Trainer.train_step`` runs it."""
+    import torch
+
+    from rgbnomore_tpu_torch.augment.pipeline import (
+        dequantize,
+        split_packed_batch,
+        unpack_fields,
+    )
+    from rgbnomore_tpu_torch.ops.augpipe import fused_flip_aug_range
+    from rgbnomore_tpu_torch.utils.timing import timeit_fifo
+
+    def unpack(x):
+        if not pipe.packed:
+            return x["y"], x["cbcr"], x["quant"]
+        f = split_packed_batch(x, pipe.canvas, pipe.k, pipe.fmt)
+        return (*unpack_fields(f, pipe.fmt), f["quant"])
+
+    with torch.inference_mode():
+        yq, cq, quant = unpack(inputs)
+        yd, cd = dequantize(yq, cq, quant)
+        yr, cr = pipe.rrc.crop(yd, cd, draws.crop)
+        parts = {
+            "unpack": (unpack, (inputs,)),
+            "dequantize": (dequantize, (yq, cq, quant)),
+            "crop": (pipe.rrc.crop, (yd, cd, draws.crop)),
+            "dense entry #5": (lambda y, c: fused_flip_aug_range(
+                y, c, draws.policy, draws.flip, ops_list=pipe.ops_list,
+                num_ops=pipe.num_ops, magnitude=pipe.magnitude), (yr, cr)),
+            "whole stage": (pipe, (inputs, draws.flip, draws.policy, draws.crop)),
+        }
+        if not pipe.packed:
+            del parts["unpack"]  # the dense canvases arrive unpacked
+        ms = {name: 1e3 * timeit_fifo(fn, args, depth=10, repeats=5)
+              for name, (fn, args) in parts.items()}
+    print(f"{transfer} stage split (batch {yd.shape[0]}, {pipe.canvas}-block canvas): "
+          + ", ".join(f"{name} {v:.3f} ms" for name, v in ms.items()), flush=True)
+
+
+def phase_benchmark(index_train: str, index_val: str) -> None:
+    """The harness users run: ``python -m rgbnomore_tpu_torch.cli
+    --benchmark 20`` for ViT-Ti on the trainer corpus at batch 64 (so that
+    the 256 test files make 4 batches) prints the six FPS metrics, each >
+    0; ``python -m rgbnomore_tpu_torch.bench`` (loader threads 8) prints its
+    one line with ``value`` and ``device_step_imgs_per_sec`` > 0 and no
+    ``vs_baseline``."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    runs = (("benchmark", ["-m", "rgbnomore_tpu_torch.cli", "--benchmark", "20", "--model_arch",
+                           "vitti", "--embed_type", "1", "--indexpaths",
+                           f"{index_train},{index_val}", "--batch", "64", "--seed", str(SEED),
+                           "--num_cpus", "8", "--verbose", "0"]),
+            ("bench", ["-m", "rgbnomore_tpu_torch.bench"]))
+    out, lines = {}, {}
+    for name, args in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, *args], cwd=root, capture_output=True, text=True,
+                             timeout=900, env={**os.environ, "RGBNM_BENCH_THREADS": "8"})
+        check(res.returncode == 0, f"{name}: exit {res.returncode}: {res.stdout[-2000:]} "
+              f"{res.stderr[-4000:]}")
+        lines[name] = res.stdout.strip().splitlines()
+        out[name] = json.loads(lines[name][-1])
+        print(f"{name}: python {' '.join(args[:2])} exited 0 in "
+              f"{time.perf_counter() - t0:.1f} s: {out[name]}", flush=True)
+    six = {"train_loader_fps", "test_loader_fps", "model_fbp_fps", "model_fwd_fps",
+           "train_pipeline_fps", "test_pipeline_fps"}
+    check(set(out["benchmark"]) == six and all(v > 0 for v in out["benchmark"].values()),
+          f"benchmark: {out['benchmark']}")
+    line = out["bench"]
+    check(len(lines["bench"]) == 1 and "error" not in line and "vs_baseline" not in line
+          and line.get("value", 0) > 0 and line.get("device_step_imgs_per_sec", 0) > 0
+          and line.get("n_gpus", 0) >= 1, f"bench printed {lines['bench']}")
+
+
 def main() -> int:
     import torch
 
@@ -2610,11 +3232,16 @@ def main() -> int:
     phase_dropout_cost(vit_rows)
     from rgbnomore_tpu_torch.ops.cuda_build import BUILD_DIR
 
+    phase_vits(report)
+    phase_embed(report)
+    phase_ape(report)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         index_train, index_val = write_trainer_corpus(tmp)
         phase_trainer(tmp, index_train, index_val)
         phase_ddp()
         phase_cli(tmp, index_train, index_val)
+        phase_packed(report, index_train, index_val)
+        phase_benchmark(index_train, index_val)
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

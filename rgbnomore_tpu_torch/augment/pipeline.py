@@ -1,8 +1,19 @@
-"""The device half of the cropped DCT input pipelines, eval and train.
+"""The device half of the DCT input pipelines, eval and train.
 
-Port of the cropped-wire paths of ``rgbnomore_tpu/augment/pipeline.py``:
-re-slice the consolidated ``(B, row)`` uint8 buffer into typed fields,
-unpack the mask16 wire to dense dequantized coefficients, then for eval
+Port of the DCT paths of ``rgbnomore_tpu/augment/pipeline.py``.
+
+The full-canvas transfers (``make_train_pipeline``, ``make_eval_pipeline``;
+the JAX Trainer's ``transfer="packed"`` and ``"dense"``) take the packed
+rows of ``DctPackedLoader`` (mask, index or mask16 format) or the dense
+int16 canvases of ``DctCanvasLoader``, then unpack -> dequantize -> crop on
+the device: for training a random resized crop (``augment/crops.py``) ->
+flip + RandAugment + ToRange, which on a CUDA tensor is one launch of the
+kernel's dense entry (``ops.augpipe.fused_flip_aug_range``); for eval the
+center crop (ViT) or the whole-image resize (SwinV2) -> ToRange.
+
+The cropped transfer (``make_cropped_*_pipeline``): re-slice the
+consolidated ``(B, row)`` uint8 buffer into typed fields, unpack the mask16
+wire to dense dequantized coefficients, then for eval
 rescale to [-1, 1], and for training run flip -> RandAugment -> ToRange.
 On a CUDA buffer each stage is one launch of the CUDA kernel's wire reader,
 which reads the rows itself (``ops.augpipe.wire_to_range`` for eval,
@@ -21,10 +32,19 @@ from typing import Callable
 import numpy as np
 import torch
 
+from rgbnomore_tpu_torch.augment.crops import (
+    make_center_crop_resize,
+    make_full_resize,
+    make_random_resized_crop,
+)
 from rgbnomore_tpu_torch.augment.randaugment import RandAugmentDCT
 from rgbnomore_tpu_torch.data.loader import packed_layout
 from rgbnomore_tpu_torch.ops import blocks
-from rgbnomore_tpu_torch.ops.augpipe import wire_flip_aug_range, wire_to_range
+from rgbnomore_tpu_torch.ops.augpipe import (
+    fused_flip_aug_range,
+    wire_flip_aug_range,
+    wire_to_range,
+)
 from rgbnomore_tpu_torch.ops.photometric import DCT_MAX, DCT_MIN
 
 __all__ = [
@@ -32,6 +52,7 @@ __all__ = [
     "DCT_MAX",
     "dequantize",
     "split_packed_batch",
+    "unpack_coefficients",
     "unpack_coefficients_mask",
     "unpack_fields",
     "unpack_cropped",
@@ -39,7 +60,10 @@ __all__ = [
     "random_flip",
     "make_cropped_eval_pipeline",
     "make_cropped_train_pipeline",
+    "make_eval_pipeline",
+    "make_train_pipeline",
     "CroppedTrainPipeline",
+    "TrainPipeline",
 ]
 
 _TORCH_DTYPES = {
@@ -79,6 +103,22 @@ def split_packed_batch(packed: torch.Tensor, canvas: int, k: int, fmt: str = "ma
     return out
 
 
+def unpack_coefficients(values: torch.Tensor, indices: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """Decompress top-K blocks of the ``index`` format to dense coefficients.
+
+    ``values`` (..., H, W, K) int8, ``indices`` (..., H, W, K) uint8 block
+    positions, ``scales`` (..., H, W) uint8.  Each value times its block's
+    scale is added at its position: the JAX version's compare-and-reduce
+    over the 64 positions, as a scatter-add of the same terms.  Returns
+    (..., H, W, 8, 8) float32.
+    """
+    vals = values.to(torch.float32) * scales[..., None].to(torch.float32)
+    dense = torch.zeros(vals.shape[:-1] + (64,), dtype=torch.float32, device=vals.device)
+    dense.scatter_add_(-1, indices.to(torch.int64), vals)
+    return dense.reshape(dense.shape[:-1] + (8, 8))
+
+
 def unpack_coefficients_mask(values: torch.Tensor, mask: torch.Tensor,
                              scales: torch.Tensor) -> torch.Tensor:
     """Decompress bitmask-packed blocks to dense coefficients.
@@ -106,12 +146,15 @@ def unpack_coefficients_mask(values: torch.Tensor, mask: torch.Tensor,
 
 
 def unpack_fields(f: dict, fmt: str):
-    """Decompress a split mask16 batch to dense (y, c) coefficients with the
-    exact int16 DC plane written into position (0, 0)."""
-    y = unpack_coefficients_mask(f["vy"], f["iy"], f["sy"])
-    c = unpack_coefficients_mask(f["vc"], f["ic"], f["sc"])
-    y[..., 0, 0] = f["dy"].to(torch.float32)
-    c[..., 0, 0] = f["dc"].to(torch.float32)
+    """Decompress a split packed batch to dense (y, c) coefficients under any
+    wire format (``data.loader.packed_layout``); the mask16 family writes
+    its exact int16 DC plane into position (0, 0)."""
+    unpack = unpack_coefficients if fmt == "index" else unpack_coefficients_mask
+    y = unpack(f["vy"], f["iy"], f["sy"])
+    c = unpack(f["vc"], f["ic"], f["sc"])
+    if fmt.startswith("mask16"):
+        y[..., 0, 0] = f["dy"].to(torch.float32)
+        c[..., 0, 0] = f["dc"].to(torch.float32)
     return y, c
 
 
@@ -187,10 +230,11 @@ class CroppedTrainPipeline:
     The host already dequantized, cropped and resized to the target grid, so
     the device path is unpack -> flip -> RandAugment -> ToRange, all four in
     one ``wire_flip_aug_range`` (one launch of the CUDA kernel on a CUDA
-    buffer, its plain version on a CPU one).  ``pipe(packed, flip, policy) -> (y,
-    cbcr, labels, weights)`` takes the draws explicitly; ``pipe.draw(
-    generator, batch)`` makes them, as the JAX pipeline does from its key
-    (``pipeline.py:384-389``).
+    buffer, its plain version on a CPU one).  ``pipe(packed, flip, policy,
+    crop=None) -> (y, cbcr, labels, weights)`` takes the draws explicitly;
+    ``pipe.draw(generator, batch)`` makes them, as the JAX pipeline does from
+    its key (``pipeline.py:384-389``).  Both train pipelines take and draw
+    ``(flip, policy, crop)``; here ``crop`` is None, since the host cropped.
     """
 
     def __init__(self, target: int, ops_list, num_ops: int, magnitude: int, k: int,
@@ -201,12 +245,14 @@ class CroppedTrainPipeline:
                                   magnitude=magnitude, grid=target)
 
     def draw(self, generator: torch.Generator, batch: int):
-        """``(flip (B,) bool, policy)`` on the generator's device: each
+        """``(flip (B,) bool, policy, None)`` on the generator's device: each
         sample flips with probability 1/2, then ``draw_policy``."""
         flip = torch.rand(batch, generator=generator, device=generator.device) < 0.5
-        return flip, self.aug.draw_policy(generator, batch, self.target, self.target)
+        return flip, self.aug.draw_policy(generator, batch, self.target, self.target), None
 
-    def __call__(self, packed_buf: torch.Tensor, flip: torch.Tensor, policy):
+    def __call__(self, packed_buf: torch.Tensor, flip: torch.Tensor, policy, crop=None):
+        if crop is not None:
+            raise ValueError("the cropped wire is cropped on the host: crop must be None")
         f = split_packed_batch(packed_buf, self.target, self.k, self.fmt,
                                names=("labels", "weights"))
         y, c = wire_flip_aug_range(packed_buf, flip, policy, target=self.target, k=self.k,
@@ -226,3 +272,101 @@ def make_cropped_train_pipeline(cfg=None, *, target: int = 28, auglist=None,
         num_ops = cfg.train.num_ops
         magnitude = cfg.train.augstr
     return CroppedTrainPipeline(target, list(auglist or []), num_ops, magnitude, k, fmt)
+
+
+class TrainPipeline:
+    """Train pipeline of the full-canvas transfers (``make_train_pipeline``,
+    the JAX ``pipeline.py:280-329``): the imagenet_dct train chain
+    (``datasets.py:354-361``), RandomResizedCrop(target, scale 0.05-1,
+    ratio 1:1) -> HFlip -> RandAugment(num_ops, magnitude) -> ToRange(-1, 1),
+    on the device.
+
+    ``pipe(inputs, flip, policy, crop) -> (y, cbcr, labels, weights)``:
+    ``inputs`` is the (B, row) uint8 tensor of ``DctPackedLoader`` rows
+    (``packed``) or the dict of ``DctCanvasLoader``'s tensors (dense), which
+    is unpacked and dequantized, cropped to ``target`` blocks by the boxes
+    ``crop``, then flipped, augmented and rescaled in one
+    ``fused_flip_aug_range`` (one launch of the kernel's dense entry on a
+    CUDA tensor, its plain version on a CPU one).  ``pipe.draw(generator,
+    batch)`` makes the draws ``(flip, policy, crop)``: the boxes, then the
+    flip bits and the policy, all from the one generator (JAX splits its key
+    in three for them, ``pipeline.py:312``).
+    """
+
+    def __init__(self, target: int, canvas: int, ops_list, num_ops: int, magnitude: int, *,
+                 packed: bool, fmt: str, k: int):
+        self.target, self.canvas = target, canvas
+        self.packed, self.fmt, self.k = packed, fmt, k
+        self.ops_list, self.num_ops, self.magnitude = list(ops_list), num_ops, magnitude
+        self.rrc = make_random_resized_crop(target, canvas)
+        self.aug = RandAugmentDCT(ops_list=self.ops_list, num_ops=num_ops,
+                                  magnitude=magnitude, grid=target)
+
+    def draw(self, generator: torch.Generator, batch: int):
+        crop = self.rrc.draw(generator, batch)
+        flip = torch.rand(batch, generator=generator, device=generator.device) < 0.5
+        return flip, self.aug.draw_policy(generator, batch, self.target, self.target), crop
+
+    def dequantized(self, inputs):
+        """``(y, cbcr, labels, weights)``: the dequantized canvases."""
+        return _dequantized_canvases(inputs, self.packed, self.canvas, self.k, self.fmt)
+
+    def __call__(self, inputs, flip: torch.Tensor, policy, crop):
+        y, c, labels, weights = self.dequantized(inputs)
+        y, c = self.rrc.crop(y, c, crop)
+        y, c = fused_flip_aug_range(y, c, policy, flip, ops_list=self.ops_list,
+                                    num_ops=self.num_ops, magnitude=self.magnitude)
+        return y, c, labels, weights
+
+
+def _dequantized_canvases(inputs, packed: bool, canvas: int, k: int, fmt: str):
+    """Packed rows (unpacked) or dense canvases, dequantized with their
+    per-sample quant tables, with the labels and weights."""
+    if packed:
+        f = split_packed_batch(inputs, canvas, k, fmt)
+        y, c = unpack_fields(f, fmt)
+        quant, labels, weights = f["quant"], f["labels"], f["weights"]
+    else:
+        y, c = inputs["y"], inputs["cbcr"]
+        quant, labels, weights = inputs["quant"], inputs["labels"], inputs["weights"]
+    y, c = dequantize(y, c, quant)
+    return y, c, labels, weights
+
+
+def make_train_pipeline(cfg=None, *, target: int = 28, canvas: int = 64, auglist=None,
+                        num_ops: int = 2, magnitude: int = 3, packed: bool = False,
+                        packed_fmt: str = "mask", packed_k: int = 16) -> TrainPipeline:
+    """The full-canvas train pipeline (:class:`TrainPipeline`); ``cfg``
+    supplies the grid, the op list, the number of rounds and the
+    magnitude."""
+    if cfg is not None:
+        target = cfg.model.dct_blocks
+        auglist = list(cfg.train.auglist)
+        num_ops = cfg.train.num_ops
+        magnitude = cfg.train.augstr
+    return TrainPipeline(target, canvas, list(auglist or []), num_ops, magnitude,
+                         packed=packed, fmt=packed_fmt, k=packed_k)
+
+
+def make_eval_pipeline(cfg=None, *, target: int = 28, canvas: int = 64, swin: bool = False,
+                       packed: bool = False, packed_fmt: str = "mask",
+                       packed_k: int = 16) -> Callable:
+    """The full-canvas eval pipeline (the JAX ``pipeline.py:434-474``):
+    unpack (``packed``) -> dequantize -> the ViT's ResizedCenterCrop(target
+    + 4 -> target) (``datasets.py:364``) or SwinV2's whole-canvas resize to
+    ``target`` (``datasets.py:381``) -> ToRange(-1, 1).  ``fn(inputs) -> (y,
+    cbcr, labels, weights)``, ``inputs`` as :class:`TrainPipeline` takes
+    them."""
+    if cfg is not None:
+        target = cfg.model.dct_blocks
+        swin = cfg.model.arch == "swinv2"
+    crop = make_full_resize(target, canvas) if swin else \
+        make_center_crop_resize(target + 4, target, canvas)
+
+    def pipeline(inputs):
+        y, c, labels, weights = _dequantized_canvases(inputs, packed, canvas, packed_k,
+                                                      packed_fmt)
+        y, c = crop(y, c)
+        return to_range(y), to_range(c), labels, weights
+
+    return pipeline

@@ -2,10 +2,14 @@
 ``train.py`` (``train.py:17-112``) under the same names and defaults, and
 ``--device`` (default ``cuda``; ``cpu`` trains on the CPU).
 
-One GPU:
+One GPU, the defaults (ViT-S/16 with the separate sub-block DCT embedding,
+embed_type 2):
 
-    python -m rgbnomore_tpu_torch.cli --train --eval --model_arch vitti --embed_type 1 \\
-        --indexpaths train.csv,val.csv --savepath models/vitti.pt
+    python -m rgbnomore_tpu_torch.cli --train --eval \\
+        --indexpaths train.csv,val.csv --savepath models/vits.pt
+
+``--benchmark N`` runs the six FPS metrics of ``benchmark.py`` for N
+iterations instead (loaders, the model on synthetic inputs, the pipelines).
 
 Data parallel, one process per GPU over NCCL: ``torchrun --nproc_per_node N
 -m rgbnomore_tpu_torch.cli ...``, or N processes started by hand with
@@ -15,9 +19,9 @@ resumes from the last checkpoint there.  ``python -m
 rgbnomore_tpu_torch.eval`` is this CLI with ``--eval`` forced.
 
 Flags whose feature is still in the port's queue (ROADMAP.md section 1)
-raise ``NotImplementedError``: ``--benchmark`` (module 4),
-``--transfer packed/dense`` and ``--embed_type 2/3`` (module 5),
-``--domain rgb`` (module 6), ``--stage_data`` (module 7).  The weights are
+raise ``NotImplementedError``: ``--domain rgb`` (module 6) and
+``--stage_data`` (module 7).  ``--transfer`` takes ``cropped`` (the
+default), ``packed`` or ``dense``.  The weights are
 a bare ``state_dict`` written by ``torch.save`` whatever ``--savepath``'s
 extension; checkpoints are ``torch.save`` files (``train/checkpoint.py``).
 """
@@ -38,8 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Model architecture (vitti, vits, vitb, vitl, swinv2)")
     p.add_argument("--no_subblock", action="store_true", help="Disable subblock conversion")
     p.add_argument("--embed_type", type=int, default=2,
-                   help="Embedding type: 1 grouped (2 separate and 3 concatenate are "
-                        "still to be ported)")
+                   help="Embedding type: 1 grouped, 2 separate, 3 concatenate")
     p.add_argument("--domain", type=str, default="dct", help="(DCT/RGB) input domain")
     # data config
     p.add_argument("--datapath", type=str, default="./imagenet",
@@ -62,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train", action="store_true")
     p.add_argument("--eval", action="store_true")
     p.add_argument("--benchmark", type=int, default=0,
-                   help="Benchmark for N iterations (still to be ported)")
+                   help="Benchmark for N iterations (the six FPS metrics)")
     p.add_argument("--savepath", type=str, default="./models/ViT_v1.msgpack",
                    help="Final weights (a torch state_dict); checkpoints go beside it")
     p.add_argument("--loadpath", type=str, default="")
@@ -70,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Checkpoint directory to resume from (its last epoch)")
     p.add_argument("--transfer", type=str, default="",
                    choices=("", "cropped", "packed", "dense"),
-                   help="Host->device format: 'cropped' (the default; the others are "
-                        "still to be ported)")
+                   help="Host->device format: 'cropped' (the default), 'packed' or "
+                        "'dense'")
     p.add_argument("--deterministic", action="store_true")
     p.add_argument("--verbose", type=int, default=1, help="0/1/2 logging verbosity")
     p.add_argument("--ckpt_every", type=int, default=1,
@@ -120,25 +123,17 @@ def refuse_unported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` for a flag whose feature the port
     does not have yet, naming its item of ROADMAP.md's port queue."""
     queue = "ROADMAP.md, port queue"
-    if args.benchmark > 0:
-        raise NotImplementedError(f"--benchmark is still to be ported ({queue}: module 4)")
     if args.stage_data:
         raise NotImplementedError(f"--stage_data is still to be ported ({queue}: module 7)")
-    if args.transfer not in ("", "cropped"):
-        raise NotImplementedError(
-            f"--transfer {args.transfer} is still to be ported ({queue}: module 5)")
     if args.domain.lower() != "dct":
         raise NotImplementedError(f"--domain {args.domain} is still to be ported "
                                   f"({queue}: module 6)")
-    if args.embed_type != 1:
-        raise NotImplementedError(
-            f"--embed_type {args.embed_type} is still to be ported ({queue}: module 5); "
-            "pass --embed_type 1")
 
 
 def main(argv: list[str] | None = None) -> dict:
-    """Parse ``argv`` (default: the command line), train and/or evaluate;
-    returns ``train_and_eval``'s results (empty without --train or --eval)."""
+    """Parse ``argv`` (default: the command line), then benchmark (``--benchmark
+    N``: returns the six FPS metrics), or train and/or evaluate (returns
+    ``train_and_eval``'s results, empty without --train or --eval)."""
     logging.basicConfig(format="[%(asctime)s] %(levelname)s: %(message)s",
                         datefmt="%m/%d/%Y %H:%M:%S", level=logging.INFO)
     args = build_parser().parse_args(argv)
@@ -199,6 +194,14 @@ def _run(args: argparse.Namespace) -> dict:
         cfg.model.bias_init = args.bias_init
     configure_determinism(cfg)
     index_train, index_val = args.indexpaths.split(",")
+    transfer = args.transfer or "cropped"
+
+    if args.benchmark > 0:
+        from rgbnomore_tpu_torch.benchmark import benchmark_model
+
+        return benchmark_model(cfg, args.benchmark, index_train, index_val,
+                               num_threads=args.num_cpus, verbose=args.verbose,
+                               transfer=transfer, device=device)
 
     results: dict = {}
     if args.train or args.eval:
@@ -218,6 +221,7 @@ def _run(args: argparse.Namespace) -> dict:
             train_fmt=args.train_fmt or None,
             ckpt_every=args.ckpt_every,
             device=device,
+            transfer=transfer,
         )
     if args.delete_dataset and parallel.is_rank0():
         import shutil

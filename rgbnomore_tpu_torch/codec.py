@@ -1,8 +1,10 @@
 """Host-side JPEG DCT coefficient codec (numpy interface), the port's copy.
 
-The subset of ``rgbnomore_tpu/codec.py`` that the crop-before-pack loader
-and the corpus writer need: the crop modes, ``crop_row_offsets``,
-``read_crop_resize_pack_row`` and ``write_tensor``.  They wrap the port's own
+The subset of ``rgbnomore_tpu/codec.py`` that the DCT loaders and the
+corpus writer need: ``read_into_canvas`` (dense canvases),
+``read_into_packed``, ``read_into_packed_mask`` and
+``read_into_packed_mask16`` (the packed wire), the crop modes,
+``crop_row_offsets``, ``read_crop_resize_pack_row`` and ``write_tensor``.  They wrap the port's own
 build of ``native/dctcodec.cpp`` (a verbatim copy of the JAX package's),
 loaded under the fully-qualified name ``rgbnomore_tpu_torch.native._dctcodec``
 so that it never clashes with the JAX package's extension in one process.
@@ -26,6 +28,10 @@ __all__ = [
     "CROP_FULL",
     "crop_row_offsets",
     "read_crop_resize_pack_row",
+    "read_into_canvas",
+    "read_into_packed",
+    "read_into_packed_mask",
+    "read_into_packed_mask16",
     "write_tensor",
 ]
 
@@ -42,6 +48,52 @@ def _load_extension():
 
 
 _dctcodec = _load_extension()
+
+def read_into_canvas(path: str, y_canvas: np.ndarray, c_canvas: np.ndarray,
+                     quant_out: np.ndarray):
+    """Decode coefficients directly into fixed-size canvases.
+
+    ``y_canvas``: int16 C-contiguous ``(1, YH, YW, 8, 8)``; ``c_canvas``:
+    int16 ``(2, CH, CW, 8, 8)``; ``quant_out``: int16 ``(3, 8, 8)``.
+    Canvases are zero-filled first; the image's blocks land in the top-left
+    corner.  Grayscale images leave chroma zero and chroma quant tables at 1.
+    Returns ``(ncomp, yh, yw, ch, cw, img_h, img_w)``.
+    """
+    for a in (y_canvas, c_canvas, quant_out):
+        if a.dtype != np.int16 or not a.flags.c_contiguous:
+            raise ValueError("canvases and quant tables must be C-contiguous int16")
+    return _dctcodec.read_into_canvas(
+        str(path), y_canvas, y_canvas.shape[-4], y_canvas.shape[-3], c_canvas,
+        c_canvas.shape[-4], c_canvas.shape[-3], quant_out)
+
+
+def read_into_packed(path: str, k: int, vy, iy, sy, vc, ic, sc, quant_out):
+    """Decode + top-K pack with one uint8 position per value (the ``index``
+    wire): per 8x8 block the K largest-|v| quantized coefficients as ``int8
+    round(coeff / scale)`` with ``scale uint8 = ceil(max|v| / 127)``.
+    Shapes: ``vy/iy`` (1, YH, YW, K), ``sy`` (1, YH, YW); chroma likewise
+    with a leading 2; ``quant_out`` (3, 8, 8) int16.  Returns ``(ncomp, yh,
+    yw, ch, cw)``."""
+    return _dctcodec.read_into_packed(str(path), k, vy, iy, sy, vy.shape[-3], vy.shape[-2],
+                                      vc, ic, sc, vc.shape[-3], vc.shape[-2], quant_out)
+
+
+def read_into_packed_mask(path: str, k: int, vy, my, sy, vc, mc, sc, quant_out):
+    """Top-K pack with 8-byte occupancy bitmasks (the ``mask`` wire): bit
+    ``p & 7`` of byte ``p >> 3`` set <=> position ``p`` kept, values in
+    ascending position order, quantized as in :func:`read_into_packed`."""
+    return _dctcodec.read_into_packed_mask(str(path), k, vy, my, sy, vy.shape[-3],
+                                           vy.shape[-2], vc, mc, sc, vc.shape[-3],
+                                           vc.shape[-2], quant_out)
+
+
+def read_into_packed_mask16(path: str, k: int, vy, my, sy, dy, vc, mc, sc, dc, quant_out):
+    """Bitmask pack with an EXACT int16 DC per block (``dy``/``dc``, (1|2, H,
+    W) int16) and int8 top-K ACs scaled apart from the DC."""
+    return _dctcodec.read_into_packed_mask16(str(path), k, vy, my, sy, dy, vy.shape[-3],
+                                             vy.shape[-2], vc, mc, sc, dc, vc.shape[-3],
+                                             vc.shape[-2], quant_out)
+
 
 CROP_RANDOM = 0  # RandomResizedCrop_DCT box distribution (train)
 CROP_CENTER = 1  # ResizedCenterCrop_DCT (ViT val)

@@ -2,18 +2,21 @@
 ``state_dict``.
 
 The flax tree and the torch modules share their names (ViT: ``patchembed/
-projection``, ``encoder_{i}/{ln1, mha/qkv, mha/projection, ln2, mlp1,
-mlp2}``, ``head/{ln, linear1, linear2}``; SwinV2: ``patch_embed/{projection,
-norm}``, ``layer{i}_block{d}/{attn/{qkv, cpb_mlp1, cpb_mlp2, proj}, norm1,
-mlp1, mlp2, norm2}``, ``layer{i}_downsample/{reduction, norm}``, ``norm``,
-``head``), so each leaf maps to one key:
+{projection, projection_y, projection_c, linear_y{i}, linear_c{i},
+linear_mix}`` as its embedding has them, ``encoder_{i}/{ln1, mha/qkv,
+mha/projection, ln2, mlp1, mlp2}``, ``head/{ln, linear1, linear2}``;
+SwinV2: ``patch_embed/{projection, norm}``, ``layer{i}_block{d}/{attn/{qkv,
+cpb_mlp1, cpb_mlp2, proj}, norm1, mlp1, mlp2, norm2}``,
+``layer{i}_downsample/{reduction, norm}``, ``norm``,
+``head``, ``absolute_pos_embed``), so each leaf maps to one key:
 
 - a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
 - SwinV2's ``qkv_kernel`` (C, 3C) becomes the ``weight`` of the attention's
   ``qkv`` Linear, transposed likewise (contiguous thirds q | k | v);
 - a LayerNorm ``scale`` becomes ``weight``, a ``bias`` stays ``bias``;
-- SwinV2's ``logit_scale`` (H, 1, 1), ``q_bias`` and ``v_bias`` are
-  parameters of the same name and shape.
+- SwinV2's ``logit_scale`` (H, 1, 1), ``q_bias``, ``v_bias`` and
+  ``absolute_pos_embed`` (1, L, C) are parameters of the same name and
+  shape.
 
 The ViT's qkv kernel keeps the JAX layout of contiguous thirds, which the
 port's ``MultiHeadAttention`` splits the same way — not the interleaved
@@ -29,7 +32,7 @@ import torch
 
 __all__ = ["flax_to_state_dict"]
 
-_SAME_NAME = ("logit_scale", "q_bias", "v_bias")
+_SAME_NAME = ("logit_scale", "q_bias", "v_bias", "absolute_pos_embed")
 
 
 def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:

@@ -1,15 +1,25 @@
-"""Threaded crop-before-pack loader: JPEG -> consolidated uint8 row batches.
+"""Threaded DCT loaders: JPEG -> coefficient canvases or consolidated uint8
+row batches.
 
-The port's copy of the parts of ``rgbnomore_tpu/data/loader.py`` that the
-cropped DCT wire needs: ``_BaseLoader``, ``_check_chroma_grid``,
-``packed_layout``, ``row_views`` and ``DctCroppedLoader``.  For the same
-files, seed and mode it writes rows byte-identical to the JAX package's
-loader (``tests/test_torch_port_eval.py``).
+The port's copy of the DCT half of ``rgbnomore_tpu/data/loader.py``:
+``_BaseLoader``, ``_check_chroma_grid``, ``packed_layout``, ``row_views``
+and the three DCT loaders of the JAX Trainer's transfers:
 
-The host's only job in the hot path is the libjpeg Huffman decode plus the
-crop, resize and pack of ``codec.read_crop_resize_pack_row``, which releases
-the GIL, so a thread pool decodes in parallel and a background thread keeps
-a small queue of ready batches ahead of the consumer.
+- ``DctCroppedLoader`` (``transfer="cropped"``): the host crops and
+  resizes, rows of the target grid in the mask16 family;
+- ``DctPackedLoader`` (``"packed"``): the whole image's top-K coefficients
+  on a 64-block canvas, rows in the ``mask``, ``index`` or mask16 formats;
+- ``DctCanvasLoader`` (``"dense"``): dense int16 quantized coefficient
+  planes on the canvas, with the quant tables, labels and weights.
+
+For the same files, seed and mode each writes what the JAX package's loader
+writes, byte for byte (``tests/test_torch_port_eval.py``,
+``tests/test_torch_port_transfers.py``).
+
+The host's only job in the hot path is the libjpeg Huffman decode (plus the
+crop, resize and pack of ``codec.read_crop_resize_pack_row``), which
+releases the GIL, so a thread pool decodes in parallel and a background
+thread keeps a small queue of ready batches ahead of the consumer.
 
 Sharding: each loader takes ``(shard_id, num_shards)`` and reads only its
 strided slice — train shards rebalance per epoch with the shuffle; eval uses
@@ -30,7 +40,8 @@ import numpy as np
 
 from rgbnomore_tpu_torch.data.index import IndexDataset
 
-__all__ = ["DctCroppedLoader", "packed_layout", "row_views"]
+__all__ = ["DctCanvasLoader", "DctCroppedLoader", "DctPackedLoader", "packed_layout",
+           "row_views"]
 
 
 class _BaseLoader:
@@ -181,40 +192,48 @@ def _check_chroma_grid(path, ncomp: int, yh: int, yw: int, ch: int, cw: int):
         )
 
 
+PACKED_FORMATS = ("mask", "index", "mask16", "mask16w", "mask16q")
+
+
 @functools.lru_cache(maxsize=32)
 def packed_layout(canvas: int, k: int, fmt: str = "mask16") -> types.MappingProxyType:
-    """Per-SAMPLE byte layout of the consolidated crop-wire row, built once
-    per arguments and shared read-only.
+    """Per-SAMPLE byte layout of the consolidated packed row, built once per
+    arguments and shared read-only.
 
     All per-sample fields live in one uint8 row so a whole batch transfers as
     a single ``(B, row_bytes)`` buffer.  Returns field -> (byte_offset,
-    per-sample shape, dtype) plus ``"row"`` -> row bytes.  Positions ride in
-    an 8-byte/block occupancy bitmask (``iy``/``ic`` shaped (..., 8)).
+    per-sample shape, dtype) plus ``"row"`` -> row bytes.
 
-    ``fmt="mask16"``: exact int16 DC planes ``dy``/``dc`` and int8 top-K ACs
-    with a DC-free uint8 scale — K+11 B/block.  ``fmt="mask16w"``: int16 AC
-    values (scale pinned 1) — 2K+11 B/block.  ``fmt="mask16q"``: the mask16
-    layout carrying JPEG *quantized-unit* integers that the device multiplies
-    back by the quant table.  Offsets are 4-aligned, so every field can be
-    viewed as its dtype in place.
+    ``fmt="mask"``: top-K int8 values a block with a uint8 scale, positions
+    in an 8-byte/block occupancy bitmask (``iy``/``ic`` shaped (..., 8)) —
+    25 B/block at K=16.  ``fmt="index"``: one uint8 position per value
+    (``iy``/``ic`` shaped (..., K)) — 33 B/block.  ``fmt="mask16"``: like
+    ``mask`` plus exact int16 DC planes ``dy``/``dc`` and a DC-free AC scale
+    — K+11 B/block.  ``fmt="mask16w"``: int16 AC values (scale pinned 1) —
+    2K+11 B/block.  ``fmt="mask16q"``: the mask16 layout carrying JPEG
+    *quantized-unit* integers that the device multiplies back by the quant
+    table.  Offsets are 4-aligned, so every field can be viewed as its dtype
+    in place.
     """
-    if fmt not in ("mask16", "mask16w", "mask16q"):
-        raise ValueError(f"unknown crop wire format {fmt!r}")
+    if fmt not in PACKED_FORMATS:
+        raise ValueError(f"unknown packed wire format {fmt!r}")
     cv2 = canvas // 2
+    iw = k if fmt == "index" else 8  # index / mask bytes per block
     vdt = np.int16 if fmt == "mask16w" else np.int8
     fields = {
         "vy": ((1, canvas, canvas, k), vdt),
-        "iy": ((1, canvas, canvas, 8), np.uint8),
+        "iy": ((1, canvas, canvas, iw), np.uint8),
         "sy": ((1, canvas, canvas), np.uint8),
         "vc": ((2, cv2, cv2, k), vdt),
-        "ic": ((2, cv2, cv2, 8), np.uint8),
+        "ic": ((2, cv2, cv2, iw), np.uint8),
         "sc": ((2, cv2, cv2), np.uint8),
         "quant": ((3, 8, 8), np.int16),
         "labels": ((), np.int32),
         "weights": ((), np.float32),
-        "dy": ((1, canvas, canvas), np.int16),
-        "dc": ((2, cv2, cv2), np.int16),
     }
+    if fmt.startswith("mask16"):
+        fields["dy"] = ((1, canvas, canvas), np.int16)
+        fields["dc"] = ((2, cv2, cv2), np.int16)
     layout = {}
     off = 0
     for name, (shape, dtype) in fields.items():
@@ -236,6 +255,96 @@ def row_views(row: np.ndarray, layout: dict) -> dict[str, np.ndarray]:
         n = int(np.prod(shape, dtype=np.int64))
         out[name] = np.frombuffer(row, dtype=dtype, count=n, offset=off).reshape(shape)
     return out
+
+
+class DctCanvasLoader(_BaseLoader):
+    """Dense quantized DCT coefficient canvases (the ``"dense"`` transfer):
+    each image's blocks at the top left of a ``canvas``-block canvas, zeros
+    elsewhere.
+
+    Yields ``{"y": (B, 1, canvas, canvas, 8, 8) int16, "cbcr": (B, 2,
+    canvas/2, canvas/2, 8, 8) int16, "quant": (B, 3, 8, 8) int16, "labels":
+    (B,) int32, "weights": (B,) float32}`` (weight 0 for padding rows).
+    """
+
+    def __init__(self, dataset: IndexDataset, batch_size: int, canvas: int = 64, **kw):
+        super().__init__(dataset, batch_size, **kw)
+        from rgbnomore_tpu_torch import codec
+
+        self.canvas = canvas
+        self._read = codec.read_into_canvas
+
+    def _decode_batch(self, pool: ThreadPoolExecutor, idx: np.ndarray,
+                      batch_index: int = 0) -> dict:
+        bsz, cv = self.batch_size, self.canvas
+        y = np.zeros((bsz, 1, cv, cv, 8, 8), np.int16)
+        c = np.zeros((bsz, 2, cv // 2, cv // 2, 8, 8), np.int16)
+        quant = np.ones((bsz, 3, 8, 8), np.int16)
+        labels = np.zeros((bsz,), np.int32)
+        weights = np.zeros((bsz,), np.float32)
+
+        def work(slot: int, ds_index: int):
+            if ds_index < 0:  # shard-padding sentinel
+                return
+            path = self.dataset.paths[ds_index]
+            ncomp, yh, yw, ch, cw, *_ = self._read(path, y[slot], c[slot], quant[slot])
+            _check_chroma_grid(path, ncomp, yh, yw, ch, cw)
+            labels[slot] = self.dataset.labels[ds_index]
+            weights[slot] = 1.0
+
+        list(pool.map(lambda args: work(*args), enumerate(idx)))
+        return {"y": y, "cbcr": c, "quant": quant, "labels": labels, "weights": weights}
+
+
+class DctPackedLoader(_BaseLoader):
+    """Sparse top-K packed coefficients of the whole image on a
+    ``canvas``-block canvas (the ``"packed"`` transfer), ONE consolidated
+    (B, row) buffer per batch in a ``packed_layout`` format: ``mask`` (the
+    DCT default, 5x fewer bytes than dense int16 at K=16), ``index``, or
+    ``mask16`` (exact DCs).  The values are quantized units; the device
+    dequantizes.
+
+    Yields ``{"packed": uint8 (B, row), "labels": ..., "weights": ...}``;
+    labels/weights are host-side copies for bookkeeping — the device step
+    re-slices every field from ``packed``.
+    """
+
+    def __init__(self, dataset: IndexDataset, batch_size: int, canvas: int = 64,
+                 k: int = 16, fmt: str = "mask", **kw):
+        super().__init__(dataset, batch_size, **kw)
+        from rgbnomore_tpu_torch import codec
+
+        if fmt not in ("mask", "index", "mask16"):
+            raise ValueError(f"the packed loader writes mask, index or mask16, not {fmt!r}")
+        self.canvas, self.k, self.fmt = canvas, k, fmt
+        self.layout = packed_layout(canvas, k, fmt)
+        if fmt == "mask16":
+            self._read_views = lambda path, v: codec.read_into_packed_mask16(
+                path, k, v["vy"], v["iy"], v["sy"], v["dy"],
+                v["vc"], v["ic"], v["sc"], v["dc"], v["quant"])
+        else:
+            read = codec.read_into_packed_mask if fmt == "mask" else codec.read_into_packed
+            self._read_views = lambda path, v: read(
+                path, k, v["vy"], v["iy"], v["sy"], v["vc"], v["ic"], v["sc"], v["quant"])
+
+    def _decode_batch(self, pool: ThreadPoolExecutor, idx: np.ndarray,
+                      batch_index: int = 0) -> dict:
+        buf = np.zeros((self.batch_size, self.layout["row"]), np.uint8)
+        labels = np.zeros((self.batch_size,), np.int32)
+        weights = np.zeros((self.batch_size,), np.float32)
+
+        def work(slot: int, ds_index: int):
+            if ds_index < 0:  # shard-padding sentinel
+                return
+            v = row_views(buf[slot], self.layout)
+            path = self.dataset.paths[ds_index]
+            ncomp, yh, yw, ch, cw = self._read_views(path, v)
+            _check_chroma_grid(path, ncomp, yh, yw, ch, cw)
+            v["labels"][...] = labels[slot] = self.dataset.labels[ds_index]
+            v["weights"][...] = weights[slot] = 1.0
+
+        list(pool.map(lambda args: work(*args), enumerate(idx)))
+        return {"packed": buf, "labels": labels, "weights": weights}
 
 
 class DctCroppedLoader(_BaseLoader):
@@ -271,6 +380,8 @@ class DctCroppedLoader(_BaseLoader):
         from rgbnomore_tpu_torch import codec
         from rgbnomore_tpu_torch.data.croppack import build_op_pack
 
+        if fmt not in ("mask16", "mask16w", "mask16q"):
+            raise ValueError(f"unknown crop wire format {fmt!r}")
         if mode not in ("train", "center", "full"):
             raise ValueError(f"unknown crop mode {mode!r}")
         self.target = target

@@ -1,5 +1,6 @@
 """Evaluation entry points: the library's ``evaluate_model`` (the JAX
-package's ``eval.py:17-22``) and the eval CLI.
+package's ``eval.py:17-22``), ``benchmark_model`` re-exported from
+``benchmark.py`` (as the JAX ``eval.py:13`` does) and the eval CLI.
 
     python -m rgbnomore_tpu_torch.eval --loadpath models/vitti.pt --model_arch vitti ...
 
@@ -12,10 +13,11 @@ from __future__ import annotations
 
 import sys
 
+from rgbnomore_tpu_torch.benchmark import benchmark_model
 from rgbnomore_tpu_torch.train.config import Config
 from rgbnomore_tpu_torch.train.loop import train_and_eval
 
-__all__ = ["evaluate_model"]
+__all__ = ["benchmark_model", "evaluate_model"]
 
 
 def evaluate_model(cfg: Config, index_train: str, index_val: str, loadpath: str = "",

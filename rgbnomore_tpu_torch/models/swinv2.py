@@ -271,9 +271,10 @@ class SwinTransformerV2(nn.Module):
     ``drop_rate > 0``, ``dropout`` gives the masks of the dropout after the
     patch embedding and, in each block, after GELU and after mlp2
     (``swinv2.py:286-290, 383-384``); ``dtype`` is the compute dtype of
-    mixed precision (float32, bf16 or fp16).  Only ``pixel_space="dct"``
-    (whose patch is always 4) is ported; the absolute position embedding
-    (``ape``) is not.
+    mixed precision (float32, bf16 or fp16).  ``ape`` adds the parameter
+    ``absolute_pos_embed`` (1, L, C) to the patch embedding's tokens before
+    its dropout (``swinv2.py:380-382``).  Only ``pixel_space="dct"`` (whose
+    patch is always 4) is ported.
     """
 
     def __init__(self, img_size: int = 224, num_classes: int = 1000,
@@ -290,16 +291,16 @@ class SwinTransformerV2(nn.Module):
                 "the RGB SwinV2 is still to be ported (ROADMAP.md, port queue: RGB)")
         if space != "dct":
             raise ValueError(f"Unknown pixel space: {pixel_space}")
-        if ape:
-            raise NotImplementedError("the absolute position embedding is not ported")
         # DCT: grouped embedding at patch 4 (8x8 blocks -> 4x4 sub-blocks),
         # no sincos, with a post-projection norm (swinv2.py:629-632)
         self.dtype = dtype
         self.patch_embed = PatchEmbeddingDCTGroup(4, embed_dim, use_subblock=True,
                                                   add_sincos=False, use_norm=patch_norm,
                                                   dtype=dtype)
-        self.pos_drop = Dropout(drop_rate)
         res = img_size // 4
+        self.absolute_pos_embed = (nn.Parameter(torch.zeros(1, res * res, embed_dim))
+                                   if ape else None)
+        self.pos_drop = Dropout(drop_rate)
         self.depths = tuple(depths)
         self.drop_path_rates = np.linspace(0.0, drop_path_rate, sum(self.depths)).tolist()
         block = 0
@@ -326,8 +327,11 @@ class SwinTransformerV2(nn.Module):
     def forward(self, y: torch.Tensor, cbcr: torch.Tensor,
                 drop_keep: torch.Tensor | None = None,
                 dropout: DropoutMasks | None = None) -> torch.Tensor:
+        feats = self.patch_embed(y, cbcr)
+        if self.absolute_pos_embed is not None:  # float32: the sum promotes
+            feats = feats + self.absolute_pos_embed
         # dropped in the patch norm's float32, then cast (swinv2.py:383-385)
-        feats = self.pos_drop(self.patch_embed(y, cbcr), dropout).to(self.dtype)
+        feats = self.pos_drop(feats, dropout).to(self.dtype)
         block = 0
         for i, depth in enumerate(self.depths):
             for d in range(depth):
@@ -346,13 +350,17 @@ class SwinTransformerV2(nn.Module):
         merging and the head, zero biases; LeCun truncated normal for the
         CPB-MLP; the patch projection U(+-1/sqrt(fan_in)) (``bias_init=
         "zeros"`` zeroes its bias); logit scale log 10; q and v biases 0; the
-        blocks' res-post norms 0 and 0, every other LayerNorm 1 and 0."""
+        blocks' res-post norms 0 and 0, every other LayerNorm 1 and 0; the
+        absolute position embedding truncated normal (std 0.02)."""
         if bias_init not in ("torch", "zeros"):
             raise ValueError(f"unknown bias init family {bias_init!r}")
 
         def trunc_normal(t, std):
             s = std / _TRUNC_STD
             torch.nn.init.trunc_normal_(t, std=s, a=-2 * s, b=2 * s, generator=generator)
+
+        if self.absolute_pos_embed is not None:
+            trunc_normal(self.absolute_pos_embed, 0.02)
 
         for name, m in self.named_modules():
             leaf = name.rsplit(".", 1)[-1]

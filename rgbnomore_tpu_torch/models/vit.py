@@ -1,8 +1,10 @@
 """Vision Transformer over JPEG DCT coefficients (PyTorch).
 
 Port of ``rgbnomore_tpu/models/vit.py`` (the reference's
-``models/plainvit.py:412-612``) for the DCT domain with the grouped patch
-embedding (``ver=1``).  The quirks of the reference carry over: the
+``models/plainvit.py:412-612``) for the DCT domain, with each of its patch
+embeddings: grouped (``ver=1``), separate (``ver=2``, with or without
+sub-blocks) and concatenated (``ver=3``, 1.5x the tokens: 294 on the 28x28
+block grid).  The quirks of the reference carry over: the
 attention logits are scaled by ``1/sqrt(emb_size)``, not
 ``1/sqrt(head_dim)``; qkv is one Linear split into contiguous thirds; the
 softmax runs in float32; GELU is exact; LayerNorm eps is 1e-5; the head is
@@ -36,7 +38,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rgbnomore_tpu_torch.models.embeddings import PatchEmbeddingDCTGroup
+from rgbnomore_tpu_torch.models.embeddings import (
+    PatchEmbeddingDCTConcat,
+    PatchEmbeddingDCTGroup,
+    PatchEmbeddingDCTSeparate,
+    PatchEmbeddingDCTSeparateSubblock,
+)
 from rgbnomore_tpu_torch.models.layers import Dropout, DropoutMasks, LayerNorm, Linear
 from rgbnomore_tpu_torch.ops.attention import fused_attention
 
@@ -114,7 +121,7 @@ class ClassificationHead(nn.Module):
 
 
 class ViT(nn.Module):
-    """ViT over (y, cbcr) DCT coefficients with the grouped embedding.
+    """ViT over (y, cbcr) DCT coefficients.
 
     ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8), dropout)``
     returns (B, n_classes) float32 logits; ``dtype`` is the compute dtype of
@@ -134,14 +141,19 @@ class ViT(nn.Module):
                 "the RGB ViT is still to be ported (ROADMAP.md, port queue: RGB)")
         if space != "dct":
             raise ValueError(f"Unknown pixel space: {pixel_space}")
-        if ver != 1:
-            raise NotImplementedError(
-                f"DCT embed_type {ver} is still to be ported (ROADMAP.md, port "
-                "queue: other transfers and embeddings)")
+        if ver == 1:
+            embed = PatchEmbeddingDCTGroup(patch_size, emb_size, use_subblock, dtype=dtype)
+        elif ver == 2 and not use_subblock:
+            embed = PatchEmbeddingDCTSeparate(patch_size, emb_size, dtype=dtype)
+        elif ver == 2:
+            embed = PatchEmbeddingDCTSeparateSubblock(patch_size, emb_size, dtype=dtype)
+        elif ver == 3:
+            embed = PatchEmbeddingDCTConcat(patch_size, emb_size, use_subblock, dtype=dtype)
+        else:
+            raise ValueError(f"Unknown embed version: {ver}")
         self.depth = depth
         self.dtype = dtype
-        self.patchembed = PatchEmbeddingDCTGroup(patch_size, emb_size, use_subblock,
-                                                 dtype=dtype)
+        self.patchembed = embed
         for i in range(depth):
             self.add_module(f"encoder_{i}", EncoderBlock(emb_size, num_heads, head_size,
                                                           drop_p=drop_p, dtype=dtype))

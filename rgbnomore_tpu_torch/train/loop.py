@@ -1,10 +1,16 @@
 """Training and evaluation orchestration: ``rgbnomore_tpu/train/loop.py``.
 
 ``Trainer`` owns the model (the ViT or SwinV2), the input pipelines, and
-once ``create_state`` has run, the optimizer and the step count.
-``train_step`` takes one uploaded ``(B, row)`` uint8 batch of the cropped
-train wire (K=16 mask16 unless the caller picks another K or format)
-through pipeline (one ``wire_flip_aug_range``) -> mixup -> forward (in
+once ``create_state`` has run, the optimizer and the step count.  Its
+``transfer`` is one of the JAX Trainer's three host-to-device formats:
+``"cropped"`` (the port's default, as ``train.py``'s), ``"packed"`` (the
+JAX Trainer's class default) or ``"dense"``.  ``train_step`` takes one
+uploaded batch (``upload``): for the cropped transfer the ``(B, row)``
+uint8 rows of the train wire (K=16 mask16 unless the caller picks another K
+or format) through pipeline (one ``wire_flip_aug_range``); for the packed
+and dense transfers the full-canvas rows or canvases through unpack,
+dequantize and a random resized crop on the device, then one
+``fused_flip_aug_range`` (the kernel's dense entry) -> mixup -> forward (in
 train mode: dropout and SwinV2's drop path) -> softmax cross-entropy ->
 backward -> global-norm clip -> AdamW, the body of the JAX
 ``Trainer._train_body`` (``loop.py:246-303``).  The model computes in the
@@ -12,12 +18,13 @@ config's AMP dtype (``amp_compute_dtype``: float32, bf16 or fp16); with
 fp16 the step runs the fp16 branch of that body (``loop.py:273-300``): the
 loss scaled by the hand-written loss scaler (``train/scaler.py``), the
 gradients unscaled, an update skipped on a non-finite gradient.
-``evaluate`` uploads each eval batch in one non-blocking copy from a reused
-pinned buffer and runs pipeline (one ``wire_to_range``) -> model (in eval
-mode) -> weighted sums on the device.  ``cfg.train.deterministic`` turns on
-deterministic algorithms (``configure_determinism``).  ``make_loaders``
-builds the cropped DCT loaders: the ViT's eval crop is the center crop,
-SwinV2's the whole-image resize.
+``evaluate`` uploads each eval batch (the rows in one non-blocking copy
+from a reused pinned buffer) and runs pipeline (cropped: one
+``wire_to_range``) -> model (in eval mode) -> weighted sums on the device.
+``cfg.train.deterministic`` turns on deterministic algorithms
+(``configure_determinism``).  ``make_loaders`` builds the transfer's DCT
+loaders: the ViT's eval crop is the center crop, SwinV2's the whole-image
+resize.
 
 Data parallelism (``parallel/``): in a process group of N ranks each
 process holds the model on its own GPU and takes its slice of every global
@@ -48,6 +55,8 @@ import torch
 from rgbnomore_tpu_torch.augment.pipeline import (
     make_cropped_eval_pipeline,
     make_cropped_train_pipeline,
+    make_eval_pipeline,
+    make_train_pipeline,
 )
 from rgbnomore_tpu_torch.data.index import load_index, split_train_minival
 from rgbnomore_tpu_torch import parallel
@@ -79,13 +88,15 @@ from rgbnomore_tpu_torch.utils.metrics import LocalWindow
 
 log = logging.getLogger(__name__)
 
-__all__ = ["PinnedUploader", "StepDraws", "SummaryWriter", "Trainer", "cropped_eval_defaults",
-           "guard_eval_sums", "load_params", "make_loaders", "save_params", "tensorboard_dir",
-           "train_and_eval"]
+__all__ = ["PinnedUploader", "StepDraws", "SummaryWriter", "TRANSFERS", "Trainer",
+           "check_cropped_only", "cropped_eval_defaults", "guard_eval_sums", "load_params",
+           "make_loaders", "packed_defaults", "save_params", "tensorboard_dir", "train_and_eval"]
 
 # the train side of the crop-before-pack wire (the JAX Trainer's defaults
 # for transfer="cropped", loop.py:121-123, 154)
 TRAIN_K, TRAIN_FMT = 16, "mask16"
+# the host -> device formats (the JAX Trainer's ``transfer``)
+TRANSFERS = ("cropped", "packed", "dense")
 
 
 class SummaryWriter:
@@ -119,6 +130,23 @@ def tensorboard_dir(savepath: str, cfg: Config) -> Path:
     return Path(savepath).resolve().parent / "tb_logs" / name
 
 
+def check_cropped_only(transfer: str, **given) -> None:
+    """Refuse the cropped wire's own settings (``packed_k_eval``,
+    ``eval_fmt``, ``train_fmt``) for the full-canvas transfers, which ship
+    one wire both ways and would ignore them."""
+    unused = [name for name, value in given.items() if value is not None]
+    if transfer != "cropped" and unused:
+        raise ValueError(f"{', '.join(unused)}: only transfer='cropped' takes them, "
+                         f"not {transfer!r}")
+
+
+def packed_defaults(domain: str) -> tuple[str, int]:
+    """(fmt, K) of the full-canvas packed wire (``rgbnomore_tpu/train/
+    loop.py:68-77``), shared by Trainer and make_loaders: DCT models ship
+    the top-16 ``mask`` spectrum."""
+    return ("mask", 16) if domain == "DCT" else ("mask16", 63)
+
+
 def cropped_eval_defaults(domain: str) -> tuple[int, str]:
     """(K, fmt) of the EVAL side of the crop-before-pack wire, shared by
     Trainer and make_loaders (the two ends of the wire must agree).
@@ -135,13 +163,16 @@ class StepDraws:
     """The random decisions of one train step: the flip bits (B,), the
     RandAugment policy (``RandAugmentDCT.draw_policy``), the mixup lambda,
     for SwinV2 the drop-path keep masks (blocks, 2, B) bool (None for the
-    ViT) and, at ``cfg.train.drop > 0``, the forward's dropout masks."""
+    ViT), at ``cfg.train.drop > 0`` the forward's dropout masks and, for the
+    packed and dense transfers, the random resized crop's boxes
+    ``(size_idx, i, j)`` (``RandomResizedCrop.draw``)."""
 
     flip: torch.Tensor
     policy: tuple
     lam: float
     drop_keep: torch.Tensor | None = None
     dropout: DropoutMasks | None = None
+    crop: tuple | None = None
 
 
 class PinnedUploader:
@@ -190,13 +221,19 @@ class Trainer:
     ``device`` defaults to ``cuda``; pass ``"cpu"`` to run on the CPU.  The
     model's parameters are drawn from a ``torch.Generator`` seeded with
     ``cfg.seed``; ``model.load_state_dict`` replaces them.  The input is the
-    cropped DCT wire (the JAX Trainer's ``transfer="cropped"``): for
-    training ``packed_k`` ACs a block (default 16) in ``train_fmt``
-    (default mask16), for eval ``packed_k_eval`` in ``eval_fmt`` (defaults
-    ``cropped_eval_defaults``).  The step's random draws come from a
-    ``torch.Generator`` (flip, policy, the drop-path keep masks) and a
-    numpy generator (the mixup lambda), both seeded from ``cfg.seed``, and
-    dropout's from a generator on the device (``dropout_masks``).
+    JAX Trainer's ``transfer``, with its defaults: ``"cropped"`` (the
+    default here) takes for training ``packed_k`` ACs a block (default 16)
+    in ``train_fmt`` (default mask16), for eval ``packed_k_eval`` in
+    ``eval_fmt`` (defaults ``cropped_eval_defaults``); ``"packed"`` takes
+    ``DctPackedLoader`` rows on a ``canvas``-block canvas in the format of
+    ``packed_defaults`` (mask), ``packed_k`` ACs a block (default 16), for
+    both; ``"dense"`` the int16 canvases of ``DctCanvasLoader``.  The two
+    full-canvas transfers refuse ``packed_k_eval``, ``eval_fmt`` and
+    ``train_fmt`` (``check_cropped_only``) and leave them None.  The step's
+    random draws come from a ``torch.Generator`` (crop boxes, flip, policy,
+    the drop-path keep masks) and a numpy generator (the mixup lambda), both
+    seeded from ``cfg.seed``, and dropout's from a generator on the device
+    (``dropout_masks``).
 
     In a process group (``parallel.init_distributed``) the Trainer is one
     rank of a data-parallel run: ``cfg.train.batch_size`` is the global
@@ -208,13 +245,17 @@ class Trainer:
     (``loss_scale``), which bf16 and float32 do without.
     """
 
-    def __init__(self, cfg: Config, device=None, *, packed_k: int | None = None,
+    def __init__(self, cfg: Config, device=None, *, transfer: str = "cropped",
+                 canvas: int = 64, packed_k: int | None = None,
                  packed_k_eval: int | None = None, eval_fmt: str | None = None,
                  train_fmt: str | None = None):
         self.device = resolve_device(device)
         if cfg.model.domain != "DCT":
             raise NotImplementedError(
                 "the RGB domain is still to be ported (ROADMAP.md, port queue: RGB)")
+        if transfer not in TRANSFERS:
+            raise ValueError(f"transfer must be one of {TRANSFERS}, got {transfer!r}")
+        self.transfer, self.canvas = transfer, canvas
         self.distributed = parallel.is_initialized()
         self.rank, self.world = parallel.rank(), parallel.world_size()
         self.cfg = update_runtime(cfg, self.world)
@@ -222,11 +263,26 @@ class Trainer:
         self.compute_dtype = amp_compute_dtype(cfg)
         self.model = build_model(cfg, device=self.device)
         ek, ef = cropped_eval_defaults(cfg.model.domain)
-        self.packed_k, self.train_fmt = packed_k or TRAIN_K, train_fmt or TRAIN_FMT
-        self.packed_k_eval, self.eval_fmt = packed_k_eval or ek, eval_fmt or ef
-        self.eval_pipe = make_cropped_eval_pipeline(
-            cfg, k=self.packed_k_eval, fmt=self.eval_fmt)
-        self.train_pipe = make_cropped_train_pipeline(cfg, k=self.packed_k, fmt=self.train_fmt)
+        self.packed_fmt, d_k = packed_defaults(cfg.model.domain)
+        check_cropped_only(transfer, packed_k_eval=packed_k_eval, eval_fmt=eval_fmt,
+                           train_fmt=train_fmt)
+        if transfer == "cropped":
+            self.packed_k, self.train_fmt = packed_k or TRAIN_K, train_fmt or TRAIN_FMT
+            self.packed_k_eval, self.eval_fmt = packed_k_eval or ek, eval_fmt or ef
+            self.eval_pipe = make_cropped_eval_pipeline(
+                cfg, k=self.packed_k_eval, fmt=self.eval_fmt)
+            self.train_pipe = make_cropped_train_pipeline(cfg, k=self.packed_k,
+                                                          fmt=self.train_fmt)
+        else:
+            # one wire both ways (loop.py:117-126): the full canvas at
+            # packed_k; the cropped wire's own settings stay unset
+            self.packed_k = packed_k or d_k
+            self.packed_k_eval = self.eval_fmt = self.train_fmt = None
+            packed = transfer == "packed"
+            wire = dict(canvas=canvas, packed=packed, packed_fmt=self.packed_fmt,
+                        packed_k=self.packed_k)
+            self.train_pipe = make_train_pipeline(cfg, **wire)
+            self.eval_pipe = make_eval_pipeline(cfg, **wire)
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self.rng = np.random.default_rng(cfg.seed)
         self._dropout_generator = (torch.Generator(device=self.device)
@@ -240,15 +296,27 @@ class Trainer:
         return self.cfg.train.batch_per_device * self.world
 
     def put_batch(self, batch: dict) -> dict:
-        """Upload the consolidated (B, row) uint8 buffer (labels and weights
-        ride inside the row): on the GPU one non-blocking copy through the
-        Trainer's ring of reused pinned buffers (:class:`PinnedUploader`);
-        on the CPU the rows themselves, uncopied."""
+        """Upload a loader's batch.  The cropped and packed transfers upload
+        the consolidated (B, row) uint8 buffer (labels and weights ride
+        inside the row) as ``{"packed": ...}``: on the GPU one non-blocking
+        copy through the Trainer's ring of reused pinned buffers
+        (:class:`PinnedUploader`); on the CPU the rows themselves, uncopied.
+        The dense transfer uploads each array of the batch."""
+        if self.transfer == "dense":
+            return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                    for k, v in batch.items()}
         if self.device.type != "cuda":
             return {"packed": torch.from_numpy(batch["packed"])}
         if self._uploader is None:
             self._uploader = PinnedUploader(self.device)
         return {"packed": self._uploader.put(batch["packed"])}
+
+    def upload(self, batch: dict):
+        """A loader's batch as ``train_step`` and ``eval_step`` take it: the
+        uploaded (B, row) rows, or for the dense transfer the dict of
+        uploaded arrays."""
+        put = self.put_batch(batch)
+        return put if self.transfer == "dense" else put["packed"]
 
     # ------------------------------------------------------------------ train
     def create_state(self, steps_per_epoch: int) -> Optimizer:
@@ -280,7 +348,7 @@ class Trainer:
         process's.  SwinV2's block ``i`` keeps each sample's branch with
         probability ``1 - drop_path_rates[i]`` (always, at rate 0)."""
         total = batch * self.world
-        flip, policy = self.train_pipe.draw(self.generator, total)
+        flip, policy, crop = self.train_pipe.draw(self.generator, total)
         keep = None
         rates = getattr(self.model, "drop_path_rates", None)
         if rates is not None:
@@ -291,7 +359,8 @@ class Trainer:
             rows = slice(self.rank * batch, (self.rank + 1) * batch)
             flip, policy = flip[rows], tuple(p[rows] for p in policy)
             keep = None if keep is None else keep[..., rows]
-        return StepDraws(flip, policy, lam, keep, self.dropout_masks())
+            crop = None if crop is None else tuple(t[rows] for t in crop)
+        return StepDraws(flip, policy, lam, keep, self.dropout_masks(), crop)
 
     def dropout_masks(self) -> DropoutMasks | None:
         """The dropout masks of the next step (None at ``cfg.train.drop``
@@ -306,9 +375,9 @@ class Trainer:
         self._dropout_generator.manual_seed(int(seq.generate_state(1, np.uint64)[0]) >> 1)
         return DropoutMasks(generator=self._dropout_generator)
 
-    def compute_grads(self, packed: torch.Tensor, draws: StepDraws) -> torch.Tensor:
+    def compute_grads(self, packed, draws: StepDraws) -> torch.Tensor:
         """Pipeline -> mixup -> forward -> loss -> backward on an uploaded
-        (B, row) batch: leaves each parameter's gradient in ``.grad`` and
+        batch (``upload``): leaves each parameter's gradient in ``.grad`` and
         returns the loss as a 0-d tensor on the device.  With the loss
         scaler's state (fp16), the backward runs on the loss times the scale
         and the gradients are divided by it; the loss returned is the
@@ -316,7 +385,7 @@ class Trainer:
         process group the gradients are averaged over the ranks right after
         the backward, and mixup pairs across them; the loss returned is
         this rank's."""
-        y, c, labels, _ = self.train_pipe(packed, draws.flip, draws.policy)
+        y, c, labels, _ = self.train_pipe(packed, draws.flip, draws.policy, draws.crop)
         num_classes = self.cfg.model.classes
         if self.cfg.model.mixup:
             (y, c), targets = mixup_batch((y, c), labels, num_classes, draws.lam,
@@ -347,8 +416,8 @@ class Trainer:
         if self.distributed:
             parallel.all_reduce_mean_([p.grad for p in self.model.parameters()])
 
-    def train_step(self, packed: torch.Tensor, draws: StepDraws | None = None) -> torch.Tensor:
-        """One optimizer step on an uploaded (B, row) batch; returns the
+    def train_step(self, packed, draws: StepDraws | None = None) -> torch.Tensor:
+        """One optimizer step on an uploaded batch (``upload``); returns the
         loss as a 0-d tensor on the device.  ``draws`` replaces the step's
         own draws (the tests hand over JAX's).  No host sync, but with the
         loss scaler (fp16): there the host reads whether every gradient is
@@ -357,7 +426,8 @@ class Trainer:
         if self.optimizer is None:
             raise RuntimeError("call create_state before train_step")
         if draws is None:
-            draws = self.draw(packed.shape[0])
+            rows = packed["labels"] if self.transfer == "dense" else packed
+            draws = self.draw(rows.shape[0])
         loss = self.compute_grads(packed, draws)
         if self.loss_scale is None:
             self.optimizer.step()
@@ -368,9 +438,9 @@ class Trainer:
         return loss
 
     # ------------------------------------------------------------------ eval
-    def eval_step(self, packed: torch.Tensor) -> dict[str, torch.Tensor]:
+    def eval_step(self, packed) -> dict[str, torch.Tensor]:
         """Pipeline -> model (in eval mode, in the compute dtype, float32
-        logits) -> weighted sums for one uploaded batch."""
+        logits) -> weighted sums for one uploaded batch (``upload``)."""
         self.model.eval()
         y, c, labels, weights = self.eval_pipe(packed)
         return eval_sums(self.model(y, c), labels, weights)
@@ -378,11 +448,11 @@ class Trainer:
     @torch.inference_mode()
     def evaluate(self, loader) -> dict:
         """Accuracy, mean loss and weighted count over every batch of
-        ``loader`` (an iterable of ``{"packed": uint8 (B, row)}`` dicts).
+        ``loader`` (an iterable of the transfer's loader batches).
         The per-batch sums stay on the device until the merge; in a process
         group they are added up over the ranks first (each rank's loader
         holds its shard, padded with weight-0 rows to one batch count)."""
-        sums = [self.eval_step(self.put_batch(batch)["packed"]) for batch in loader]
+        sums = [self.eval_step(self.upload(batch)) for batch in loader]
         if self.distributed and sums:
             keys = ("correct", "loss_sum", "count")
             table = parallel.all_reduce_sum_(
@@ -413,27 +483,42 @@ def guard_eval_sums(sums: list) -> dict:
 
 
 def make_loaders(cfg: Config, index_train: str, index_val: str, *, num_threads: int = 4,
-                 global_batch: int | None = None, packed_k: int | None = None,
+                 global_batch: int | None = None, transfer: str = "cropped",
+                 canvas: int = 64, packed_k: int | None = None,
                  packed_k_eval: int | None = None, eval_fmt: str | None = None,
                  train_fmt: str | None = None):
-    """Build the train / minival / trainval / test loaders of the cropped DCT
-    transfer (``datasets.py:445-582``; the JAX ``make_loaders`` :427-470):
-    each process's batch is ``global_batch`` (default
-    ``cfg.train.batch_size``) over the ranks, and it reads its strided shard
-    of every split (``shard_id`` its rank).  Train: the random-resized-crop
-    boxes, ``packed_k`` ACs (default 16) in ``train_fmt`` (default mask16),
-    shuffled, the last partial batch dropped; eval: to ``cfg.model.
-    dct_blocks`` blocks by the deterministic center crop (ViT,
+    """Build the train / minival / trainval / test loaders of a DCT transfer
+    (``datasets.py:445-582``; the JAX ``make_loaders`` :427-503): each
+    process's batch is ``global_batch`` (default ``cfg.train.batch_size``)
+    over the ranks, and it reads its strided shard of every split
+    (``shard_id`` its rank); train shuffled with the last partial batch
+    dropped, eval in order padded with weight-0 rows.
+
+    ``"cropped"``: train rows of the random-resized-crop boxes, ``packed_k``
+    ACs (default 16) in ``train_fmt`` (default mask16); eval to
+    ``cfg.model.dct_blocks`` blocks by the deterministic center crop (ViT,
     ``datasets.py:364``) or the whole-image resize (SwinV2,
     ``datasets.py:381``), ``packed_k_eval`` in ``eval_fmt`` (defaults
-    ``cropped_eval_defaults``), in order, padded with weight-0 rows."""
+    ``cropped_eval_defaults``).  ``"packed"``: ``DctPackedLoader`` rows of
+    the whole image on a ``canvas``-block canvas at ``packed_k`` ACs a block,
+    in the format of ``packed_defaults``.  ``"dense"``: ``DctCanvasLoader``.
+    Both refuse the cropped wire's ``packed_k_eval``, ``eval_fmt`` and
+    ``train_fmt``."""
     # imported here: the loader's codec needs libjpeg, the rest of this
     # module does not
-    from rgbnomore_tpu_torch.data.loader import DctCroppedLoader
+    from rgbnomore_tpu_torch.data.loader import (
+        DctCanvasLoader,
+        DctCroppedLoader,
+        DctPackedLoader,
+    )
 
     if cfg.model.domain != "DCT":
         raise NotImplementedError(
-            "only the cropped DCT loaders are ported so far (ROADMAP.md, port queue)")
+            "only the DCT loaders are ported so far (ROADMAP.md, port queue: RGB)")
+    if transfer not in TRANSFERS:
+        raise ValueError(f"transfer must be one of {TRANSFERS}, got {transfer!r}")
+    check_cropped_only(transfer, packed_k_eval=packed_k_eval, eval_fmt=eval_fmt,
+                       train_fmt=train_fmt)
     train_all = load_index(index_train)
     test_ds = load_index(index_val)
     train_ds, minival_ds, trainval_ds = split_train_minival(
@@ -446,14 +531,22 @@ def make_loaders(cfg: Config, index_train: str, index_val: str, *, num_threads: 
     k_eval, fmt_eval = packed_k_eval or ek, eval_fmt or ef
     eval_mode = "full" if cfg.model.arch == "swinv2" else "center"
 
+    common = dict(seed=cfg.seed, num_threads=num_threads, shard_id=parallel.rank(),
+                  num_shards=world)
+    d_fmt, d_k = packed_defaults("DCT")
+
     def mk(ds, train: bool):
+        if transfer == "packed":
+            return DctPackedLoader(ds, bsz, canvas=canvas, k=packed_k or d_k,
+                                   fmt=d_fmt, shuffle=train, drop_last=train,
+                                   **common)
+        if transfer == "dense":
+            return DctCanvasLoader(ds, bsz, canvas=canvas, shuffle=train, drop_last=train,
+                                   **common)
         return DctCroppedLoader(
             ds, bsz, target=cfg.model.dct_blocks,
             k=k_train if train else k_eval, fmt=fmt_train if train else fmt_eval,
-            mode="train" if train else eval_mode, shuffle=train, drop_last=train,
-            seed=cfg.seed, num_threads=num_threads, shard_id=parallel.rank(),
-            num_shards=world,
-        )
+            mode="train" if train else eval_mode, shuffle=train, drop_last=train, **common)
 
     return {"train": mk(train_ds, True), "minival": mk(minival_ds, False),
             "trainval": mk(trainval_ds, False), "test": mk(test_ds, False)}
@@ -503,10 +596,12 @@ def train_and_eval(
     train_fmt: str | None = None,
     ckpt_every: int = 1,
     device=None,
+    transfer: str = "cropped",
 ) -> dict:
     """The main train / eval flow (reference ``train.py:traineval``; the JAX
     ``train_and_eval``, ``loop.py:511-663``), on ``device`` (default
-    ``cuda``), as one rank of the process group if there is one.
+    ``cuda``), as one rank of the process group if there is one, over the
+    host-to-device ``transfer`` (default ``"cropped"``; see ``Trainer``).
 
     Training: ``cfg.train.epochs`` epochs of at most ``max_steps_per_epoch``
     steps (which also caps the schedule's steps per epoch), from the
@@ -525,14 +620,14 @@ def train_and_eval(
     "count"}``) and, after training, ``"epoch"`` and ``"history"``: per
     epoch the train loss and this process's train and eval img/s.
     """
-    trainer = Trainer(cfg, device=device, packed_k=packed_k, packed_k_eval=packed_k_eval,
-                      eval_fmt=eval_fmt, train_fmt=train_fmt)
+    trainer = Trainer(cfg, device=device, transfer=transfer, packed_k=packed_k,
+                      packed_k_eval=packed_k_eval, eval_fmt=eval_fmt, train_fmt=train_fmt)
     if run_eval and not run_train and loadpath and not Path(loadpath).is_file():
         raise FileNotFoundError(f"no weights at {loadpath}")
     cfg = trainer.cfg
     loaders = make_loaders(
         cfg, index_train, index_val, num_threads=num_threads,
-        global_batch=trainer.global_batch(), packed_k=trainer.packed_k,
+        global_batch=trainer.global_batch(), transfer=transfer, packed_k=trainer.packed_k,
         packed_k_eval=trainer.packed_k_eval, eval_fmt=trainer.eval_fmt,
         train_fmt=trainer.train_fmt)
     steps_per_epoch = len(loaders["train"])
@@ -575,7 +670,7 @@ def train_and_eval(
             for i, batch in enumerate(loaders["train"]):
                 if max_steps_per_epoch and i >= max_steps_per_epoch:
                     break
-                pending.append(trainer.train_step(trainer.put_batch(batch)["packed"]))
+                pending.append(trainer.train_step(trainer.upload(batch)))
                 n_img += int(batch["weights"].sum())
                 if verbose >= 2 or i % 50 == 0 or i + 1 == n_train_batches:
                     running = _flush_losses(pending, window, trainer.world)

@@ -5,8 +5,10 @@ eval.py``) on the CPU.
   same option strings, with the same default, type, choices and action,
   and adds ``--device`` (default ``cuda``).
 - Each flag whose feature is still in the port's queue raises
-  ``NotImplementedError`` naming its ROADMAP module; the eval CLI forces
-  ``--eval`` and drops ``--train``.
+  ``NotImplementedError`` naming its ROADMAP module; the flags ported since
+  (``--benchmark``, ``--transfer packed/dense``, ``--embed_type 2/3``) run on
+  the CPU: a step is trained and the weights written, or the six metrics
+  returned.  The eval CLI forces ``--eval`` and drops ``--train``.
 - ``python -m rgbnomore_tpu_torch.cli --train --eval --device cpu`` trains
   one epoch of the full-width ViT-Ti in a subprocess, writes its weights,
   and ``python -m rgbnomore_tpu_torch.eval --loadpath`` on them scores the
@@ -20,9 +22,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
-from torch_port_support import torch_threads, write_corpus
+from torch_port_support import settle_inspect_module_walk, torch_threads, write_corpus
 from rgbnomore_tpu_torch import cli
 from rgbnomore_tpu_torch import eval as port_eval
 
@@ -67,19 +71,72 @@ def test_parser_takes_every_flag_of_train_py(monkeypatch):
     assert got["device"].default == "cuda" and got["device"].choices == ("cuda", "cpu")
 
 
+@pytest.fixture(scope="module")
+def small_corpus(tmp_path_factory):
+    return write_corpus(tmp_path_factory.mktemp("cli_flags"), n=6, size=64)
+
+
+def _tiny_benchmark_config(monkeypatch):
+    """The CLI's config cut to depth 1 on an 8-block grid with 4 classes:
+    the synthetic model benchmark runs 300 iterations each way."""
+    from rgbnomore_tpu_torch.train import config
+
+    full = config.generate_config
+
+    def tiny(*a, **kw):
+        cfg = full(*a, **kw)
+        cfg.model.depth, cfg.model.classes = 1, 4
+        cfg.model.dct_blocks, cfg.model.input_size = 8, 64
+        return cfg
+
+    monkeypatch.setattr(config, "generate_config", tiny)
+
+
+BENCHMARK_KEYS = {"train_loader_fps", "test_loader_fps", "model_fbp_fps", "model_fwd_fps",
+                  "train_pipeline_fps", "test_pipeline_fps"}
+
+
 @pytest.mark.parametrize("argv,module", [
-    (["--benchmark", "10"], "module 4"),
+    (["--benchmark", "1", "--model_arch", "vitti", "--embed_type", "1"], None),
     (["--stage_data"], "module 7"),
-    (["--transfer", "packed"], "module 5"),
-    (["--transfer", "dense"], "module 5"),
+    (["--transfer", "packed", "--model_arch", "vitti", "--embed_type", "1"], None),
+    (["--transfer", "dense", "--model_arch", "vitti", "--embed_type", "1"], None),
     (["--domain", "rgb"], "module 6"),
-    (["--embed_type", "2"], "module 5"),
-    (["--embed_type", "3"], "module 5"),
+    (["--embed_type", "2"], None),  # the CLI's defaults: ViT-S/16, embed_type 2
+    (["--embed_type", "3", "--model_arch", "vitti"], None),
 ], ids=["benchmark", "stage_data", "packed", "dense", "rgb", "embed2", "embed3"])
-def test_unported_flags_raise(argv, module):
-    argv = ["--embed_type", "1", "--train", "--device", "cpu"] + argv
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue: {module}"):
-        cli.main(argv)
+def test_unported_flags_raise(argv, module, small_corpus, tmp_path, monkeypatch):
+    """The flags still in the queue raise naming their module; those ported
+    run on the CPU: the benchmark returns the six metrics, each > 0; a
+    transfer or an embedding trains one step at full width, writes the
+    weights and scores the test split."""
+    if module is not None:
+        argv = ["--embed_type", "1", "--train", "--device", "cpu"] + argv
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue: {module}"):
+            cli.main(argv)
+        return
+    common = ["--device", "cpu", "--indexpaths", f"{small_corpus},{small_corpus}",
+              "--batch", "2", "--num_cpus", "2", "--verbose", "0"]
+    settle_inspect_module_walk()  # each case builds a torch.optim optimizer
+    if argv[0] == "--benchmark":
+        _tiny_benchmark_config(monkeypatch)
+        got = cli.main(common + argv)
+        assert set(got) == BENCHMARK_KEYS and all(v > 0 for v in got.values()), got
+        return
+    weights = tmp_path / "w.pt"
+    got = cli.main(common + ["--train", "--eval", "--epochs", "1", "--max_steps_per_epoch",
+                             "1", "--savepath", str(weights)] + argv)
+    assert got["test"]["count"] == 6 and len(got["history"]) == 1
+    assert np.isfinite(got["history"][0]["train_loss"])
+    state = torch.load(weights, weights_only=True)
+    if argv == ["--embed_type", "2"]:  # vits: 384 = 256 luma + 128 chroma features
+        assert state["patchembed.projection_y.weight"].shape == (256, 256)
+        assert state["patchembed.projection_c.weight"].shape == (128, 128)
+        assert state["patchembed.linear_mix.weight"].shape == (384, 384)
+    elif "3" in argv:
+        assert state["patchembed.projection_c.weight"].shape == (192, 256)
+    else:
+        assert state["patchembed.projection.weight"].shape == (192, 384)
 
 
 @pytest.mark.parametrize("argv", [["--train", "--model_arch", "vitti"],

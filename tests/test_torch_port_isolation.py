@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from rgbnomore_tpu_torch import cli, parallel
+from rgbnomore_tpu_torch.benchmark import benchmark_model, benchmark_model_synthetic
 from rgbnomore_tpu_torch.device import resolve_device
 from rgbnomore_tpu_torch.eval import evaluate_model
 from rgbnomore_tpu_torch.train.config import build_model, example_inputs, generate_config
@@ -131,7 +132,11 @@ def test_amp_modules_import_alone(module):
                                     "rgbnomore_tpu_torch.parallel.dist",
                                     "rgbnomore_tpu_torch.utils.metrics",
                                     "rgbnomore_tpu_torch.train.checkpoint",
-                                    "rgbnomore_tpu_torch.train.loop"])
+                                    "rgbnomore_tpu_torch.train.loop",
+                                    "rgbnomore_tpu_torch.benchmark",
+                                    "rgbnomore_tpu_torch.bench",
+                                    "rgbnomore_tpu_torch.utils.timing",
+                                    "rgbnomore_tpu_torch.augment.crops"])
 def test_trainer_modules_import_alone(module):
     """The trainer's modules (the CLIs, data parallelism, the loss window,
     checkpoints, the epoch loop) import on their own with nothing of JAX,
@@ -204,10 +209,14 @@ def _swin_cfg():
     lambda: train_and_eval(_cfg(), "unused.csv", "unused.csv"),
     lambda: cli.main(["--train", "--eval", "--model_arch", "vitti", "--embed_type", "1"]),
     lambda: parallel.init_distributed("localhost:1", num_processes=1, process_id=0),
+    lambda: Trainer(_cfg(), transfer="packed"),
+    lambda: benchmark_model_synthetic(_cfg(), 1, "fwd"),
+    lambda: benchmark_model(_cfg(), 1, "unused.csv", "unused.csv"),
 ], ids=["resolve_device", "resolve_cuda", "build_model", "example_inputs", "Trainer",
         "create_state", "train_step", "train_pipe", "evaluate_model", "swin_build_model",
         "swin_example_inputs", "swin_Trainer", "swin_evaluate_model", "train_and_eval",
-        "cli", "init_distributed"])
+        "cli", "init_distributed", "packed_Trainer", "benchmark_model_synthetic",
+        "benchmark_model"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()

@@ -158,12 +158,20 @@ def _unknown_amp_dtype(cfg):
 
 
 @pytest.mark.parametrize("change,error", [
-    (lambda cfg: setattr(cfg.model, "version", 2), NotImplementedError),
+    # embed_type 2 is ported: the sub-block separate embedding builds and runs
+    (lambda cfg: setattr(cfg.model, "version", 2), None),
     (lambda cfg: setattr(cfg.model, "domain", "RGB"), NotImplementedError),
     (_unknown_amp_dtype, ValueError),  # bf16 and fp16 AMP are ported; other dtypes refused
 ], ids=["embed_type2", "rgb", "amp"])
-def test_unported_configs_raise(change, error):
+def test_unported_configs_raise(rng, change, error):
     cfg = _small_cfg(generate_config)
     change(cfg)
-    with pytest.raises(error):
-        build_model(cfg, device="cpu")
+    if error is not None:
+        with pytest.raises(error):
+            build_model(cfg, device="cpu")
+        return
+    model = build_model(cfg, device="cpu")
+    assert type(model.patchembed).__name__ == "PatchEmbeddingDCTSeparateSubblock"
+    with torch.inference_mode():
+        logits = model(*(torch.from_numpy(a) for a in _dct_inputs(rng)))
+    assert logits.shape == (2, 5) and bool(torch.isfinite(logits).all())

@@ -272,7 +272,7 @@ def test_wire_kernel_presets_on_card(fmt, preset):
     auglist = PRESETS[preset]
     pipe = make_cropped_train_pipeline(target=28, auglist=list(auglist), num_ops=2,
                                        magnitude=3, k=16, fmt=fmt)
-    flip, policy = pipe.draw(torch.Generator().manual_seed(1), 64)
+    flip, policy, _ = pipe.draw(torch.Generator().manual_seed(1), 64)
     rows = chip_smoke.random_wire_rows(np.random.default_rng(5), 64, 28, 16, fmt)
     _held_on_card(rows, flip, policy, target=28, k=16, fmt=fmt, ops_list=list(auglist),
                   num_ops=2, magnitude=3)
