@@ -20,9 +20,11 @@ data-parallel path over NCCL, and the train and eval CLIs; then the CLI's
 default model, ViT-S/16 with the separate DCT embedding, the other
 embeddings at its width (the concatenated one's attention at 294 tokens),
 SwinV2-T's absolute position embedding, the packed and dense transfers
-(the augmentation kernel's dense entry) and the benchmark harness.  It
-checks that every kernel of each path was launched and that what comes out
-is right.
+(the augmentation kernel's dense entry) and the benchmark harness; then the
+RGB domain (ViT-S/16 and SwinV2-T on pixels decoded on the card, every RGB
+transfer, the CLIs, the benchmark) and the DCT RandAugment ops outside the
+augmentation kernel's set.  It checks that every kernel of each path was
+launched and that what comes out is right.
 
 Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
@@ -124,14 +126,35 @@ Phases, each raising on failure (the script then exits non-zero):
      pipeline stage card vs CPU;
  21. benchmark: ``python -m rgbnomore_tpu_torch.cli --benchmark 20`` prints
      the six FPS metrics, each > 0, and ``python -m rgbnomore_tpu_torch.bench``
-     its one line.
+     its one line;
+ 22. rgb: ViT-S/16 with ``--domain rgb`` (the paper's RGB baseline: pixels
+     decoded on the card from ``RgbCroppedLoader``'s K=63 window rows of
+     the phase-14 JPEGs, ``AUGLIST_RGB`` at magnitude 10, lr 1e-3) at full
+     width: 1 + 5 train steps at the preset's batch of 1,024 (512 where that
+     does not fit) with 12 #1, 12 #2 and no #5 launch a step, finite losses,
+     the step's and the input stage's peak memory; one step card vs CPU at
+     2 images; the input stage split (decode, residual resample, flip +
+     RandAugment, range) and each part card vs CPU at 4 images; the stages
+     and kernels of a step; 512 images through the eval; the host decode
+     img/s at 1 and 8 threads;
+ 23. rgb paths: SwinV2-T ``--domain rgb`` under its bf16 preset (12 #3 and
+     24 #4 launches a step), ViT-Ti through the dense (``RgbCanvasLoader``)
+     and packed (``make_packed_rgb_decode``) RGB transfers, 1 + 2 steps and
+     an eval batch each; the train and eval CLIs with ``--domain rgb``;
+     ``--benchmark 5`` with ``--domain rgb`` and with ``--model_arch
+     swinv2`` (its drop path in the fwd+bwd step), six metrics > 0 each;
+ 24. dct ops: one ViT-Ti step on the cropped DCT wire with the ops outside
+     the augmentation kernel's set (Rotate, ShearX, ShearY, Equalize,
+     Solarize, Invert, FreqEnhance): no #5 launch, the step and its input
+     stage card vs CPU, each op forced card vs CPU.
 
 Phase 3 also holds #1, #2, #1h and #2h (bf16) at ViT-S's shapes (256, 6,
 196, 64) and (256, 6, 294, 64).  On every cropped path the input stage is
 one launch of the augmentation kernel's wire reader per eval batch and per
 train step, with no launch of its dense entry and no call of the plain
 unpack; on the packed and dense paths it is one launch of the dense entry
-per train step.
+per train step; on the RGB paths and the seven-op DCT step it is tensor code, with no
+launch of either.
 
 Every comparison of a SwinV2 first sets the scales of its blocks'
 res-post norms, which start at 0 (each block then is the identity and no
@@ -265,6 +288,30 @@ VITS_SCALE = 1.0 / math.sqrt(384)
 VITS_BATCHES = (1024, 512)
 VITS_TRAIN_STEPS = 5  # counted steps, after one warm-up step
 VITS_CPU_BATCH = 2
+# the RGB domain (--domain rgb, the paper's baseline): ViT-S/16 on pixels
+# decoded on the card from RgbCroppedLoader's K=63 mask16 window rows,
+# AUGLIST_RGB at magnitude 10, lr 1e-3, at the preset's batch of 1024 (512
+# where that does not fit), on the trainer corpus's JPEGs
+RGB_BATCHES = (1024, 512)
+RGB_TRAIN_STEPS = 5  # counted steps, after one warm-up step
+RGB_CPU_BATCH = 2
+RGB_STAGE_BATCH = 4  # images of the input stage's card-vs-CPU check
+RGB_PATH_STEPS = 2  # counted steps of SwinV2-T and the full-canvas transfers
+# the RGB input stage on the card against the CPU, from the same input at
+# each stage: the decode is integer arithmetic but for the IDCT's rounding,
+# so a sample at exactly .5 may land a level apart; the resample's float32
+# sums run in another order (1e-2 of a level is 1e-4 relative at 255); the
+# augmentation's filters and colour products likewise, where a rounding
+# difference may cross a threshold (Posterize, Solarize) in a rare pixel
+RGB_DECODE_ATOL = 1.0
+RGB_DECODE_SHARE = 1e-3  # pixels allowed a level apart
+RGB_LEVEL_ATOL = 1e-2
+RGB_AUG_SHARE = 1e-3  # pixels allowed beyond RGB_LEVEL_ATOL after RandAugment
+# the DCT RandAugment ops outside the kernel's set, on the card against the
+# CPU: tests/test_ops_geometry.py's 1e-2 on coefficients (the DFT route's
+# products sum in another order), 1e-5 on the [-1, 1] output
+DCT_OPS = ["Rotate", "ShearX", "ShearY", "Equalize", "Solarize", "Invert", "FreqEnhance"]
+DCT_OPS_ATOL = 1e-2
 # (tag, generate_config arguments, embedding, tokens) of the embed phase
 EMBED_PATHS = [
     ("embed2 no_subblock", dict(modelver=2, subblock=False), "PatchEmbeddingDCTSeparate", 196),
@@ -1472,6 +1519,19 @@ def plain_unpacks():
         pipeline.unpack_coefficients_mask = unpack
 
 
+def check_no_input_kernel(report: dict, path: str, launches: dict) -> None:
+    """A path whose input stage is tensor code (the RGB domain, a DCT op
+    list outside the kernel's set): no launch of #5's dense entry nor of its
+    wire reader; the path's zero is kept per path."""
+    got = {name: launches[name] for name in augpipe_wrappers()}
+    check(not any(got.values()), f"{path}: input stage launches {got}, want none")
+    for name, wrappers in (("fused_flip_aug_range", ("fused_flip_aug_range",)),
+                           ("augpipe_wire", ("wire_flip_aug_range", "wire_to_range"))):
+        by_path = report[name].setdefault("launches_by_path", {})
+        by_path[path] = sum(launches[w] for w in wrappers)
+        report[name]["launches"] = sum(by_path.values())
+
+
 def check_input_stage(report: dict, path: str, launches: dict, unpacks: int, *,
                       eval_batches: int = 0, train_steps: int = 0,
                       dense_steps: int | None = None) -> None:
@@ -1681,7 +1741,7 @@ def phase_train_vs_cpu(rows: np.ndarray) -> None:
 
 
 def step_card_vs_cpu(tag: str, cfg, rows: np.ndarray, prepare=None, loss_rtol=LOSS_RTOL,
-                     grad_rtol=GRAD_RTOL) -> None:
+                     grad_rtol=GRAD_RTOL, stage_from_cpu: bool = False) -> None:
     """One train step's loss and gradients on the card (kernels) against the
     CPU (plain versions), from the same seeded parameters (then ``prepare``
     on each model), rows and draws.  Tolerance: float32 sums in other orders
@@ -1690,7 +1750,10 @@ def step_card_vs_cpu(tag: str, cfg, rows: np.ndarray, prepare=None, loss_rtol=LO
     largest gradient entry in the model, so an entry whose gradient is zero
     in exact arithmetic and rounding noise here (the key third of each ViT
     qkv bias) is held to that noise's scale.  Mixed precision passes its
-    own tolerances."""
+    own tolerances.  ``stage_from_cpu``: the card's step takes the CPU
+    input stage's output (moved to the card), for an input stage in tensor
+    code whose rounding-level differences may cross a threshold of a later
+    op (Posterize, Solarize, a clamp); its own card-vs-CPU check is apart."""
     import torch
 
     from rgbnomore_tpu_torch.train.loop import Trainer
@@ -1701,6 +1764,10 @@ def step_card_vs_cpu(tag: str, cfg, rows: np.ndarray, prepare=None, loss_rtol=LO
         prepare(card.model)
         prepare(cpu.model)
     draws = cpu.draw(n)
+    if stage_from_cpu:
+        with torch.no_grad():
+            stage = cpu.train_pipe(torch.from_numpy(rows), draws.flip, draws.policy, draws.crop)
+        card.train_pipe = lambda *args: tuple(t.to(card.device) for t in stage)
     loss_card = float(card.compute_grads(card.put_batch({"packed": rows})["packed"], draws))
     loss_cpu = float(cpu.compute_grads(torch.from_numpy(rows), draws))
     grads_card = {k: p.grad.cpu() for k, p in card.model.named_parameters()}
@@ -1746,13 +1813,13 @@ def phase_train_breakdown(trainer, packed, tag: str = "breakdown") -> None:
         draws = trainer.draw(batch)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
-        y, c, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy, draws.crop)
+        *inputs, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy, draws.crop)
         extra = {} if draws.drop_keep is None else {"drop_keep": draws.drop_keep.cuda()}
         if draws.dropout is not None:
             extra["dropout"] = draws.dropout
         ev[1].record()
-        (y, c), targets = mixup_batch((y, c), labels, classes, draws.lam)
-        loss = softmax_cross_entropy(trainer.model(y, c, **extra), targets)
+        inputs, targets = mixup_batch(tuple(inputs), labels, classes, draws.lam)
+        loss = softmax_cross_entropy(trainer.model(*inputs, **extra), targets)
         ev[2].record()
         trainer.model.zero_grad(set_to_none=True)
         loss.backward()
@@ -2788,18 +2855,23 @@ def used_class_loss(trainer, packed, draws) -> float:
 
     trainer.model.eval()
     with torch.inference_mode():
-        y, c, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy, draws.crop)
+        *inputs, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy, draws.crop)
         labels = labels.long()
         used = torch.unique(labels)
-        logits = trainer.model(y, c).float()[:, used]
+        logits = trainer.model(*inputs).float()[:, used]
         return float(torch.nn.functional.cross_entropy(logits, torch.searchsorted(used, labels)))
 
 
-def train_path(report: dict, tag: str, trainer, packed, steps: int, want: dict) -> list[float]:
+def train_path(report: dict, tag: str, trainer, packed, steps: int, want: dict,
+               tensor_stage: bool = False) -> list[float]:
     """1 + ``steps`` train steps on one resident batch: the launches of the
     counted steps (1 wire launch a step, ``want`` of the attention kernels,
     no other), finite losses, the last below the first; returns the
-    losses.  With few steps and rows that leave classes unused, the falling
+    losses.  ``tensor_stage``: an input stage in tensor code (the RGB
+    domain, a DCT op list outside the kernel's set), which launches no #5
+    entry and unpacks its rows itself, and no check of the falling loss
+    (the RGB rows are photographs of the trainer corpus, and RandAugment at
+    magnitude 10 moves each step's batch far).  With few steps and rows that leave classes unused, the falling
     loss is a check of the head and of the gradient path only: the head's
     bias lowers it by pushing the unused classes' logits down, and
     ``step_card_vs_cpu`` holds the backbone's gradients.  The loss over
@@ -2807,7 +2879,8 @@ def train_path(report: dict, tag: str, trainer, packed, steps: int, want: dict) 
     printed beside it, and not checked."""
     import torch
 
-    fixed = trainer.draw(packed.shape[0])
+    batch = (packed["labels"] if isinstance(packed, dict) else packed).shape[0]
+    fixed = trainer.draw(batch)
     used_before = used_class_loss(trainer, packed, fixed)
     losses = [trainer.train_step(packed)]  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
@@ -2819,18 +2892,22 @@ def train_path(report: dict, tag: str, trainer, packed, steps: int, want: dict) 
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
     launches = all_launches()
-    check_input_stage(report, tag.replace(" ", "_"), launches, len(unpacks), train_steps=steps)
+    if tensor_stage:
+        check_no_input_kernel(report, tag.replace(" ", "_"), launches)
+    else:
+        check_input_stage(report, tag.replace(" ", "_"), launches, len(unpacks),
+                          train_steps=steps)
     check_launches(tag, launches, want)
     record_launches(report, tag.replace(" ", "_"), launches)
     losses = [float(v) for v in losses]
-    batch = packed.shape[0]
     used_after = used_class_loss(trainer, packed, fixed)
     print(f"{tag}: {steps} steps of {batch} in {train_s:.3f} s, {steps * batch / train_s:.1f} "
           f"img/s (pipeline + step, one resident batch) | launches {launches} | losses "
           f"{[round(v, 4) for v in losses]} | loss over the used classes, eval mode, one "
           f"fixed draw: {used_before:.5f} -> {used_after:.5f}", flush=True)
     check(all(math.isfinite(v) for v in losses), f"{tag}: losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"{tag}: loss did not fall over {steps} steps: {losses}")
+    check(tensor_stage or losses[-1] < losses[0],
+          f"{tag}: loss did not fall over {steps} steps: {losses}")
     return losses
 
 
@@ -3183,6 +3260,318 @@ def phase_benchmark(index_train: str, index_val: str) -> None:
           and line.get("n_gpus", 0) >= 1, f"bench printed {lines['bench']}")
 
 
+# ------------------------------------------------- RGB domain, DCT ops
+def rgb_config(arch: str = "vits", **kw):
+    """``arch`` in the RGB domain as its preset and ``--domain rgb`` give it
+    (ViT-S/16: 12 x 384, 6 heads of 64, patch 16, 224 px, 196 tokens, lr
+    1e-3, wd 1e-4, AUGLIST_RGB at magnitude 10 in 2 rounds), seed 0, warmup
+    1 over one epoch, the trainer corpus's 20% minival; ``kw`` overrides
+    ``generate_config``'s arguments."""
+    from rgbnomore_tpu_torch.train.config import AUGLIST_RGB, generate_config
+
+    cfg = generate_config(arch, "rgb", **{**dict(seed=SEED, epochs=1, warmup_steps=1), **kw})
+    cfg.train.split = TRAINER_SPLIT
+    t = cfg.train
+    check(cfg.model.domain == "RGB" and t.lr == 1e-3 and t.wd == 1e-4 and t.augstr == 10
+          and t.num_ops == 2 and list(t.auglist) == list(AUGLIST_RGB),
+          f"the RGB preset changed: {cfg}")
+    return cfg
+
+
+def rgb_eval(report: dict, tag: str, trainer, batches: list, want_per_batch: dict) -> dict:
+    """``trainer.evaluate`` over ``batches`` (loader batches) with launch
+    counts: ``want_per_batch`` attention launches a batch and no #5 launch;
+    finite sums over every weighted row."""
+    trainer.evaluate(batches[:1])  # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.evaluate(batches)
+    eval_s = time.perf_counter() - t0
+    launches = all_launches()
+    check_no_input_kernel(report, tag.replace(" ", "_"), launches)
+    check_launches(tag, launches, {k: v * len(batches) for k, v in want_per_batch.items()})
+    record_launches(report, tag.replace(" ", "_"), launches)
+    n = sum(float(b["weights"].sum()) for b in batches)
+    check(res["count"] == n and math.isfinite(res["loss"]), f"{tag}: eval gave {res}")
+    print(f"{tag}: {res} | {n / eval_s:.1f} img/s (upload + decode + resample + forward, "
+          f"rows premade) | launches {launches}", flush=True)
+    return res
+
+
+def rgb_stage_split(trainer, packed, rows: np.ndarray) -> None:
+    """The RGB input stage: each of its parts on the card at the train batch
+    (CUDA events: decode, residual resample, flip + RandAugment, range, and
+    the whole stage as the step runs it), then each part on the card against
+    the CPU on ``RGB_STAGE_BATCH`` rows, every part from the CPU's output of
+    the part before it."""
+    import torch
+
+    from rgbnomore_tpu_torch.augment.rgb import to_unit_range
+    from rgbnomore_tpu_torch.utils.timing import timeit_fifo
+
+    pipe = trainer.train_pipe
+    flip, policy, _ = pipe.draw(torch.Generator().manual_seed(SEED), packed.shape[0])
+    with torch.inference_mode():
+        pixels, geom, _, _ = pipe.decode(packed)
+        img = pipe.resample(pixels, geom)
+        aug = pipe.augment(img, flip, policy)
+        parts = {"decode": (lambda x: pipe.decode(x)[0], (packed,)),
+                 "residual resample": (pipe.resample, (pixels, geom)),
+                 "flip + RandAugment": (pipe.augment, (img, flip, policy)),
+                 "range": (to_unit_range, (aug,)),
+                 "whole stage": (pipe, (packed, flip, policy))}
+        ms = {name: 1e3 * timeit_fifo(fn, args, depth=3, repeats=3, warmup=1)
+              for name, (fn, args) in parts.items()}
+    print(f"rgb stage split (batch {packed.shape[0]}, 224 px): " + ", ".join(
+        f"{name} {v:.3f} ms" for name, v in ms.items()), flush=True)
+    del pixels, geom, img, aug
+
+    n = RGB_STAGE_BATCH
+    card_rows, cpu_rows = torch.from_numpy(rows[:n]).cuda(), torch.from_numpy(rows[:n])
+    flip, policy = flip[:n], tuple(p[:n] for p in policy)
+    with torch.inference_mode():
+        px_card, geom_card, _, _ = pipe.decode(card_rows)
+        px_cpu, geom_cpu, _, _ = pipe.decode(cpu_rows)
+        dec = (px_card.cpu() - px_cpu).abs()
+        res_card = pipe.resample(px_cpu.cuda(), geom_cpu.cuda()).cpu()
+        res_cpu = pipe.resample(px_cpu, geom_cpu)
+        res_err = float((res_card - res_cpu).abs().max())
+        aug_card = pipe.augment(res_cpu.cuda(), flip, policy).cpu()
+        aug_cpu = pipe.augment(res_cpu, flip, policy)
+        aug_off = (aug_card - aug_cpu).abs()
+        rng_err = float((to_unit_range(aug_cpu.cuda()).cpu() - to_unit_range(aug_cpu)).abs().max())
+    share = float((dec > 0).float().mean())
+    aug_share = float((aug_off > RGB_LEVEL_ATOL).float().mean())
+    print(f"rgb stage card vs CPU at {n} images: decode max {float(dec.max()):.0f} level(s), "
+          f"{share:.2e} of pixels apart; resample max abs err {res_err:.3e} levels; flip + "
+          f"RandAugment {aug_share:.2e} of pixels beyond {RGB_LEVEL_ATOL} (max "
+          f"{float(aug_off.max()):.3e}); range {rng_err:.3e}", flush=True)
+    check(float(dec.max()) <= RGB_DECODE_ATOL and share <= RGB_DECODE_SHARE,
+          f"rgb decode card vs CPU: max {float(dec.max())}, {share} of pixels apart")
+    check(res_err <= RGB_LEVEL_ATOL, f"rgb resample card vs CPU: {res_err}")
+    check(aug_share <= RGB_AUG_SHARE, f"rgb RandAugment card vs CPU: {aug_share} of pixels")
+    check(rng_err == 0.0, f"rgb range card vs CPU: {rng_err}")
+
+
+def phase_rgb(report: dict, index_train: str, index_val: str) -> None:
+    """ViT-S/16 with ``--domain rgb`` at full width through
+    ``RgbCroppedLoader`` and ``Trainer``: 1 + 5 train steps at the preset's
+    batch of 1,024 (512 where that does not fit) with 12 #1, 12 #2 and no #5
+    launch a step, finite losses, the step's peak memory and the input
+    stage's own; one step card vs CPU at 2 images; the input stage split and
+    card vs CPU; the stages and kernels of a step; 512 images through the
+    eval (12 #1 launches a batch); the host decode img/s at 1 and 8
+    threads."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from rgbnomore_tpu_torch.data.index import load_index
+    from rgbnomore_tpu_torch.data.loader import RgbCroppedLoader
+    from rgbnomore_tpu_torch.train.loop import Trainer, make_loaders
+
+    for batch in RGB_BATCHES:
+        cfg = rgb_config(batchsize=batch)
+        m = cfg.model
+        check(m.embed_size == 384 and m.depth == 12 and m.heads == 6 and m.head_size == 64
+              and m.patch_size == 16 and m.input_size == 224, f"the vits preset changed: {m}")
+        trainer = Trainer(cfg, device="cuda")
+        embed = type(trainer.model.patchembed).__name__
+        check(embed == "PatchEmbeddingRGB" and trainer.packed_k == 63
+              and trainer.compute_dtype == torch.float32,
+              f"rgb vits builds {embed} at K={trainer.packed_k} in {trainer.compute_dtype}")
+        loaders = make_loaders(cfg, index_train, index_val, num_threads=8, global_batch=batch)
+        t0 = time.perf_counter()
+        rows = next(iter(loaders["train"]))["packed"]
+        print(f"rgb vits: {batch} train rows of {rows.shape[1]} B decoded and packed in "
+              f"{time.perf_counter() - t0:.2f} s (8 threads)", flush=True)
+        trainer.create_state(steps_per_epoch=RGB_TRAIN_STEPS + 1)
+        packed = trainer.put_batch({"packed": rows})["packed"]
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            train_path(report, "rgb vits train", trainer, packed, RGB_TRAIN_STEPS,
+                       {"fused_attention": 12 * RGB_TRAIN_STEPS,
+                        "fused_attention_bwd": 12 * RGB_TRAIN_STEPS}, tensor_stage=True)
+        except torch.cuda.OutOfMemoryError as exc:
+            print(f"rgb vits train: batch {batch} does not fit one card: "
+                  f"{str(exc).splitlines()[0]}", flush=True)
+            del trainer, packed, exc
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            trainer.train_pipe(packed, *trainer.train_pipe.draw(trainer.generator, batch))
+        stage_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        print(f"rgb vits train: batch {batch}, peak memory {peak:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated); the input stage alone "
+              f"{stage_peak:.2f} GiB above the resident state", flush=True)
+        break
+    else:
+        check(False, f"rgb vits train: no batch of {RGB_BATCHES} fits one card")
+    step_card_vs_cpu("rgb vits train", rgb_config(batchsize=RGB_CPU_BATCH),
+                     rows[:RGB_CPU_BATCH], stage_from_cpu=True)
+    rgb_stage_split(trainer, packed, rows)
+    phase_train_breakdown(trainer, packed, "rgb vits breakdown")
+    ds = load_index(index_train)
+    eval_ldr = RgbCroppedLoader(ds, BATCH, size=224, k=63, mode="center", num_threads=8)
+    batches = [b for _, b in zip(range(N_IMAGES // BATCH), eval_ldr)]
+    rgb_eval(report, "rgb vits eval", trainer, batches, {"fused_attention": 12})
+    del trainer, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    rates = {}
+    for threads in (1, 8):
+        ldr = RgbCroppedLoader(ds, BATCH, size=224, k=63, mode="train", num_threads=threads)
+        with ThreadPoolExecutor(threads) as pool:
+            t0 = time.perf_counter()
+            ldr._decode_batch(pool, np.arange(BATCH))
+            rates[threads] = BATCH / (time.perf_counter() - t0)
+    print("rgb host decode (RgbCroppedLoader, train boxes, 224 px window, K=63): " + ", ".join(
+        f"{t} thread(s) {r:.1f} img/s" for t, r in rates.items()), flush=True)
+
+
+def phase_rgb_paths(report: dict, tmp: str, index_train: str, index_val: str) -> None:
+    """The other RGB paths: SwinV2-T ``--domain rgb`` under its bf16 preset
+    (its convolution stem; 1 + 2 steps with 12 #3 and 24 #4 launches a step,
+    one eval batch with 12); ViT-Ti through ``transfer="dense"``
+    (``RgbCanvasLoader``) and ``"packed"`` (``DctPackedLoader`` rows decoded
+    by ``make_packed_rgb_decode``), 1 + 2 steps and an eval batch each; the
+    train and eval CLIs with ``--domain rgb``; ``--benchmark 5`` with
+    ``--domain rgb`` and with ``--model_arch swinv2`` (its drop path in the
+    fwd+bwd step)."""
+    import gc
+    from pathlib import Path
+
+    import torch
+
+    from rgbnomore_tpu_torch.train.loop import Trainer, make_loaders
+
+    cfg = rgb_config("swinv2", batchsize=SWIN_TRAIN_BATCH)
+    check(cfg.model.input_size == 256 and cfg.model.patch_size == 4 and cfg.train.amp
+          and cfg.model.drop_path == 0.2, f"the swinv2 RGB preset changed: {cfg.model}")
+    paths = [("rgb swin", cfg, "cropped", {"window_attention": 12, "window_attention_bwd": 24},
+              {"window_attention": 12})]
+    for transfer in ("dense", "packed"):
+        paths.append((f"rgb {transfer}", rgb_config("vitti", batchsize=BATCH), transfer,
+                      {"fused_attention": 12, "fused_attention_bwd": 12},
+                      {"fused_attention": 12}))
+    for tag, cfg, transfer, per_step, per_batch in paths:
+        trainer = Trainer(cfg, device="cuda", transfer=transfer)
+        loaders = make_loaders(cfg, index_train, index_val, num_threads=8,
+                               global_batch=cfg.train.batch_size, transfer=transfer)
+        batch = next(iter(loaders["train"]))
+        trainer.create_state(steps_per_epoch=RGB_PATH_STEPS + 1)
+        inputs = trainer.upload(batch)
+        embed = getattr(trainer.model, "patch_embed", None) or trainer.model.patchembed
+        print(f"{tag}: {type(embed).__name__}, transfer {transfer}, {trainer.compute_dtype}",
+              flush=True)
+        train_path(report, f"{tag} train", trainer, inputs, RGB_PATH_STEPS,
+                   {k: v * RGB_PATH_STEPS for k, v in per_step.items()}, tensor_stage=True)
+        rgb_eval(report, f"{tag} eval", trainer, [next(iter(loaders["test"]))], per_batch)
+        del trainer, inputs, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    root = Path(__file__).resolve().parent
+    weights = f"{tmp}/cli_rgb/vitti.pt"
+    common = ["--domain", "rgb", "--model_arch", "vitti", "--indexpaths",
+              f"{index_train},{index_val}", "--batch", str(BATCH), "--seed", str(SEED),
+              "--num_cpus", "8", "--warmup_steps", "2", "--verbose", "0"]
+    out = {}
+    for name, args in (("rgb cli", ["-m", "rgbnomore_tpu_torch.cli", "--train", "--eval",
+                                    "--epochs", "1", "--max_steps_per_epoch",
+                                    str(TRAINER_STEPS), "--savepath", weights, *common]),
+                       ("rgb eval cli", ["-m", "rgbnomore_tpu_torch.eval", "--loadpath",
+                                         weights, *common]),
+                       ("rgb benchmark", ["-m", "rgbnomore_tpu_torch.cli", "--benchmark", "5",
+                                          "--domain", "rgb", "--indexpaths",
+                                          f"{index_train},{index_val}", "--batch", "32",
+                                          "--num_cpus", "8", "--verbose", "0"]),
+                       ("swin benchmark", ["-m", "rgbnomore_tpu_torch.cli", "--benchmark", "5",
+                                           "--model_arch", "swinv2", "--indexpaths",
+                                           f"{index_train},{index_val}", "--batch", "32",
+                                           "--num_cpus", "8", "--verbose", "0"])):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, *args], cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        check(res.returncode == 0, f"{name}: exit {res.returncode}: {res.stderr[-4000:]}")
+        out[name] = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"{name}: python {' '.join(args[:2])} exited 0 in {time.perf_counter() - t0:.1f} s:"
+              f" {out[name]}", flush=True)
+    run, again = out["rgb cli"]["test"], out["rgb eval cli"]["test"]
+    check(Path(weights).is_file() and run["count"] == again["count"] == BATCH
+          and run["accuracy"] == again["accuracy"]
+          and math.isclose(run["loss"], again["loss"], rel_tol=1e-6),
+          f"rgb cli: the eval CLI scored {again}, the run {run}")
+    six = {"train_loader_fps", "test_loader_fps", "model_fbp_fps", "model_fwd_fps",
+           "train_pipeline_fps", "test_pipeline_fps"}
+    for name in ("rgb benchmark", "swin benchmark"):
+        check(set(out[name]) == six and all(v > 0 for v in out[name].values()),
+              f"{name}: {out[name]}")
+
+
+def phase_dct_ops(report: dict) -> None:
+    """The DCT RandAugment ops outside the kernel's set: one ViT-Ti train
+    step on the cropped DCT wire with ``--ops_list`` Rotate, ShearX, ShearY,
+    Equalize, Solarize, Invert, FreqEnhance (the stage in tensor code: no #5
+    launch; 12 #1 and 12 #2); its step on the card against the CPU (the
+    same input stage) and its input stage card vs CPU; then each op forced
+    on one batch, card vs CPU."""
+    import torch
+
+    from rgbnomore_tpu_torch.augment.randaugment import RandAugmentDCT
+    from rgbnomore_tpu_torch.train.config import generate_config
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    def config(batch):
+        return generate_config("vitti", "dct", modelver=1, batchsize=batch, seed=SEED,
+                               epochs=1, warmup_steps=1, lr=3e-3, auglist=",".join(DCT_OPS))
+
+    cfg = config(BATCH)
+    trainer = Trainer(cfg, device="cuda")
+    check(not trainer.train_pipe.fused and trainer.train_pipe.ops_list == DCT_OPS,
+          f"dct ops: the pipeline is fused={trainer.train_pipe.fused}")
+    trainer.create_state(steps_per_epoch=2)
+    rng = np.random.default_rng(SEED + 14)
+    rows = vit_rows(rng, BATCH, K_TRAIN)
+    packed = trainer.put_batch({"packed": rows})["packed"]
+    train_path(report, "dct ops train", trainer, packed, 1,
+               {"fused_attention": 12, "fused_attention_bwd": 12}, tensor_stage=True)
+    step_card_vs_cpu("dct ops train", config(CPU_GRAD_BATCH), rows[:CPU_GRAD_BATCH],
+                     stage_from_cpu=True)
+    cpu = Trainer(config(CPU_GRAD_BATCH), device="cpu")
+    draws = cpu.draw(CPU_GRAD_BATCH)
+    with torch.inference_mode():
+        got = trainer.train_pipe(packed[:CPU_GRAD_BATCH], draws.flip, draws.policy)
+        want = cpu.train_pipe(torch.from_numpy(rows[:CPU_GRAD_BATCH]), draws.flip, draws.policy)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+    print(f"dct ops: input stage card vs CPU max abs err {err:.3e} on [-1, 1]", flush=True)
+    check(err <= DCT_OPS_ATOL / 1020, f"dct ops: input stage card vs CPU {err}")
+    y, c = synthetic_planes(rng, CPU_GRAD_BATCH, GRID)
+    y, c = torch.from_numpy(y), torch.from_numpy(c)
+    n = CPU_GRAD_BATCH
+    sign = torch.tensor([1.0, -1.0] * (n // 2))[:, None]
+    zeros = torch.zeros((n, 1), dtype=torch.int32)
+    policy = (zeros, sign, zeros, zeros, torch.zeros((n, 1), dtype=torch.bool))
+    errs = {}
+    for op in DCT_OPS:
+        aug = RandAugmentDCT(ops_list=[op], num_ops=1, magnitude=cfg.train.augstr, grid=GRID)
+        with torch.inference_mode():
+            gy, gc = aug.apply(y.cuda(), c.cuda(), tuple(p.cuda() for p in policy))
+            wy, wc = aug.apply(y, c, policy)
+        errs[op] = max(float((gy.cpu() - wy).abs().max()), float((gc.cpu() - wc).abs().max()))
+        moved = float((wy - torch.clamp(y, -1024, 1016)).abs().max())
+        check(errs[op] <= DCT_OPS_ATOL and moved > 1.0,
+              f"dct ops: {op} card vs CPU max abs err {errs[op]}, moves the input by {moved}")
+    print("dct ops: each op forced on " + f"{n} images, card vs CPU max abs err: " + ", ".join(
+        f"{op} {e:.3e}" for op, e in errs.items()), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3242,6 +3631,9 @@ def main() -> int:
         phase_cli(tmp, index_train, index_val)
         phase_packed(report, index_train, index_val)
         phase_benchmark(index_train, index_val)
+        phase_rgb(report, index_train, index_val)
+        phase_rgb_paths(report, tmp, index_train, index_val)
+    phase_dct_ops(report)
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """rgbnomore_tpu_torch — the PyTorch + CUDA port of ``rgbnomore_tpu``.
 
-Trains and evaluates vision transformers on JPEG DCT coefficients on an
+Trains and evaluates vision transformers on JPEG DCT coefficients, and on
+the RGB pixels decoded from them on the card (the paper's baseline), on an
 NVIDIA H100.
 The JAX package beside it is the reference: every module here has a
 counterpart of the same name there, and the tests hold the two against each
@@ -17,13 +18,14 @@ Subpackages
 -----------
 - ``ops``      — the kernels' wrappers and plain versions (attention forward
                  and backward, the fused flip + RandAugment + ToRange stage),
-                 the DCT-domain photometric and block ops, the build.
-- ``augment``  — the device half of the cropped DCT input pipelines and the
-                 batched DCT RandAugment.
+                 the DCT-domain photometric, block and geometry ops, the
+                 fast DCT, the JPEG tail decode to pixels, the build.
+- ``augment``  — the device half of the input pipelines (DCT and RGB), the
+                 batched DCT and RGB RandAugment, the pixel oracles.
 - ``codec``    — the host JPEG codec (C++/libjpeg extension + wrappers).
-- ``data``     — index datasets and the crop-before-pack loader.
-- ``models``   — the ViT with the grouped DCT patch embedding, SwinV2, and
-                 flax's dtype rules and dropout.
+- ``data``     — index datasets and the loaders of both domains.
+- ``models``   — the ViT with every patch embedding, SwinV2, and flax's
+                 dtype rules and dropout.
 - ``train``    — config, mixup and loss, clip + AdamW + schedule, the
                  trainer's train step and eval, checkpoints and the epoch
                  loop ``train_and_eval``.

@@ -1,2 +1,2 @@
-"""The device half of the input pipelines (cropped DCT wire, eval and train)
-and the batched DCT RandAugment."""
+"""The device half of the input pipelines (DCT and RGB, every transfer),
+the batched DCT and RGB RandAugment, and the pixel oracles."""

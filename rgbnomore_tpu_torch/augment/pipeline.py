@@ -1,6 +1,6 @@
-"""The device half of the DCT input pipelines, eval and train.
+"""The device half of the input pipelines, eval and train, DCT and RGB.
 
-Port of the DCT paths of ``rgbnomore_tpu/augment/pipeline.py``.
+Port of ``rgbnomore_tpu/augment/pipeline.py``.
 
 The full-canvas transfers (``make_train_pipeline``, ``make_eval_pipeline``;
 the JAX Trainer's ``transfer="packed"`` and ``"dense"``) take the packed
@@ -23,6 +23,17 @@ buffer the eval outputs are bit-exact against the JAX pipeline
 (``tests/test_torch_port_eval.py``, ``tests/test_torch_port_wire.py``) and
 the train outputs within 2e-6 of it with the same draws
 (``tests/test_torch_port_augment.py``, ``tests/test_torch_port_wire.py``).
+
+The RGB domain (``--domain rgb``) ships coefficients too and decodes them to
+pixels on the device (``ops.pixel_decode``): the cropped wire
+(``RgbCroppedLoader``'s K=63 mask16 rows of the crop box's window) through
+``make_rgb_cropped_train_pipeline`` (decode -> the residual box's
+bilinear resample -> flip -> ``RandAugmentRGB`` -> [-1, 1]) and
+``make_rgb_cropped_eval_pipeline``; the full-canvas transfers through
+``RgbCanvasPipeline`` (packed rows decoded by ``make_packed_rgb_decode``, or
+the dense pixel canvases of ``RgbCanvasLoader``, then ``augment.rgb``'s
+train or eval pipeline).  Every stage is tensor code on the rows' device:
+no kernel of the port takes part, as none of the JAX package's does.
 """
 
 from __future__ import annotations
@@ -38,14 +49,27 @@ from rgbnomore_tpu_torch.augment.crops import (
     make_random_resized_crop,
 )
 from rgbnomore_tpu_torch.augment.randaugment import RandAugmentDCT
+from rgbnomore_tpu_torch.augment.rgb import (
+    RandAugmentRGB,
+    apply_separable_rgb,
+    flip_images,
+    make_rgb_eval_pipeline,
+    make_rgb_train_pipeline,
+    resample_matrix,
+    to_unit_range,
+)
 from rgbnomore_tpu_torch.data.loader import packed_layout
 from rgbnomore_tpu_torch.ops import blocks
 from rgbnomore_tpu_torch.ops.augpipe import (
+    SUPPORTED_OPS,
+    flip_aug_range_plain,
     fused_flip_aug_range,
     wire_flip_aug_range,
+    wire_flip_aug_range_plain,
     wire_to_range,
 )
 from rgbnomore_tpu_torch.ops.photometric import DCT_MAX, DCT_MIN
+from rgbnomore_tpu_torch.ops.pixel_decode import decode_rgb_pixels
 
 __all__ = [
     "DCT_MIN",
@@ -64,6 +88,11 @@ __all__ = [
     "make_train_pipeline",
     "CroppedTrainPipeline",
     "TrainPipeline",
+    "RgbCanvasPipeline",
+    "RgbCroppedTrainPipeline",
+    "make_packed_rgb_decode",
+    "make_rgb_cropped_eval_pipeline",
+    "make_rgb_cropped_train_pipeline",
 ]
 
 _TORCH_DTYPES = {
@@ -76,9 +105,9 @@ _TORCH_DTYPES = {
 
 
 def split_packed_batch(packed: torch.Tensor, canvas: int, k: int, fmt: str = "mask16",
-                       names=None) -> dict[str, torch.Tensor]:
+                       names=None, geom: bool = False) -> dict[str, torch.Tensor]:
     """Re-slice the consolidated (B, row) uint8 buffer into typed fields
-    (only ``names`` where given).
+    (only ``names`` where given; ``geom``: the RGB cropped wire's layout).
 
     Inverse of the host-side layout (``data.loader.packed_layout``): each
     field is a byte slice of every row reinterpreted in place with
@@ -88,7 +117,7 @@ def split_packed_batch(packed: torch.Tensor, canvas: int, k: int, fmt: str = "ma
     if packed.dtype != torch.uint8 or packed.dim() != 2:
         raise ValueError(f"packed rows must be (B, row) uint8, got "
                          f"{tuple(packed.shape)} {packed.dtype}")
-    layout = packed_layout(canvas, k, fmt)
+    layout = packed_layout(canvas, k, fmt, geom)
     if packed.shape[1] != layout["row"]:
         raise ValueError(f"row is {packed.shape[1]} bytes, layout wants {layout['row']}")
     b = packed.shape[0]
@@ -230,7 +259,12 @@ class CroppedTrainPipeline:
     The host already dequantized, cropped and resized to the target grid, so
     the device path is unpack -> flip -> RandAugment -> ToRange, all four in
     one ``wire_flip_aug_range`` (one launch of the CUDA kernel on a CUDA
-    buffer, its plain version on a CPU one).  ``pipe(packed, flip, policy,
+    buffer, its plain version on a CPU one).  An op list with an op outside
+    the kernel's set (``SUPPORTED_OPS``: Equalize, Solarize, Invert,
+    FreqEnhance, Rotate, ShearX, ShearY) runs the same four stages as tensor
+    code on the buffer's device instead (``wire_flip_aug_range_plain``), as
+    the JAX pipeline sends such a list to its XLA path; ``fused`` says which,
+    chosen from the op list when the pipeline is built.  ``pipe(packed, flip, policy,
     crop=None) -> (y, cbcr, labels, weights)`` takes the draws explicitly;
     ``pipe.draw(generator, batch)`` makes them, as the JAX pipeline does from
     its key (``pipeline.py:384-389``).  Both train pipelines take and draw
@@ -243,6 +277,7 @@ class CroppedTrainPipeline:
         self.ops_list, self.num_ops, self.magnitude = list(ops_list), num_ops, magnitude
         self.aug = RandAugmentDCT(ops_list=self.ops_list, num_ops=num_ops,
                                   magnitude=magnitude, grid=target)
+        self.fused = set(self.ops_list) <= SUPPORTED_OPS
 
     def draw(self, generator: torch.Generator, batch: int):
         """``(flip (B,) bool, policy, None)`` on the generator's device: each
@@ -255,9 +290,9 @@ class CroppedTrainPipeline:
             raise ValueError("the cropped wire is cropped on the host: crop must be None")
         f = split_packed_batch(packed_buf, self.target, self.k, self.fmt,
                                names=("labels", "weights"))
-        y, c = wire_flip_aug_range(packed_buf, flip, policy, target=self.target, k=self.k,
-                                   fmt=self.fmt, ops_list=self.ops_list,
-                                   num_ops=self.num_ops, magnitude=self.magnitude)
+        stage = wire_flip_aug_range if self.fused else wire_flip_aug_range_plain
+        y, c = stage(packed_buf, flip, policy, target=self.target, k=self.k, fmt=self.fmt,
+                     ops_list=self.ops_list, num_ops=self.num_ops, magnitude=self.magnitude)
         return y, c, f["labels"], f["weights"]
 
 
@@ -287,7 +322,9 @@ class TrainPipeline:
     is unpacked and dequantized, cropped to ``target`` blocks by the boxes
     ``crop``, then flipped, augmented and rescaled in one
     ``fused_flip_aug_range`` (one launch of the kernel's dense entry on a
-    CUDA tensor, its plain version on a CPU one).  ``pipe.draw(generator,
+    CUDA tensor, its plain version on a CPU one), or, for an op list with an
+    op outside the kernel's set, in tensor code (``flip_aug_range_plain``;
+    ``fused`` False).  ``pipe.draw(generator,
     batch)`` makes the draws ``(flip, policy, crop)``: the boxes, then the
     flip bits and the policy, all from the one generator (JAX splits its key
     in three for them, ``pipeline.py:312``).
@@ -301,6 +338,7 @@ class TrainPipeline:
         self.rrc = make_random_resized_crop(target, canvas)
         self.aug = RandAugmentDCT(ops_list=self.ops_list, num_ops=num_ops,
                                   magnitude=magnitude, grid=target)
+        self.fused = set(self.ops_list) <= SUPPORTED_OPS
 
     def draw(self, generator: torch.Generator, batch: int):
         crop = self.rrc.draw(generator, batch)
@@ -314,8 +352,9 @@ class TrainPipeline:
     def __call__(self, inputs, flip: torch.Tensor, policy, crop):
         y, c, labels, weights = self.dequantized(inputs)
         y, c = self.rrc.crop(y, c, crop)
-        y, c = fused_flip_aug_range(y, c, policy, flip, ops_list=self.ops_list,
-                                    num_ops=self.num_ops, magnitude=self.magnitude)
+        stage = fused_flip_aug_range if self.fused else flip_aug_range_plain
+        y, c = stage(y, c, policy, flip, ops_list=self.ops_list, num_ops=self.num_ops,
+                     magnitude=self.magnitude)
         return y, c, labels, weights
 
 
@@ -370,3 +409,131 @@ def make_eval_pipeline(cfg=None, *, target: int = 28, canvas: int = 64, swin: bo
         return to_range(y), to_range(c), labels, weights
 
     return pipeline
+
+
+# ---------------------------------------------------------------- RGB domain
+def make_packed_rgb_decode(canvas: int = 64, k: int = 63, fmt: str = "mask16") -> Callable:
+    """Packed coefficient rows (``DctPackedLoader``, a ``canvas``-block
+    canvas) -> RGB pixels on the rows' device: unpack, dequantize, the JPEG
+    tail decode (``ops.pixel_decode``).  ``fn(packed) -> (pixels (B, 3,
+    8 canvas, 8 canvas) float32, labels, weights)`` (the JAX
+    ``pipeline.py:139-161``)."""
+
+    def decode(packed_buf: torch.Tensor):
+        f = split_packed_batch(packed_buf, canvas, k, fmt)
+        y, c = dequantize(*unpack_fields(f, fmt), f["quant"])
+        return decode_rgb_pixels(y, c), f["labels"], f["weights"]
+
+    return decode
+
+
+class RgbCroppedTrainPipeline:
+    """The RGB crop-before-pack train pipeline (``RgbCroppedLoader``; the
+    JAX ``make_rgb_cropped_train_pipeline``, ``pipeline.py:164-219``): the
+    window's K-``k`` mask16 rows -> the JPEG tail decode -> the residual
+    box's bilinear resample (``geom``) -> HFlip -> RandAugment (``fill``
+    128) -> [-1, 1].  ``pipe(packed, flip, policy, crop=None) -> (img (B, 3,
+    size, size), labels, weights)`` takes the draws; ``pipe.draw(generator,
+    batch)`` makes ``(flip, policy, None)``: the host cropped.  The stages
+    are :meth:`decode`, :meth:`resample` and :meth:`augment`."""
+
+    def __init__(self, size: int, k: int, auglist, num_ops: int, magnitude: int,
+                 fill: float = 128.0):
+        self.size, self.k = size, k
+        self.aug = RandAugmentRGB(ops_list=list(auglist or []), num_ops=num_ops,
+                                  magnitude=magnitude, image_hw=(size, size), fill=fill)
+
+    def draw(self, generator: torch.Generator, batch: int):
+        flip = torch.rand(batch, generator=generator, device=generator.device) < 0.5
+        return flip, self.aug.draw_policy(generator, batch), None
+
+    def decode(self, packed_buf: torch.Tensor):
+        """``(pixels (B, 3, size, size), geom (B, 4), labels, weights)``."""
+        return _rgb_window(packed_buf, self.size, self.k)
+
+    def resample(self, pixels: torch.Tensor, geom: torch.Tensor) -> torch.Tensor:
+        return _residual_resample(pixels, geom, self.size)
+
+    def augment(self, img: torch.Tensor, flip, policy) -> torch.Tensor:
+        return self.aug.apply(flip_images(img, flip), policy)
+
+    def __call__(self, packed_buf: torch.Tensor, flip, policy, crop=None):
+        if crop is not None:
+            raise ValueError("the cropped wire is cropped on the host: crop must be None")
+        pixels, geom, labels, weights = self.decode(packed_buf)
+        img = self.augment(self.resample(pixels, geom), flip, policy)
+        return to_unit_range(img), labels, weights
+
+
+def _rgb_window(packed_buf: torch.Tensor, size: int, k: int):
+    """Decode the RGB cropped wire's window: ``(pixels, geom, labels, weights)``."""
+    f = split_packed_batch(packed_buf, size // 8, k, "mask16", geom=True)
+    y, c = unpack_fields(f, "mask16")  # the wire carries dequantized coefficients
+    return decode_rgb_pixels(y, c), f["geom"], f["labels"], f["weights"]
+
+
+def _residual_resample(pixels: torch.Tensor, geom: torch.Tensor, size: int) -> torch.Tensor:
+    """The residual box (sy0, sh, sx0, sw) of each row, bilinear."""
+    m_h = resample_matrix(geom[:, 0], geom[:, 1], size, size)
+    m_w = resample_matrix(geom[:, 2], geom[:, 3], size, size)
+    return apply_separable_rgb(pixels, m_h, m_w)
+
+
+def make_rgb_cropped_train_pipeline(cfg=None, *, size: int = 224, k: int = 63, auglist=None,
+                                    num_ops: int = 2, magnitude: int = 10,
+                                    fill: float = 128.0) -> RgbCroppedTrainPipeline:
+    """:class:`RgbCroppedTrainPipeline`; ``cfg`` supplies the input size, the
+    op list, the number of rounds and the magnitude."""
+    if cfg is not None:
+        size, auglist = cfg.model.input_size, list(cfg.train.auglist)
+        num_ops, magnitude = cfg.train.num_ops, cfg.train.augstr
+    return RgbCroppedTrainPipeline(size, k, auglist, num_ops, magnitude, fill)
+
+
+def make_rgb_cropped_eval_pipeline(cfg=None, *, size: int = 224, k: int = 63) -> Callable:
+    """The eval twin (the JAX ``pipeline.py:222-241``): the host shipped the
+    Resize + CenterCrop (ViT) or whole-image (SwinV2) box's window; decode,
+    the residual resample and [-1, 1] run here.  ``fn(packed) -> (img,
+    labels, weights)``."""
+    if cfg is not None:
+        size = cfg.model.input_size
+
+    def pipeline(packed_buf: torch.Tensor):
+        pixels, geom, labels, weights = _rgb_window(packed_buf, size, k)
+        return to_unit_range(_residual_resample(pixels, geom, size)), labels, weights
+
+    return pipeline
+
+
+class RgbCanvasPipeline:
+    """The RGB full-canvas transfers (the JAX Trainer's RGB ``"packed"`` and
+    ``"dense"``, ``loop.py:168-197``): ``inputs`` are ``DctPackedLoader``'s
+    mask16 rows of a ``canvas // 8``-block canvas, decoded on the device
+    (``make_packed_rgb_decode``), or the dict of ``RgbCanvasLoader``'s
+    pixel canvases; then ``augment.rgb``'s train pipeline (``train``:
+    RandomResizedCrop -> HFlip -> RandAugment -> [-1, 1]) or its eval one.
+    Train: ``pipe(inputs, flip, policy, crop)`` and ``pipe.draw(generator,
+    batch) -> (flip, policy, crop)``; eval: ``pipe(inputs)``.  Both return
+    ``(img, labels, weights)``."""
+
+    def __init__(self, cfg, *, canvas: int, packed: bool, k: int, fmt: str, train: bool):
+        if packed and canvas % 16:
+            raise ValueError(f"the RGB packed transfer needs a canvas that is a multiple of "
+                             f"16 (got {canvas}); use transfer='dense' for other sizes")
+        self.packed, self.train = packed, train
+        self.decode = make_packed_rgb_decode(canvas // 8, k, fmt) if packed else None
+        self.stage = (make_rgb_train_pipeline(cfg, canvas=canvas) if train
+                      else make_rgb_eval_pipeline(cfg, canvas=canvas))
+
+    def pixels(self, inputs):
+        """``(pixels, labels, weights)`` of the inputs."""
+        if self.packed:
+            return self.decode(inputs)
+        return inputs["pixels"], inputs["labels"], inputs["weights"]
+
+    def draw(self, generator: torch.Generator, batch: int):
+        return self.stage.draw(generator, batch)
+
+    def __call__(self, inputs, *draws):
+        pixels, labels, weights = self.pixels(inputs)
+        return self.stage(pixels, *draws), labels, weights

@@ -17,11 +17,13 @@ Fidelity notes, as in the JAX module:
   allowed-mask updated between rounds; a list that exclusions emptied is
   reopened.
 - Values stay float32; each op clamps to [-1024, 1016].
+- Rotate, ShearX and ShearY pad the block grid by ``pad`` (sqrt 2) and run
+  through the global DFT (``ops/geometry.py``); Solarize reuses the luma
+  mask, subsampled, for chroma.
 
-Only the 16 ops of the fused kernel's op set are ported; Equalize,
-Solarize, Invert, FreqEnhance, Rotate, ShearX and ShearY raise
-``NotImplementedError`` (ROADMAP.md, port queue: other transfers and
-embeddings).
+Every op of the table runs here.  The fused kernel (``ops/augpipe.py``)
+takes 16 of them (``SUPPORTED_OPS``); a list with any other op runs through
+:meth:`RandAugmentDCT.apply` (``augment/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -32,14 +34,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from rgbnomore_tpu_torch.ops import blocks
+from rgbnomore_tpu_torch.ops import blocks, geometry
 from rgbnomore_tpu_torch.ops import photometric as ph
 
-__all__ = ["CHROMA_OPS", "RandAugmentDCT"]
+__all__ = ["CHROMA_OPS", "RandAugmentDCT", "split_by_sign"]
 
 CHROMA_OPS = frozenset({"Grayscale", "Color", "AutoSaturation", "ChromaDrop"})
-_NOT_PORTED = frozenset({"Equalize", "Solarize", "Invert", "FreqEnhance", "Rotate",
-                         "ShearX", "ShearY"})
 
 
 def _magnitude_table(num_bins: int, grid_h: int, grid_w: int) -> dict[str, tuple[np.ndarray, bool]]:
@@ -96,22 +96,53 @@ def _by_sign(sign: torch.Tensor, pos, neg):
     return torch.where(sel, pos, neg)
 
 
-def _make_op(name: str, mag: float, signed: bool) -> Callable:
+def split_by_sign(sign: torch.Tensor, fn, *xs):
+    """``fn(+1, *xs)`` on the samples whose sign is positive and ``fn(-1,
+    *xs)`` on the others, each branch run on its own samples only (the JAX
+    op's ``lax.cond`` per sample)."""
+    pos = sign > 0
+    outs = [x.clone() for x in xs]
+    for s, sel in ((1, pos), (-1, ~pos)):
+        rows = sel.nonzero()[:, 0]
+        if rows.numel():
+            for out, part in zip(outs, fn(s, *(x[rows] for x in xs))):
+                out[rows] = part
+    return tuple(outs)
+
+
+def _make_op(name: str, mag: float, signed: bool, pad: float) -> Callable:
     """Batched op ``(y, c, sign, cut_ch, cut_cw, drop) -> (y, c)``.
 
     ``y`` (n, 1, H, W, 8, 8), ``c`` (n, 2, H/2, W/2, 8, 8) float32; the draws
     are (n,) tensors, one per sample.  Semantics follow ``_apply_op_dct``
     (``custom_transforms.py:944-1021``) through the JAX ``_make_op``.
     """
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name} op is still to be ported (ROADMAP.md, port queue: other "
-            "transfers and embeddings)")
 
     def op(y, c, sign, cut_ch, cut_cw, drop):
         m = mag * sign if signed else mag
         if name == "Identity":
             return y, c
+        if name in ("ShearX", "ShearY", "Rotate"):
+            if mag == 0.0:
+                return y, c
+            if name == "Rotate":
+                warp = lambda x, s: geometry.rotate_block(x, degrees=s * mag, pad=pad)  # noqa: E731
+            else:
+                key = "deg_x" if name == "ShearX" else "deg_y"
+                warp = lambda x, s: geometry.shear_block(x, pad=pad, **{key: s * mag})  # noqa: E731
+            return _clamp_pair(*split_by_sign(sign, lambda s, a, b: (warp(a, s), warp(b, s)),
+                                               y, c))
+        if name == "Solarize":
+            y2, mask = ph.solarize_dct(y, mag)
+            cmask = mask[:, :, ::2, ::2].expand(-1, 2, -1, -1)  # the luma mask, subsampled
+            c2, _ = ph.solarize_dct(c, mag, cmask)
+            return _clamp_pair(y2, c2)
+        if name == "Equalize":
+            return _clamp_pair(ph.equalize_dct(y), c)
+        if name == "Invert":
+            return _clamp_pair(ph.invert_dct(y), ph.invert_dct(c))
+        if name == "FreqEnhance":
+            return _clamp_pair(ph.freq_enhance_dct(y, 1.0 + m), ph.freq_enhance_dct(c, 1.0 + m))
         if name in ("TranslateX", "TranslateY"):
             direction = "W" if name == "TranslateX" else "H"
             t_pos, t_neg = translate_blocks(mag)
@@ -166,8 +197,8 @@ class RandAugmentDCT:
 
     Args mirror the reference (``custom_transforms.py:1045-1064``):
     ``num_ops`` rounds per sample, a fixed ``magnitude`` index into the
-    11-bin table, an op list.  (The JAX class's ``pad`` serves Rotate and
-    Shear, which are not ported.)
+    11-bin table, an op list, and the grid padding of Rotate and Shear
+    (sqrt 2).
     """
 
     ops_list: list[str]
@@ -175,6 +206,7 @@ class RandAugmentDCT:
     magnitude: int = 3
     num_magnitude_bins: int = 11
     grid: int = 28
+    pad: float = 2**0.5
 
     def __post_init__(self):
         table = _magnitude_table(self.num_magnitude_bins, self.grid, self.grid)
@@ -184,7 +216,7 @@ class RandAugmentDCT:
         self._ops = []
         for name in self.ops_list:
             mags, signed = table[name]
-            self._ops.append(_make_op(name, float(mags[self.magnitude]), signed))
+            self._ops.append(_make_op(name, float(mags[self.magnitude]), signed, self.pad))
         self._signed = torch.tensor([table[o][1] for o in self.ops_list], dtype=torch.bool)
         self._is_chroma = torch.tensor([o in CHROMA_OPS for o in self.ops_list],
                                        dtype=torch.bool)

@@ -47,13 +47,19 @@ def benchmark_dataloader(loader, max_iters: int) -> tuple[int, float]:
 def benchmark_model_synthetic(cfg, iters: int, mode: str = "fbp", n_devices: int | None = None,
                               device=None) -> tuple[int, float]:
     """fwd+bwd+update (``"fbp"``) or forward-only images and seconds on
-    synthetic inputs: DCT Y (B, 1, 28, 28, 8, 8) and CbCr (B, 2, 14, 14, 8,
-    8) from a numpy seed (``eval.py:114-121``), ``max(iters, 300)``
-    iterations at the per-device batch (``cfg.train.batch_size`` over
-    ``n_devices``, default the process group's size) after one untimed.  The
-    fwd+bwd step is the model's softmax cross-entropy on one-hot labels,
-    backward, clip and AdamW (no mixup), as the JAX package's
-    ``make_train_step(use_mixup=False)``."""
+    synthetic inputs from a numpy seed: DCT Y (B, 1, 28, 28, 8, 8) and CbCr
+    (B, 2, 14, 14, 8, 8) (``eval.py:114-121``), or RGB (B, 3, S, S)
+    (``benchmark.py:59-123``); ``max(iters, 300)`` iterations at the
+    per-device batch (``cfg.train.batch_size`` over ``n_devices``, default
+    the process group's size) after one untimed.  The fwd+bwd step is the
+    model's softmax cross-entropy on one-hot labels, backward, clip and
+    AdamW (no mixup), as the JAX package's ``make_train_step(use_mixup=
+    False)``, in training mode: each step draws SwinV2's drop-path keep
+    masks from a seeded generator, as ``Trainer.draw`` does, and at
+    ``cfg.train.drop > 0`` its dropout masks (``DropoutMasks`` on a seeded
+    device generator), where JAX hands the step a dropout key
+    (``steps.py:89-92``)."""
+    from rgbnomore_tpu_torch.models.layers import DropoutMasks
     from rgbnomore_tpu_torch.train.config import build_model, update_runtime
     from rgbnomore_tpu_torch.train.optim import Optimizer
     from rgbnomore_tpu_torch.train.steps import softmax_cross_entropy
@@ -63,16 +69,17 @@ def benchmark_model_synthetic(cfg, iters: int, mode: str = "fbp", n_devices: int
     dev = resolve_device(device)
     cfg = update_runtime(cfg, n_devices or parallel.world_size())
     batch = cfg.train.batch_per_device
-    if cfg.model.domain != "DCT":
-        raise NotImplementedError(
-            "the RGB domain is still to be ported (ROADMAP.md, port queue: RGB)")
     rng = np.random.default_rng(0)
-    nb = cfg.model.dct_blocks
-    y = torch.from_numpy(rng.standard_normal((batch, 1, nb, nb, 8, 8)).astype(np.float32))
-    c = torch.from_numpy(
-        rng.standard_normal((batch, 2, nb // 2, nb // 2, 8, 8)).astype(np.float32))
+    if cfg.model.domain == "RGB":
+        s = cfg.model.input_size
+        shapes = [(batch, 3, s, s)]
+    else:
+        nb = cfg.model.dct_blocks
+        shapes = [(batch, 1, nb, nb, 8, 8), (batch, 2, nb // 2, nb // 2, 8, 8)]
+    inputs = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
+              for sh in shapes]
     labels = torch.from_numpy(rng.integers(0, cfg.model.classes, batch).astype(np.int64))
-    y, c, labels = y.to(dev), c.to(dev), labels.to(dev)
+    labels = labels.to(dev)
     model = build_model(cfg, device=dev)
     iters = max(iters, 300)
 
@@ -80,9 +87,24 @@ def benchmark_model_synthetic(cfg, iters: int, mode: str = "fbp", n_devices: int
         optimizer = Optimizer(model, cfg.train.lr, cfg.train.wd, 100, iters)
         targets = torch.nn.functional.one_hot(labels, cfg.model.classes).to(torch.float32)
         model.train()
+        rates = getattr(model, "drop_path_rates", None)
+        generator = torch.Generator().manual_seed(cfg.seed)
+        dropout_generator = (torch.Generator(device=dev).manual_seed(cfg.seed)
+                             if cfg.train.drop > 0 else None)
+
+        def draws() -> dict:
+            """The step's drop-path keep masks (SwinV2) and dropout masks."""
+            extra = {}
+            if rates is not None:
+                u = torch.rand((len(rates), 2, batch), generator=generator)
+                keep = u >= torch.tensor(rates, dtype=u.dtype)[:, None, None]
+                extra["drop_keep"] = keep.to(dev, non_blocking=True)
+            if dropout_generator is not None:
+                extra["dropout"] = DropoutMasks(generator=dropout_generator)
+            return extra
 
         def step():
-            loss = softmax_cross_entropy(model(y, c), targets)
+            loss = softmax_cross_entropy(model(*inputs, **draws()), targets)
             model.zero_grad(set_to_none=True)
             loss.backward()
             optimizer.step()
@@ -91,7 +113,7 @@ def benchmark_model_synthetic(cfg, iters: int, mode: str = "fbp", n_devices: int
 
         def step():
             with torch.inference_mode():
-                model(y, c)
+                model(*inputs)
 
     step()  # first call (cuBLAS handles, kernel builds) excluded
 

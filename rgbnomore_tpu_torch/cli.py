@@ -18,10 +18,12 @@ is the global batch.  ``--load_ckpt <dir(savepath)>/checkpoints/<arch>_dct``
 resumes from the last checkpoint there.  ``python -m
 rgbnomore_tpu_torch.eval`` is this CLI with ``--eval`` forced.
 
-Flags whose feature is still in the port's queue (ROADMAP.md section 1)
-raise ``NotImplementedError``: ``--domain rgb`` (module 6) and
-``--stage_data`` (module 7).  ``--transfer`` takes ``cropped`` (the
-default), ``packed`` or ``dense``.  The weights are
+``--domain rgb`` trains the paper's RGB baseline: the same models on pixels
+decoded on the device from K=63 coefficient rows, with ``AUGLIST_RGB`` at
+magnitude 10, lr 1e-3 and wd 1e-4 unless the flags say otherwise.  The flag
+whose feature is still in the port's queue (ROADMAP.md section 1) raises
+``NotImplementedError``: ``--stage_data`` (module 7).  ``--transfer`` takes
+``cropped`` (the default), ``packed`` or ``dense``.  The weights are
 a bare ``state_dict`` written by ``torch.save`` whatever ``--savepath``'s
 extension; checkpoints are ``torch.save`` files (``train/checkpoint.py``).
 """
@@ -125,9 +127,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
     queue = "ROADMAP.md, port queue"
     if args.stage_data:
         raise NotImplementedError(f"--stage_data is still to be ported ({queue}: module 7)")
-    if args.domain.lower() != "dct":
-        raise NotImplementedError(f"--domain {args.domain} is still to be ported "
-                                  f"({queue}: module 6)")
 
 
 def main(argv: list[str] | None = None) -> dict:

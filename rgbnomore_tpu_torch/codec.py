@@ -1,10 +1,14 @@
 """Host-side JPEG DCT coefficient codec (numpy interface), the port's copy.
 
-The subset of ``rgbnomore_tpu/codec.py`` that the DCT loaders and the
-corpus writer need: ``read_into_canvas`` (dense canvases),
-``read_into_packed``, ``read_into_packed_mask`` and
+The port's copy of ``rgbnomore_tpu/codec.py``: ``read_into_canvas`` (dense
+canvases), ``read_into_packed``, ``read_into_packed_mask`` and
 ``read_into_packed_mask16`` (the packed wire), the crop modes,
-``crop_row_offsets``, ``read_crop_resize_pack_row`` and ``write_tensor``.  They wrap the port's own
+``crop_row_offsets`` and ``read_crop_resize_pack_row`` (the cropped DCT
+wire), the RGB crop modes, ``rgb_crop_row_offsets`` and
+``read_rgb_crop_pack_row`` (the cropped RGB wire), ``read_jpeg`` (a full
+decode, for ``RgbCanvasLoader``), and the cold utilities
+``read_coefficients``, ``write_coefficients``, ``quantize_at_quality``,
+``decode_coeff`` and ``write_tensor``.  They wrap the port's own
 build of ``native/dctcodec.cpp`` (a verbatim copy of the JAX package's),
 loaded under the fully-qualified name ``rgbnomore_tpu_torch.native._dctcodec``
 so that it never clashes with the JAX package's extension in one process.
@@ -26,12 +30,22 @@ __all__ = [
     "CROP_RANDOM",
     "CROP_CENTER",
     "CROP_FULL",
+    "RGB_CROP_TRAIN",
+    "RGB_CROP_CENTER",
+    "RGB_CROP_FULL",
     "crop_row_offsets",
+    "decode_coeff",
+    "quantize_at_quality",
+    "read_coefficients",
     "read_crop_resize_pack_row",
     "read_into_canvas",
     "read_into_packed",
     "read_into_packed_mask",
     "read_into_packed_mask16",
+    "read_jpeg",
+    "read_rgb_crop_pack_row",
+    "rgb_crop_row_offsets",
+    "write_coefficients",
     "write_tensor",
 ]
 
@@ -48,6 +62,28 @@ def _load_extension():
 
 
 _dctcodec = _load_extension()
+
+
+def _unpack_coeff_tuple(ret):
+    """The extension's (ncomp, dims, quant, (yh, yw, Y), (ch, cw, CbCr) | None)
+    as numpy arrays ``(dims (C, 2) int32, quant (C, 8, 8) int16, Y (1, h, w,
+    8, 8) int16, CbCr (2, h2, w2, 8, 8) int16 | None)``."""
+    ncomp, dims_b, quant_b, (yh, yw, y_b), ctuple = ret
+    dims = np.frombuffer(dims_b, dtype=np.int32).reshape(ncomp, 2).copy()
+    quant = np.frombuffer(quant_b, dtype=np.int16).reshape(3, 8, 8)[:ncomp].copy()
+    y = np.frombuffer(y_b, dtype=np.int16).reshape(1, yh, yw, 8, 8).copy()
+    if ctuple is None:
+        return dims, quant, y, None
+    ch, cw, c_b = ctuple
+    return dims, quant, y, np.frombuffer(c_b, dtype=np.int16).reshape(2, ch, cw, 8, 8).copy()
+
+
+def read_coefficients(path: str):
+    """Quantized DCT coefficients of a JPEG (entropy decode only):
+    ``(dims (C, 2) int32, quant (C, 8, 8) int16, Y (1, h, w, 8, 8) int16,
+    CbCr (2, h2, w2, 8, 8) int16 | None)``."""
+    return _unpack_coeff_tuple(_dctcodec.read_coefficients(str(path)))
+
 
 def read_into_canvas(path: str, y_canvas: np.ndarray, c_canvas: np.ndarray,
                      quant_out: np.ndarray):
@@ -153,3 +189,90 @@ def write_tensor(path, data: np.ndarray, quantization=None, quality: int = 100):
         q[: np.asarray(quantization).shape[0]] = quantization
         quantization = np.ascontiguousarray(q)
     _dctcodec.write_tensor(str(path), data, c, h, w, quantization, quality)
+
+
+RGB_CROP_TRAIN = 0  # torchvision RandomResizedCrop box (datasets.py:320)
+RGB_CROP_CENTER = 1  # Resize(256) + CenterCrop(224) source box (datasets.py:328)
+RGB_CROP_FULL = 2  # whole image (swin val Resize only, datasets.py:347)
+
+
+def rgb_crop_row_offsets(layout: dict) -> np.ndarray:
+    """int64 (12,) byte offsets for :func:`read_rgb_crop_pack_row`: the 11
+    mask16 fields of :func:`crop_row_offsets` and the trailing ``geom``
+    float4, from a ``data.loader.packed_layout(..., geom=True)`` layout."""
+    order = ("vy", "iy", "sy", "dy", "vc", "ic", "sc", "dc", "quant",
+             "labels", "weights", "geom")
+    return np.asarray([layout[f][0] for f in order], np.int64)
+
+
+def read_rgb_crop_pack_row(path: str, k: int, t: int, mode: int, uniforms: np.ndarray,
+                           g2: np.ndarray, g4: np.ndarray, row: np.ndarray,
+                           offsets: np.ndarray, label: int, weight: float = 1.0, *,
+                           scale: tuple[float, float] = (0.05, 1.0),
+                           resize_to: float = 256.0, crop: float = 224.0):
+    """The RGB crop-before-pack loader's call, one GIL-free call an image:
+    samples the reference's pixel-granular crop box (``RGB_CROP_*``:
+    torchvision's RandomResizedCrop, Resize + CenterCrop, the whole image),
+    packs the block-aligned window covering it in a fixed ``t``-block mask16
+    row, spectrally pre-downsampled per axis by the smallest f in {1, 2, 4}
+    that fits, and writes the residual fractional box (``geom`` float4) for
+    the device's bilinear resample after the tail decode.  ``uniforms``
+    float64 (22,): 10 x (area, log-aspect) and 2 placement draws;
+    ``g2``/``g4``: ``data.croppack.rgb_downsample_blocks()``.  Returns
+    ``(ncomp, yh, yw, wy0, wx0, wbh, wbw, fy, fx)`` (blocks)."""
+    return _dctcodec.read_rgb_crop_pack_row(
+        str(path), k, t, mode, np.ascontiguousarray(uniforms, np.float64),
+        float(scale[0]), float(scale[1]), float(resize_to), float(crop),
+        g2, g4, row, offsets, int(label), float(weight))
+
+
+def write_coefficients(path, dimensions, quantization, y, cbcr=None) -> None:
+    """Write raw coefficients to a JPEG file (the inverse of
+    :func:`read_coefficients`)."""
+    dimensions = np.ascontiguousarray(dimensions, dtype=np.int32)
+    quant = np.zeros((3, 8, 8), np.int16)
+    quant[: quantization.shape[0]] = quantization
+    y = np.ascontiguousarray(y, dtype=np.int16)
+    img_h, img_w = int(dimensions[0, 0]), int(dimensions[0, 1])
+    if cbcr is None:
+        _dctcodec.write_coefficients(str(path), img_h, img_w, quant, y, y.shape[1], y.shape[2],
+                                     None, 0, 0)
+        return
+    cbcr = np.ascontiguousarray(cbcr, dtype=np.int16)
+    _dctcodec.write_coefficients(str(path), img_h, img_w, quant, y, y.shape[1], y.shape[2],
+                                 cbcr, cbcr.shape[1], cbcr.shape[2])
+
+
+def quantize_at_quality(pixels: np.ndarray, quality: int):
+    """Encode CHW uint8 pixels at ``quality`` and return their coefficients
+    as :func:`read_coefficients` does: libjpeg's quantization, bit-exact (the
+    reference's encode-then-reread, ``dct_manip.cpp:315-375``)."""
+    pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
+    c, h, w = pixels.shape
+    return _unpack_coeff_tuple(_dctcodec.quantize_at_quality(pixels, c, h, w, quality))
+
+
+def read_jpeg(path) -> np.ndarray:
+    """Fully decode a JPEG to a CHW uint8 array."""
+    c, h, w, buf = _dctcodec.read_jpeg(str(path))
+    return np.frombuffer(buf, dtype=np.uint8).reshape(c, h, w).copy()
+
+
+def decode_coeff(dimensions, quantization, y, cbcr=None, quality: int = -1) -> np.ndarray:
+    """Decode raw DCT coefficients to CHW uint8 pixels; ``quality > 0``
+    takes libjpeg's table for that quality in place of ``quantization``
+    (``dct_manip.cpp:485-576``)."""
+    dimensions = np.ascontiguousarray(dimensions, dtype=np.int32)
+    quant = np.zeros((3, 8, 8), np.int16)
+    qarr = np.asarray(quantization, dtype=np.int16)
+    quant[: qarr.shape[0]] = qarr
+    y = np.ascontiguousarray(y, dtype=np.int16)
+    img_h, img_w = int(dimensions[0, 0]), int(dimensions[0, 1])
+    if cbcr is None:
+        chroma = (None, 0, 0)
+    else:
+        cbcr = np.ascontiguousarray(cbcr, dtype=np.int16)
+        chroma = (cbcr, cbcr.shape[1], cbcr.shape[2])
+    c, h, w, buf = _dctcodec.decode_coeff(img_h, img_w, quant, quality, y, y.shape[1],
+                                          y.shape[2], *chroma)
+    return np.frombuffer(buf, dtype=np.uint8).reshape(c, h, w).copy()

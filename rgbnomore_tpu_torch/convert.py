@@ -5,12 +5,16 @@ The flax tree and the torch modules share their names (ViT: ``patchembed/
 {projection, projection_y, projection_c, linear_y{i}, linear_c{i},
 linear_mix}`` as its embedding has them, ``encoder_{i}/{ln1, mha/qkv,
 mha/projection, ln2, mlp1, mlp2}``, ``head/{ln, linear1, linear2}``;
-SwinV2: ``patch_embed/{projection, norm}``, ``layer{i}_block{d}/{attn/{qkv,
+SwinV2: ``patch_embed/{projection, norm}`` (DCT) or ``patch_embed``
+and ``patch_norm`` (RGB), ``layer{i}_block{d}/{attn/{qkv,
 cpb_mlp1, cpb_mlp2, proj}, norm1, mlp1, mlp2, norm2}``,
 ``layer{i}_downsample/{reduction, norm}``, ``norm``,
 ``head``, ``absolute_pos_embed``), so each leaf maps to one key:
 
-- a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in);
+- a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in); a
+  Conv ``kernel`` (kh, kw, in, out), of the RGB patch embeddings
+  (``patchembed/projection``, SwinV2's ``patch_embed``), a Conv2d
+  ``weight`` (out, in, kh, kw);
 - SwinV2's ``qkv_kernel`` (C, 3C) becomes the ``weight`` of the attention's
   ``qkv`` Linear, transposed likewise (contiguous thirds q | k | v);
 - a LayerNorm ``scale`` becomes ``weight``, a ``bias`` stays ``bias``;
@@ -48,12 +52,12 @@ def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             arr = np.asarray(value, dtype=np.float32)
             module = ".".join(prefix)
             if name in ("kernel", "qkv_kernel"):
-                if arr.ndim != 2:
-                    raise NotImplementedError(
-                        f"{module}: {arr.ndim}-D kernels (convolutions) are not "
-                        "ported yet")
+                if arr.ndim not in (2, 4):
+                    raise ValueError(f"{module}: a {arr.ndim}-D kernel")
                 key = "qkv.weight" if name == "qkv_kernel" else "weight"
-                out[".".join(prefix + (key,))] = torch.from_numpy(np.ascontiguousarray(arr.T))
+                # (in, out) -> (out, in); (kh, kw, in, out) -> (out, in, kh, kw)
+                arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+                out[".".join(prefix + (key,))] = torch.from_numpy(np.ascontiguousarray(arr))
             elif name in ("scale", "bias"):
                 key = "weight" if name == "scale" else "bias"
                 out[f"{module}.{key}"] = torch.from_numpy(arr.copy())

@@ -1,16 +1,22 @@
 """Threaded DCT loaders: JPEG -> coefficient canvases or consolidated uint8
 row batches.
 
-The port's copy of the DCT half of ``rgbnomore_tpu/data/loader.py``:
-``_BaseLoader``, ``_check_chroma_grid``, ``packed_layout``, ``row_views``
-and the three DCT loaders of the JAX Trainer's transfers:
+The port's copy of ``rgbnomore_tpu/data/loader.py``: ``_BaseLoader``,
+``_check_chroma_grid``, ``packed_layout``, ``row_views``, the three DCT
+loaders of the JAX Trainer's transfers:
 
 - ``DctCroppedLoader`` (``transfer="cropped"``): the host crops and
   resizes, rows of the target grid in the mask16 family;
 - ``DctPackedLoader`` (``"packed"``): the whole image's top-K coefficients
   on a 64-block canvas, rows in the ``mask``, ``index`` or mask16 formats;
 - ``DctCanvasLoader`` (``"dense"``): dense int16 quantized coefficient
-  planes on the canvas, with the quant tables, labels and weights.
+  planes on the canvas, with the quant tables, labels and weights;
+
+and the two of the RGB domain: ``RgbCroppedLoader`` (``"cropped"``: the
+pixel-granular crop box's covering window in a fixed mask16 row with its
+residual box, ``geom``) and ``RgbCanvasLoader`` (``"dense"``: decoded uint8
+pixels on a canvas).  The RGB ``"packed"`` transfer takes
+``DctPackedLoader``'s mask16 rows of the whole image at K=63.
 
 For the same files, seed and mode each writes what the JAX package's loader
 writes, byte for byte (``tests/test_torch_port_eval.py``,
@@ -40,8 +46,8 @@ import numpy as np
 
 from rgbnomore_tpu_torch.data.index import IndexDataset
 
-__all__ = ["DctCanvasLoader", "DctCroppedLoader", "DctPackedLoader", "packed_layout",
-           "row_views"]
+__all__ = ["DctCanvasLoader", "DctCroppedLoader", "DctPackedLoader", "RgbCanvasLoader",
+           "RgbCroppedLoader", "packed_layout", "row_views"]
 
 
 class _BaseLoader:
@@ -196,7 +202,8 @@ PACKED_FORMATS = ("mask", "index", "mask16", "mask16w", "mask16q")
 
 
 @functools.lru_cache(maxsize=32)
-def packed_layout(canvas: int, k: int, fmt: str = "mask16") -> types.MappingProxyType:
+def packed_layout(canvas: int, k: int, fmt: str = "mask16",
+                  geom: bool = False) -> types.MappingProxyType:
     """Per-SAMPLE byte layout of the consolidated packed row, built once per
     arguments and shared read-only.
 
@@ -212,8 +219,10 @@ def packed_layout(canvas: int, k: int, fmt: str = "mask16") -> types.MappingProx
     — K+11 B/block.  ``fmt="mask16w"``: int16 AC values (scale pinned 1) —
     2K+11 B/block.  ``fmt="mask16q"``: the mask16 layout carrying JPEG
     *quantized-unit* integers that the device multiplies back by the quant
-    table.  Offsets are 4-aligned, so every field can be viewed as its dtype
-    in place.
+    table.  ``geom`` adds the RGB cropped wire's residual resample box
+    ``geom`` (4,) float32: sy0, sh, sx0, sw in the downsampled window's
+    pixels (``codec.read_rgb_crop_pack_row``).  Offsets are 4-aligned, so
+    every field can be viewed as its dtype in place.
     """
     if fmt not in PACKED_FORMATS:
         raise ValueError(f"unknown packed wire format {fmt!r}")
@@ -234,6 +243,8 @@ def packed_layout(canvas: int, k: int, fmt: str = "mask16") -> types.MappingProx
     if fmt.startswith("mask16"):
         fields["dy"] = ((1, canvas, canvas), np.int16)
         fields["dc"] = ((2, cv2, cv2), np.int16)
+    if geom:
+        fields["geom"] = ((4,), np.float32)
     layout = {}
     off = 0
     for name, (shape, dtype) in fields.items():
@@ -431,3 +442,105 @@ class DctCroppedLoader(_BaseLoader):
 
         list(pool.map(lambda args: work(*args), enumerate(idx)))
         return {"packed": buf, "labels": labels, "weights": weights}
+
+
+class RgbCroppedLoader(_BaseLoader):
+    """RGB crop-before-pack loader (the RGB ``"cropped"`` transfer): the host
+    samples the reference's PIXEL-granular crop box (torchvision's
+    RandomResizedCrop for ``mode="train"``, Resize + CenterCrop for the
+    ViT's ``"center"`` eval, the whole image for SwinV2's ``"full"``;
+    ``datasets.py:317-347``) and ships only the block-aligned window that
+    covers it in a fixed ``size/8``-block mask16 row at ``k`` ACs a block,
+    pre-downsampled per axis by the smallest f in {1, 2, 4} that fits, with
+    the residual fractional box in ``geom``.  The device decodes the window
+    and applies the box (``augment.pipeline.make_rgb_cropped_*_pipeline``).
+    Per (seed, epoch, batch) the crop draws are 22 uniforms a row, drawn
+    up front, so the rows are those of the JAX package's loader, byte for
+    byte.
+
+    Yields ``{"packed": uint8 (B, row), "labels": ..., "weights": ...}``.
+    """
+
+    def __init__(self, dataset: IndexDataset, batch_size: int, size: int = 224, k: int = 63,
+                 mode: str = "train", scale: tuple[float, float] = (0.05, 1.0),
+                 resize_to: float = 256.0, **kw):
+        super().__init__(dataset, batch_size, **kw)
+        from rgbnomore_tpu_torch import codec
+        from rgbnomore_tpu_torch.data.croppack import rgb_downsample_blocks
+
+        if mode not in ("train", "center", "full"):
+            raise ValueError(f"unknown crop mode {mode!r}")
+        if size % 16:
+            raise ValueError(f"the window needs whole chroma blocks: size {size} is not a "
+                             "multiple of 16")
+        self.size, self.k, self.mode = size, k, mode
+        self.mode_int = {"train": codec.RGB_CROP_TRAIN, "center": codec.RGB_CROP_CENTER,
+                         "full": codec.RGB_CROP_FULL}[mode]
+        self.scale, self.resize_to = scale, resize_to
+        self.g2, self.g4 = rgb_downsample_blocks()
+        self.layout = packed_layout(size // 8, k, "mask16", geom=True)
+        self._offsets = codec.rgb_crop_row_offsets(self.layout)
+        self._read_row = codec.read_rgb_crop_pack_row
+
+    def _decode_batch(self, pool: ThreadPoolExecutor, idx: np.ndarray,
+                      batch_index: int = 0) -> dict:
+        buf = np.zeros((self.batch_size, self.layout["row"]), np.uint8)
+        labels = np.zeros((self.batch_size,), np.int32)
+        weights = np.zeros((self.batch_size,), np.float32)
+        rng = np.random.default_rng([self.seed, self.epoch, batch_index])
+        uniforms = rng.random((self.batch_size, 22))
+        ds_labels, ds_paths = self.dataset.labels, self.dataset.paths
+
+        def work(slot: int, ds_index: int):
+            if ds_index < 0:  # shard-padding sentinel
+                return
+            label = int(ds_labels[ds_index])
+            self._read_row(ds_paths[ds_index], self.k, self.size // 8, self.mode_int,
+                           uniforms[slot], self.g2, self.g4, buf[slot], self._offsets, label,
+                           1.0, scale=self.scale, resize_to=self.resize_to,
+                           crop=float(self.size))
+            labels[slot] = label
+            weights[slot] = 1.0
+
+        list(pool.map(lambda args: work(*args), enumerate(idx)))
+        return {"packed": buf, "labels": labels, "weights": weights}
+
+
+class RgbCanvasLoader(_BaseLoader):
+    """Decoded RGB pixels on fixed uint8 canvases (the RGB ``"dense"``
+    transfer): each image fully decoded by the codec (grayscale repeated to
+    three channels) at the top left of an ``image_size`` square, zeros
+    elsewhere; the crop and the augmentation run on the device.
+
+    Yields ``{"pixels": (B, 3, S, S) uint8, "labels": (B,) int32, "weights":
+    (B,) float32}``.
+    """
+
+    def __init__(self, dataset: IndexDataset, batch_size: int, image_size: int = 512, **kw):
+        super().__init__(dataset, batch_size, **kw)
+        from rgbnomore_tpu_torch import codec
+
+        self.image_size = image_size
+        self._read = codec.read_jpeg
+
+    def _decode_batch(self, pool: ThreadPoolExecutor, idx: np.ndarray,
+                      batch_index: int = 0) -> dict:
+        bsz, s = self.batch_size, self.image_size
+        pixels = np.zeros((bsz, 3, s, s), np.uint8)
+        labels = np.zeros((bsz,), np.int32)
+        weights = np.zeros((bsz,), np.float32)
+
+        def work(slot: int, ds_index: int):
+            if ds_index < 0:  # shard-padding sentinel
+                return
+            img = self._read(self.dataset.paths[ds_index])
+            ch, h, w = img.shape
+            if ch == 1:
+                img = np.broadcast_to(img, (3, h, w))
+            hh, ww = min(h, s), min(w, s)
+            pixels[slot, :, :hh, :ww] = img[:, :hh, :ww]
+            labels[slot] = self.dataset.labels[ds_index]
+            weights[slot] = 1.0
+
+        list(pool.map(lambda args: work(*args), enumerate(idx)))
+        return {"pixels": pixels, "labels": labels, "weights": weights}

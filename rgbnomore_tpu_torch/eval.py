@@ -23,9 +23,11 @@ __all__ = ["benchmark_model", "evaluate_model"]
 def evaluate_model(cfg: Config, index_train: str, index_val: str, loadpath: str = "",
                    **kw) -> dict:
     """Evaluate the config's model (the ViT or SwinV2) on the test
-    (``index_val``), minival and trainval splits over the cropped DCT wire:
-    the K=48 mask16 rows of the center crop for the ViT, of the whole-image
-    resize for SwinV2 (``make_loaders``).  The model computes in the
+    (``index_val``), minival and trainval splits over the cropped wire of
+    its domain (``make_loaders``): for DCT the K=48 mask16 rows of the
+    center crop for the ViT, of the whole-image resize for SwinV2; for RGB
+    the K=63 mask16 rows of the Resize + CenterCrop box's window (ViT) or of
+    the whole image (SwinV2), decoded to pixels on the device.  The model computes in the
     config's AMP dtype (``amp_compute_dtype``): the ``vitb``, ``vitl`` and
     ``swinv2`` presets in bf16, the others in float32; logits are float32.
 

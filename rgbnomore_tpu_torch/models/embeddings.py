@@ -1,17 +1,20 @@
-"""The DCT patch embeddings (embed_type 1, 2 and 3) and their position
-embedding.
+"""The patch embeddings, RGB and DCT (embed_type 1, 2 and 3), and their
+position embedding.
 
 Port of ``sincos_position_embedding`` and the DCT embeddings of
 ``rgbnomore_tpu/models/embeddings.py`` (the reference's
 ``models/plainvit.py:90-410``): the grouped embedding (1, with SwinV2's patch
 4, no sincos and a LayerNorm), the separate one with and without sub-blocks
-(2) and the concatenated one (3).  The RGB embedding is still to be ported.
+(2) and the concatenated one (3), and the RGB embedding, a stride-16
+convolution and sincos (``PatchEmbeddingRGB``).
 Parameter names are flax's, so ``convert.py`` maps each leaf to one key.
 
 Under mixed precision the projection computes in the model's dtype (flax
 ``torch_dense``), the sincos table is built in that dtype too, as the JAX
 package's ``_add_sincos`` builds it in its input's (``embeddings.py:
 104-107``), and the LayerNorm returns float32 (``models/layers.py``).
+The RGB embedding's convolution is PyTorch's, as the JAX package's is
+XLA's: no kernel of either takes part in it.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rgbnomore_tpu_torch.models.layers import LayerNorm, Linear
+from rgbnomore_tpu_torch.models.layers import Conv2d, LayerNorm, Linear
 from rgbnomore_tpu_torch.models.subblock import (
     apply_subblock,
     group_blocks,
@@ -32,7 +35,8 @@ from rgbnomore_tpu_torch.models.subblock import (
 )
 
 __all__ = ["sincos_position_embedding", "PatchEmbeddingDCTConcat", "PatchEmbeddingDCTGroup",
-           "PatchEmbeddingDCTSeparate", "PatchEmbeddingDCTSeparateSubblock"]
+           "PatchEmbeddingDCTSeparate", "PatchEmbeddingDCTSeparateSubblock",
+           "PatchEmbeddingRGB"]
 
 
 def sincos_position_embedding(h: int, w: int, e: int, *, dtype=torch.float32,
@@ -65,6 +69,22 @@ def _add_sincos(x: torch.Tensor) -> torch.Tensor:
     in the map's dtype (``embeddings.py:104-107``)."""
     h, w, e = x.shape[-3:]
     return x + sincos_position_embedding(h, w, e, dtype=x.dtype, device=x.device)
+
+
+class PatchEmbeddingRGB(nn.Module):
+    """The RGB patch embedding (``plainvit.py:123-155``; the JAX
+    ``embeddings.py:110-134``): a ``patch_size``-stride convolution of the
+    (B, 3, H, W) pixels to ``emb_size`` channels in ``dtype``, plus sincos;
+    returns tokens (B, (H / patch)^2, emb_size)."""
+
+    def __init__(self, patch_size: int = 16, emb_size: int = 768,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.projection = Conv2d(3, emb_size, patch_size, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = self.projection(x).permute(0, 2, 3, 1)  # (B, h, w, E)
+        return _add_sincos(feats).flatten(1, 2)
 
 
 def _conversion_buffers(module: nn.Module, patch_size: int, chroma_scale: int,

@@ -9,7 +9,8 @@ from PyTorch's layers:
 - a flax ``Dense`` with ``dtype`` (``torch_dense``,
   ``rgbnomore_tpu/models/embeddings.py:74-84``) casts its input, kernel and
   bias to that dtype and returns it; its parameters stay float32, so their
-  gradients and the AdamW moments do too.  :class:`Linear` does the same.
+  gradients and the AdamW moments do too.  :class:`Linear` does the same,
+  and :class:`Conv2d` for flax's ``Conv`` (the RGB patch embeddings).
 - a flax ``LayerNorm`` with float32 parameters computes its statistics in
   float32 and returns float32 for a bf16 or fp16 input, where
   ``nn.LayerNorm`` would return the input's dtype.  :class:`LayerNorm`
@@ -31,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Dropout", "DropoutMasks", "LayerNorm", "Linear"]
+__all__ = ["Conv2d", "Dropout", "DropoutMasks", "LayerNorm", "Linear"]
 
 
 class Linear(nn.Linear):
@@ -47,6 +48,20 @@ class Linear(nn.Linear):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (stride = kernel, no padding: a patch projection)
+    computing in ``dtype`` (flax ``Conv(dtype=...)``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, patch: int, *,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, patch, stride=patch)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=self.stride)
 
 
 class LayerNorm(nn.LayerNorm):

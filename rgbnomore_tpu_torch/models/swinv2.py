@@ -1,7 +1,7 @@
-"""SwinV2 over JPEG DCT coefficients (PyTorch).
+"""SwinV2 over JPEG DCT coefficients or RGB pixels (PyTorch).
 
 Port of ``rgbnomore_tpu/models/swinv2.py`` (the reference's
-``models/swinv2.py``, itself Microsoft's SwinV2) for the DCT domain: cosine
+``models/swinv2.py``, itself Microsoft's SwinV2) for both domains: cosine
 window attention with a clamped learned logit scale, the continuous relative
 position bias of a small MLP (CPB-MLP), shifted windows with an additive
 mask, res-post-norm blocks whose norms start at zero scale, patch merging
@@ -42,7 +42,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from rgbnomore_tpu_torch.models.embeddings import PatchEmbeddingDCTGroup
-from rgbnomore_tpu_torch.models.layers import Dropout, DropoutMasks, LayerNorm, Linear
+from rgbnomore_tpu_torch.models.layers import (
+    Conv2d,
+    Dropout,
+    DropoutMasks,
+    LayerNorm,
+    Linear,
+)
 from rgbnomore_tpu_torch.ops.window_attention import window_attention
 
 __all__ = ["DropPath", "PatchMerging", "SwinBlock", "SwinTransformerV2", "WindowAttention",
@@ -261,11 +267,13 @@ class PatchMerging(nn.Module):
 
 
 class SwinTransformerV2(nn.Module):
-    """SwinV2 classifier over (y, cbcr) DCT coefficients
+    """SwinV2 classifier over (y, cbcr) DCT coefficients or RGB pixels
     (``models/swinv2.py:578-712``).
 
     ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8), drop_keep,
-    dropout)`` returns (B, num_classes) float32 logits; ``drop_keep``
+    dropout)`` (DCT) or ``forward(x (B, 3, H, W), drop_keep=...,
+    dropout=...)`` (``pixel_space="rgb"``: the convolution stem
+    ``patch_embed`` at ``patch_size``, then ``patch_norm``) returns (B, num_classes) float32 logits; ``drop_keep``
     (blocks, 2, B) bool holds the drop-path keep masks of a train step
     (``drop_path_rates`` gives each block's rate); in training at
     ``drop_rate > 0``, ``dropout`` gives the masks of the dropout after the
@@ -273,8 +281,8 @@ class SwinTransformerV2(nn.Module):
     (``swinv2.py:286-290, 383-384``); ``dtype`` is the compute dtype of
     mixed precision (float32, bf16 or fp16).  ``ape`` adds the parameter
     ``absolute_pos_embed`` (1, L, C) to the patch embedding's tokens before
-    its dropout (``swinv2.py:380-382``).  Only ``pixel_space="dct"`` (whose
-    patch is always 4) is ported.
+    its dropout (``swinv2.py:380-382``).  The DCT embedding's patch is
+    always 4.
     """
 
     def __init__(self, img_size: int = 224, num_classes: int = 1000,
@@ -283,21 +291,25 @@ class SwinTransformerV2(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, drop_rate: float = 0.0,
                  drop_path_rate: float = 0.1, ape: bool = False, patch_norm: bool = True,
                  pretrained_window_sizes: Sequence[int] = (0, 0, 0, 0),
-                 pixel_space: str = "dct", dtype: torch.dtype = torch.float32):
+                 pixel_space: str = "dct", dtype: torch.dtype = torch.float32,
+                 patch_size: int = 4):
         super().__init__()
         space = pixel_space.lower()
-        if space == "rgb":
-            raise NotImplementedError(
-                "the RGB SwinV2 is still to be ported (ROADMAP.md, port queue: RGB)")
-        if space != "dct":
+        if space not in ("rgb", "dct"):
             raise ValueError(f"Unknown pixel space: {pixel_space}")
-        # DCT: grouped embedding at patch 4 (8x8 blocks -> 4x4 sub-blocks),
-        # no sincos, with a post-projection norm (swinv2.py:629-632)
         self.dtype = dtype
-        self.patch_embed = PatchEmbeddingDCTGroup(4, embed_dim, use_subblock=True,
-                                                  add_sincos=False, use_norm=patch_norm,
-                                                  dtype=dtype)
-        res = img_size // 4
+        self.rgb = space == "rgb"
+        if self.rgb:
+            self.patch_embed = Conv2d(3, embed_dim, patch_size, dtype=dtype)
+            self.patch_norm = LayerNorm(embed_dim, eps=LN_EPS) if patch_norm else None
+            res = img_size // patch_size
+        else:
+            # grouped embedding at patch 4 (8x8 blocks -> 4x4 sub-blocks),
+            # no sincos, with a post-projection norm (swinv2.py:629-632)
+            self.patch_embed = PatchEmbeddingDCTGroup(4, embed_dim, use_subblock=True,
+                                                      add_sincos=False, use_norm=patch_norm,
+                                                      dtype=dtype)
+            res = img_size // 4
         self.absolute_pos_embed = (nn.Parameter(torch.zeros(1, res * res, embed_dim))
                                    if ape else None)
         self.pos_drop = Dropout(drop_rate)
@@ -324,10 +336,15 @@ class SwinTransformerV2(nn.Module):
         return [getattr(self, f"layer{i}_block{d}")
                 for i, depth in enumerate(self.depths) for d in range(depth)]
 
-    def forward(self, y: torch.Tensor, cbcr: torch.Tensor,
+    def forward(self, y: torch.Tensor, cbcr: torch.Tensor | None = None,
                 drop_keep: torch.Tensor | None = None,
                 dropout: DropoutMasks | None = None) -> torch.Tensor:
-        feats = self.patch_embed(y, cbcr)
+        if self.rgb:  # (B, C, h, w) -> (B, h w, C), then the norm (float32)
+            feats = self.patch_embed(y).flatten(2).transpose(1, 2)
+            if self.patch_norm is not None:
+                feats = self.patch_norm(feats)
+        else:
+            feats = self.patch_embed(y, cbcr)
         if self.absolute_pos_embed is not None:  # float32: the sum promotes
             feats = feats + self.absolute_pos_embed
         # dropped in the patch norm's float32, then cast (swinv2.py:383-385)
@@ -347,9 +364,9 @@ class SwinTransformerV2(nn.Module):
     def init_weights(self, generator: torch.Generator, bias_init: str = "torch") -> None:
         """Draw every parameter from ``generator`` with the JAX package's init
         family: truncated normal (std 0.02) for qkv, proj, the MLPs, patch
-        merging and the head, zero biases; LeCun truncated normal for the
-        CPB-MLP; the patch projection U(+-1/sqrt(fan_in)) (``bias_init=
-        "zeros"`` zeroes its bias); logit scale log 10; q and v biases 0; the
+        merging, the head and the RGB stem's convolution, zero biases; LeCun
+        truncated normal for the CPB-MLP; the DCT patch projection
+        U(+-1/sqrt(fan_in)) (``bias_init="zeros"`` zeroes its bias); logit scale log 10; q and v biases 0; the
         blocks' res-post norms 0 and 0, every other LayerNorm 1 and 0; the
         absolute position embedding truncated normal (std 0.02)."""
         if bias_init not in ("torch", "zeros"):
@@ -364,7 +381,10 @@ class SwinTransformerV2(nn.Module):
 
         for name, m in self.named_modules():
             leaf = name.rsplit(".", 1)[-1]
-            if isinstance(m, nn.Linear):
+            if isinstance(m, nn.Conv2d):
+                trunc_normal(m.weight, 0.02)
+                m.bias.zero_()
+            elif isinstance(m, nn.Linear):
                 if name == "patch_embed.projection":
                     bound = 1.0 / math.sqrt(m.in_features)
                     m.weight.uniform_(-bound, bound, generator=generator)

@@ -1,10 +1,11 @@
-"""Vision Transformer over JPEG DCT coefficients (PyTorch).
+"""Vision Transformer over JPEG DCT coefficients or RGB pixels (PyTorch).
 
 Port of ``rgbnomore_tpu/models/vit.py`` (the reference's
-``models/plainvit.py:412-612``) for the DCT domain, with each of its patch
-embeddings: grouped (``ver=1``), separate (``ver=2``, with or without
-sub-blocks) and concatenated (``ver=3``, 1.5x the tokens: 294 on the 28x28
-block grid).  The quirks of the reference carry over: the
+``models/plainvit.py:412-612``) with each of its patch embeddings: RGB (a
+stride-16 convolution, ``pixel_space="rgb"``) and the DCT ones, grouped
+(``ver=1``), separate (``ver=2``, with or without sub-blocks) and
+concatenated (``ver=3``, 1.5x the tokens: 294 on the 28x28 block grid).
+The quirks of the reference carry over: the
 attention logits are scaled by ``1/sqrt(emb_size)``, not
 ``1/sqrt(head_dim)``; qkv is one Linear split into contiguous thirds; the
 softmax runs in float32; GELU is exact; LayerNorm eps is 1e-5; the head is
@@ -43,6 +44,7 @@ from rgbnomore_tpu_torch.models.embeddings import (
     PatchEmbeddingDCTGroup,
     PatchEmbeddingDCTSeparate,
     PatchEmbeddingDCTSeparateSubblock,
+    PatchEmbeddingRGB,
 )
 from rgbnomore_tpu_torch.models.layers import Dropout, DropoutMasks, LayerNorm, Linear
 from rgbnomore_tpu_torch.ops.attention import fused_attention
@@ -121,13 +123,14 @@ class ClassificationHead(nn.Module):
 
 
 class ViT(nn.Module):
-    """ViT over (y, cbcr) DCT coefficients.
+    """ViT over (y, cbcr) DCT coefficients or RGB pixels.
 
     ``forward(y (B, 1, H, W, 8, 8), cbcr (B, 2, H/2, W/2, 8, 8), dropout)``
+    (DCT) or ``forward(x (B, 3, H, W), dropout=...)`` (``pixel_space="rgb"``)
     returns (B, n_classes) float32 logits; ``dtype`` is the compute dtype of
     mixed precision (float32, bf16 or fp16); in training at ``drop_p > 0``,
-    ``dropout`` gives the masks of the 3 x depth dropout sites.  Only ``pixel_space="dct"`` with
-    ``ver=1`` is ported; the other embeddings raise ``NotImplementedError``.
+    ``dropout`` gives the masks of the 3 x depth dropout sites.  ``ver``
+    picks the DCT embedding (1, 2 with or without sub-blocks, 3).
     """
 
     def __init__(self, patch_size: int = 16, emb_size: int = 768, depth: int = 12,
@@ -136,12 +139,11 @@ class ViT(nn.Module):
                  use_subblock: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         space = pixel_space.lower()
-        if space == "rgb":
-            raise NotImplementedError(
-                "the RGB ViT is still to be ported (ROADMAP.md, port queue: RGB)")
-        if space != "dct":
+        if space not in ("rgb", "dct"):
             raise ValueError(f"Unknown pixel space: {pixel_space}")
-        if ver == 1:
+        if space == "rgb":
+            embed = PatchEmbeddingRGB(patch_size, emb_size, dtype=dtype)
+        elif ver == 1:
             embed = PatchEmbeddingDCTGroup(patch_size, emb_size, use_subblock, dtype=dtype)
         elif ver == 2 and not use_subblock:
             embed = PatchEmbeddingDCTSeparate(patch_size, emb_size, dtype=dtype)
@@ -159,9 +161,10 @@ class ViT(nn.Module):
                                                           drop_p=drop_p, dtype=dtype))
         self.head = ClassificationHead(emb_size, n_classes, dtype)
 
-    def forward(self, y: torch.Tensor, cbcr: torch.Tensor,
+    def forward(self, y: torch.Tensor, cbcr: torch.Tensor | None = None,
                 dropout: DropoutMasks | None = None) -> torch.Tensor:
-        tokens = self.patchembed(y, cbcr).to(self.dtype)
+        inputs = (y,) if isinstance(self.patchembed, PatchEmbeddingRGB) else (y, cbcr)
+        tokens = self.patchembed(*inputs).to(self.dtype)
         for i in range(self.depth):
             tokens = getattr(self, f"encoder_{i}")(tokens, dropout)
         return self.head(tokens)
@@ -169,14 +172,15 @@ class ViT(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, bias_init: str = "torch") -> None:
         """Draw every parameter from ``generator`` with the JAX package's
-        init family: Linear weights and biases U(+-1/sqrt(fan_in)) (torch's
-        default; ``bias_init="zeros"`` zeroes the biases), LayerNorm 1 and 0.
+        init family: Linear and convolution weights and biases
+        U(+-1/sqrt(fan_in)) (torch's default; ``bias_init="zeros"`` zeroes
+        the biases), LayerNorm 1 and 0.
         """
         if bias_init not in ("torch", "zeros"):
             raise ValueError(f"unknown bias init family {bias_init!r}")
         for m in self.modules():
-            if isinstance(m, nn.Linear):
-                bound = 1.0 / math.sqrt(m.in_features)
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                bound = 1.0 / math.sqrt(m.weight[0].numel())  # fan_in
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if bias_init == "zeros":
                     m.bias.zero_()

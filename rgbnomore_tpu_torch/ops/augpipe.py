@@ -22,7 +22,9 @@ core with two readers, and each has its wrapper here:
 On CUDA tensors a wrapper launches the kernel on the current stream, adds
 one to its ``.launches`` and raises if the launch is refused; on CPU tensors
 it runs its plain version, which the tests and ``chip_smoke.py`` hold the
-kernel against.  The per-op constants (op codes, translate shifts, cutout
+kernel against.  The train pipelines also call the plain versions directly,
+on either device, for an op list with an op outside ``SUPPORTED_OPS``
+(``augment/pipeline.py``): the kernel takes 16 of the 23 ops.  The per-op constants (op codes, translate shifts, cutout
 sizes, posterize step and levels, the Sharpness / MidfreqAug filter rows) are
 built on the host, as the JAX kernel builds its filter table
 (``_make_branches``).

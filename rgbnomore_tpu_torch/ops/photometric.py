@@ -1,7 +1,6 @@
 """Photometric DCT-domain augmentation primitives (PyTorch).
 
-Port of ``rgbnomore_tpu/ops/photometric.py``: the ops that the fused
-augmentation kernel's op set needs.  Each function takes coefficients laid
+Port of ``rgbnomore_tpu/ops/photometric.py``.  Each function takes coefficients laid
 out ``(..., C, H, W, 8, 8)`` in float32: one sample ``(C, H, W, 8, 8)`` or a
 batch with leading axes.  Reductions (mean / min / max of the DC plane) run
 per sample over its ``(C, H, W)`` DCs, as the reference does per image.  A
@@ -9,8 +8,9 @@ magnitude may be a Python number or a tensor of the leading (sample) shape,
 so a batch can carry one magnitude per sample.
 
 Semantics mirror ``utils/dct_ops.py`` of the reference (cited per function
-in the JAX module).  Equalize, Solarize, Invert and FreqEnhance are still to
-be ported (ROADMAP.md, port queue: other transfers and embeddings).
+in the JAX module).  Equalize's histograms are per sample and per channel
+(the JAX function is per sample, vmapped), counted with ``bincount`` on
+offset bin indices, so they are exact integers on the card too.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ __all__ = [
     "DCT_MIN",
     "DCT_MAX",
     "clamp_dct",
+    "invert_dct",
+    "solarize_dct",
     "solarize_add_dct",
     "sharpblur_dct",
     "midfreqaug_dct",
@@ -33,6 +35,8 @@ __all__ = [
     "contrast_dct",
     "autocontrast_dct",
     "posterize_dct",
+    "equalize_dct",
+    "freq_enhance_dct",
 ]
 
 _DC_AXES = (-3, -2, -1)  # (C, H, W) of the DC plane
@@ -58,6 +62,20 @@ def _set_dc(coeff: torch.Tensor, dc: torch.Tensor) -> torch.Tensor:
     out = coeff.clone()
     out[..., 0, 0] = dc
     return out
+
+
+def invert_dct(coeff: torch.Tensor) -> torch.Tensor:
+    """Invert zero-centred coefficients (``utils/dct_ops.py:623-629``)."""
+    return -coeff
+
+
+def solarize_dct(coeff: torch.Tensor, threshold, mask: torch.Tensor | None = None):
+    """Negate whole blocks whose DC exceeds ``threshold``.  Returns ``(coeff,
+    mask)``, the mask (..., C, H, W) bool, so that the luma mask can be
+    reused (subsampled) for chroma, as in ``utils/dct_ops.py:631-651``."""
+    if mask is None:
+        mask = coeff[..., 0, 0] > threshold
+    return torch.where(mask[..., None, None], -coeff, coeff), mask
 
 
 def solarize_add_dct(coeff: torch.Tensor, addition, threshold: float = 0.0) -> torch.Tensor:
@@ -173,3 +191,38 @@ def posterize_dct(coeff: torch.Tensor, bitoffset) -> torch.Tensor:
     n = torch.round((hi - lo) / step)
     idx = torch.round((coeff[..., 0, 0] - lo) / step)
     return _set_dc(coeff, lo + idx * (hi - lo) / torch.clamp(n, min=1.0))
+
+
+def equalize_dct(coeff: torch.Tensor, vmin: float = DCT_MIN,
+                 vmax: float = DCT_MAX) -> torch.Tensor:
+    """Histogram-equalize the DC plane of each channel of each sample
+    (``utils/dct_ops.py:916-955``): integer bins of ``round(dc - vmin)``
+    (2,041 of them), ``round((cdf - cdf_min) / max(total - cdf_min, 1) *
+    (vmax - vmin - 1)) + vmin`` where ``cdf_min`` is the first non-empty
+    bin's count, all in float32 as the JAX function computes it."""
+    dc = coeff[..., 0, 0]  # (..., C, H, W)
+    nbins = int(vmax - vmin) + 1
+    planes = dc.reshape(-1, dc.shape[-2] * dc.shape[-1])  # (samples x channels, H*W)
+    rows = planes.shape[0]
+    idx = torch.clamp(torch.round(planes - vmin), 0, nbins - 1).to(torch.int64)
+    offset = torch.arange(rows, device=dc.device)[:, None] * nbins
+    hist = torch.bincount((idx + offset).reshape(-1), minlength=rows * nbins).reshape(
+        rows, nbins).to(torch.float32)
+    total = hist.sum(dim=1, keepdim=True)
+    first = torch.argmax((hist > 0).to(torch.int8), dim=1, keepdim=True)
+    cdf_min = torch.gather(hist, 1, first)
+    denom = torch.clamp(total - cdf_min, min=1.0)
+    cdf = torch.cumsum(hist, dim=1)
+    equalized = torch.round((cdf - cdf_min) / denom * (vmax - vmin - 1.0))
+    out = torch.gather(equalized, 1, idx) + vmin
+    return _set_dc(coeff, out.reshape(dc.shape))
+
+
+def freq_enhance_dct(coeff: torch.Tensor, magnitude) -> torch.Tensor:
+    """Multiply every AC coefficient by ``magnitude``, one per sample or one
+    for all (``utils/dct_ops.py:1015-1035``)."""
+    kh, kw = coeff.shape[-2], coeff.shape[-1]
+    m = _per_sample(magnitude, coeff.shape[:-5], 5, coeff)
+    ac = torch.ones((kh, kw), dtype=torch.bool, device=coeff.device)
+    ac[0, 0] = False
+    return torch.where(ac, coeff * m, coeff)

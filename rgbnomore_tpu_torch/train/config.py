@@ -314,6 +314,7 @@ def build_model(cfg: Config, device=None):
             pretrained_window_sizes=tuple(cfg.model.pretrained_window_sizes),
             pixel_space=cfg.model.domain,
             dtype=dtype,
+            patch_size=cfg.model.patch_size,
         )
     else:
         model = ViT(
@@ -335,11 +336,12 @@ def build_model(cfg: Config, device=None):
 
 
 def example_inputs(cfg: Config, batch: int = 2, device=None):
-    """Zero inputs with the model's expected shapes, on ``device``."""
+    """Zero inputs with the model's expected shapes, on ``device``: (y, cbcr)
+    for DCT, (pixels,) for RGB."""
     dev = resolve_device(device)
     if cfg.model.domain != "DCT":
-        raise NotImplementedError(
-            "the RGB domain is still to be ported (ROADMAP.md, port queue: RGB)")
+        s = cfg.model.input_size
+        return (torch.zeros((batch, 3, s, s), dtype=torch.float32, device=dev),)
     nb = cfg.model.dct_blocks
     y = torch.zeros((batch, 1, nb, nb, 8, 8), dtype=torch.float32, device=dev)
     c = torch.zeros((batch, 2, nb // 2, nb // 2, 8, 8), dtype=torch.float32, device=dev)

@@ -21,6 +21,20 @@ gradients unscaled, an update skipped on a non-finite gradient.
 ``evaluate`` uploads each eval batch (the rows in one non-blocking copy
 from a reused pinned buffer) and runs pipeline (cropped: one
 ``wire_to_range``) -> model (in eval mode) -> weighted sums on the device.
+An op list with a DCT op outside the kernel's set runs the train stage as
+tensor code (``CroppedTrainPipeline.fused``).
+
+The RGB domain (``cfg.model.domain == "RGB"``, the paper's baseline) takes
+the same three transfers: ``"cropped"`` the K=63 mask16 rows of
+``RgbCroppedLoader`` (the crop box's window), decoded to pixels on the
+device, resampled by the residual box, flipped and augmented by
+``RandAugmentRGB``; ``"packed"`` the K=63 mask16 rows of the whole image
+(``DctPackedLoader`` on a 64-block canvas) decoded to a 512-pixel canvas;
+``"dense"`` ``RgbCanvasLoader``'s pixel canvases; the last two then
+RandomResizedCrop on the device.  The model takes the one (B, 3, S, S)
+input; mixup mixes the images; eval sums as for DCT.  The attention kernels
+are the DCT models' (#1 and #2 for the ViT, #3 and #4 for SwinV2), and the
+input stage launches none.
 ``cfg.train.deterministic`` turns on deterministic algorithms
 (``configure_determinism``).  ``make_loaders`` builds the transfer's DCT
 loaders: the ViT's eval crop is the center crop, SwinV2's the whole-image
@@ -53,9 +67,12 @@ import numpy as np
 import torch
 
 from rgbnomore_tpu_torch.augment.pipeline import (
+    RgbCanvasPipeline,
     make_cropped_eval_pipeline,
     make_cropped_train_pipeline,
     make_eval_pipeline,
+    make_rgb_cropped_eval_pipeline,
+    make_rgb_cropped_train_pipeline,
     make_train_pipeline,
 )
 from rgbnomore_tpu_torch.data.index import load_index, split_train_minival
@@ -130,20 +147,23 @@ def tensorboard_dir(savepath: str, cfg: Config) -> Path:
     return Path(savepath).resolve().parent / "tb_logs" / name
 
 
-def check_cropped_only(transfer: str, **given) -> None:
-    """Refuse the cropped wire's own settings (``packed_k_eval``,
-    ``eval_fmt``, ``train_fmt``) for the full-canvas transfers, which ship
-    one wire both ways and would ignore them."""
+def check_cropped_only(transfer: str, domain: str = "DCT", **given) -> None:
+    """Refuse the DCT cropped wire's own settings (``packed_k_eval``,
+    ``eval_fmt``, ``train_fmt``) for the full-canvas transfers and for the
+    RGB domain, which ship one wire both ways and would ignore them."""
     unused = [name for name, value in given.items() if value is not None]
-    if transfer != "cropped" and unused:
-        raise ValueError(f"{', '.join(unused)}: only transfer='cropped' takes them, "
-                         f"not {transfer!r}")
+    if unused and (transfer != "cropped" or domain != "DCT"):
+        raise ValueError(f"{', '.join(unused)}: only transfer='cropped' takes them, and "
+                         f"only in the DCT domain, not {domain} {transfer!r}")
 
 
 def packed_defaults(domain: str) -> tuple[str, int]:
     """(fmt, K) of the full-canvas packed wire (``rgbnomore_tpu/train/
     loop.py:68-77``), shared by Trainer and make_loaders: DCT models ship
-    the top-16 ``mask`` spectrum."""
+    the top-16 ``mask`` spectrum; the RGB domain ``mask16`` at the full AC
+    spectrum (K=63), which it also ships on its cropped wire, so that the
+    pixels decoded on the device stay within the IDCT's rounding of a host
+    libjpeg decode."""
     return ("mask", 16) if domain == "DCT" else ("mask16", 63)
 
 
@@ -161,7 +181,8 @@ def cropped_eval_defaults(domain: str) -> tuple[int, str]:
 @dataclasses.dataclass
 class StepDraws:
     """The random decisions of one train step: the flip bits (B,), the
-    RandAugment policy (``RandAugmentDCT.draw_policy``), the mixup lambda,
+    RandAugment policy (``RandAugmentDCT.draw_policy``, or
+    ``RandAugmentRGB.draw_policy`` in the RGB domain), the mixup lambda,
     for SwinV2 the drop-path keep masks (blocks, 2, B) bool (None for the
     ViT), at ``cfg.train.drop > 0`` the forward's dropout masks and, for the
     packed and dense transfers, the random resized crop's boxes
@@ -229,7 +250,11 @@ class Trainer:
     ``packed_defaults`` (mask), ``packed_k`` ACs a block (default 16), for
     both; ``"dense"`` the int16 canvases of ``DctCanvasLoader``.  The two
     full-canvas transfers refuse ``packed_k_eval``, ``eval_fmt`` and
-    ``train_fmt`` (``check_cropped_only``) and leave them None.  The step's
+    ``train_fmt`` (``check_cropped_only``) and leave them None.  The RGB
+    domain refuses them on every transfer: its wires are mask16 at
+    ``packed_k`` (default 63) both ways; its full-canvas transfers use a
+    512-pixel canvas (``canvas`` 64 blocks; another ``canvas`` is taken in
+    pixels).  The step's
     random draws come from a ``torch.Generator`` (crop boxes, flip, policy,
     the drop-path keep masks) and a numpy generator (the mixup lambda), both
     seeded from ``cfg.seed``, and dropout's from a generator on the device
@@ -250,9 +275,6 @@ class Trainer:
                  packed_k_eval: int | None = None, eval_fmt: str | None = None,
                  train_fmt: str | None = None):
         self.device = resolve_device(device)
-        if cfg.model.domain != "DCT":
-            raise NotImplementedError(
-                "the RGB domain is still to be ported (ROADMAP.md, port queue: RGB)")
         if transfer not in TRANSFERS:
             raise ValueError(f"transfer must be one of {TRANSFERS}, got {transfer!r}")
         self.transfer, self.canvas = transfer, canvas
@@ -262,11 +284,24 @@ class Trainer:
         configure_determinism(cfg)  # before the model's first cuBLAS handle
         self.compute_dtype = amp_compute_dtype(cfg)
         self.model = build_model(cfg, device=self.device)
-        ek, ef = cropped_eval_defaults(cfg.model.domain)
-        self.packed_fmt, d_k = packed_defaults(cfg.model.domain)
-        check_cropped_only(transfer, packed_k_eval=packed_k_eval, eval_fmt=eval_fmt,
-                           train_fmt=train_fmt)
-        if transfer == "cropped":
+        self.domain = cfg.model.domain
+        ek, ef = cropped_eval_defaults(self.domain)
+        self.packed_fmt, d_k = packed_defaults(self.domain)
+        check_cropped_only(transfer, self.domain, packed_k_eval=packed_k_eval,
+                           eval_fmt=eval_fmt, train_fmt=train_fmt)
+        if self.domain == "RGB":
+            # one mask16 wire at K=63 both ways (loop.py:117-139, 168-197)
+            self.packed_k = packed_k or d_k
+            self.packed_k_eval = self.eval_fmt = self.train_fmt = None
+            if transfer == "cropped":
+                self.train_pipe = make_rgb_cropped_train_pipeline(cfg, k=self.packed_k)
+                self.eval_pipe = make_rgb_cropped_eval_pipeline(cfg, k=self.packed_k)
+            else:
+                wire = dict(canvas=rgb_canvas(canvas), packed=transfer == "packed",
+                            k=self.packed_k, fmt=self.packed_fmt)
+                self.train_pipe = RgbCanvasPipeline(cfg, train=True, **wire)
+                self.eval_pipe = RgbCanvasPipeline(cfg, train=False, **wire)
+        elif transfer == "cropped":
             self.packed_k, self.train_fmt = packed_k or TRAIN_K, train_fmt or TRAIN_FMT
             self.packed_k_eval, self.eval_fmt = packed_k_eval or ek, eval_fmt or ef
             self.eval_pipe = make_cropped_eval_pipeline(
@@ -385,10 +420,10 @@ class Trainer:
         process group the gradients are averaged over the ranks right after
         the backward, and mixup pairs across them; the loss returned is
         this rank's."""
-        y, c, labels, _ = self.train_pipe(packed, draws.flip, draws.policy, draws.crop)
+        *inputs, labels, _ = self.train_pipe(packed, draws.flip, draws.policy, draws.crop)
         num_classes = self.cfg.model.classes
         if self.cfg.model.mixup:
-            (y, c), targets = mixup_batch((y, c), labels, num_classes, draws.lam,
+            inputs, targets = mixup_batch(tuple(inputs), labels, num_classes, draws.lam,
                                           parallel.ring_roll if self.distributed else None)
         else:
             targets = torch.nn.functional.one_hot(
@@ -398,7 +433,7 @@ class Trainer:
             "drop_keep": draws.drop_keep.to(self.device, non_blocking=True)}
         if draws.dropout is not None:
             extra["dropout"] = draws.dropout
-        loss = softmax_cross_entropy(self.model(y, c, **extra), targets)
+        loss = softmax_cross_entropy(self.model(*inputs, **extra), targets)
         self.model.zero_grad(set_to_none=True)
         if self.loss_scale is None:
             loss.backward()
@@ -442,8 +477,8 @@ class Trainer:
         """Pipeline -> model (in eval mode, in the compute dtype, float32
         logits) -> weighted sums for one uploaded batch (``upload``)."""
         self.model.eval()
-        y, c, labels, weights = self.eval_pipe(packed)
-        return eval_sums(self.model(y, c), labels, weights)
+        *inputs, labels, weights = self.eval_pipe(packed)
+        return eval_sums(self.model(*inputs), labels, weights)
 
     @torch.inference_mode()
     def evaluate(self, loader) -> dict:
@@ -482,6 +517,12 @@ def guard_eval_sums(sums: list) -> dict:
     return out
 
 
+def rgb_canvas(canvas: int) -> int:
+    """The RGB full-canvas transfers' canvas in pixels: 512 for the default
+    64 (blocks), else ``canvas`` itself (``loop.py:170``)."""
+    return 512 if canvas == 64 else canvas
+
+
 def make_loaders(cfg: Config, index_train: str, index_val: str, *, num_threads: int = 4,
                  global_batch: int | None = None, transfer: str = "cropped",
                  canvas: int = 64, packed_k: int | None = None,
@@ -503,21 +544,25 @@ def make_loaders(cfg: Config, index_train: str, index_val: str, *, num_threads: 
     the whole image on a ``canvas``-block canvas at ``packed_k`` ACs a block,
     in the format of ``packed_defaults``.  ``"dense"``: ``DctCanvasLoader``.
     Both refuse the cropped wire's ``packed_k_eval``, ``eval_fmt`` and
-    ``train_fmt``."""
+    ``train_fmt``.  The RGB domain (the JAX ``loop.py:442-484``):
+    ``"cropped"`` ``RgbCroppedLoader`` (train boxes, the ViT's center box or
+    SwinV2's whole image for eval), ``"packed"`` ``DctPackedLoader``'s
+    mask16 rows on the ``rgb_canvas`` // 8 block canvas, ``"dense"``
+    ``RgbCanvasLoader``, all at ``packed_k`` (default 63)."""
     # imported here: the loader's codec needs libjpeg, the rest of this
     # module does not
     from rgbnomore_tpu_torch.data.loader import (
         DctCanvasLoader,
         DctCroppedLoader,
         DctPackedLoader,
+        RgbCanvasLoader,
+        RgbCroppedLoader,
     )
 
-    if cfg.model.domain != "DCT":
-        raise NotImplementedError(
-            "only the DCT loaders are ported so far (ROADMAP.md, port queue: RGB)")
     if transfer not in TRANSFERS:
         raise ValueError(f"transfer must be one of {TRANSFERS}, got {transfer!r}")
-    check_cropped_only(transfer, packed_k_eval=packed_k_eval, eval_fmt=eval_fmt,
+    domain = cfg.model.domain
+    check_cropped_only(transfer, domain, packed_k_eval=packed_k_eval, eval_fmt=eval_fmt,
                        train_fmt=train_fmt)
     train_all = load_index(index_train)
     test_ds = load_index(index_val)
@@ -535,7 +580,20 @@ def make_loaders(cfg: Config, index_train: str, index_val: str, *, num_threads: 
                   num_shards=world)
     d_fmt, d_k = packed_defaults("DCT")
 
+    def mk_rgb(ds, train: bool):
+        k = packed_k or packed_defaults("RGB")[1]
+        kw = dict(shuffle=train, drop_last=train, **common)
+        if transfer == "cropped":
+            return RgbCroppedLoader(ds, bsz, size=cfg.model.input_size, k=k,
+                                    mode="train" if train else eval_mode, **kw)
+        if transfer == "dense":
+            return RgbCanvasLoader(ds, bsz, image_size=rgb_canvas(canvas), **kw)
+        return DctPackedLoader(ds, bsz, canvas=rgb_canvas(canvas) // 8, k=k,
+                               fmt=packed_defaults("RGB")[0], **kw)
+
     def mk(ds, train: bool):
+        if domain == "RGB":
+            return mk_rgb(ds, train)
         if transfer == "packed":
             return DctPackedLoader(ds, bsz, canvas=canvas, k=packed_k or d_k,
                                    fmt=d_fmt, shuffle=train, drop_last=train,

@@ -179,8 +179,16 @@ def test_draw_policy_is_seeded():
 
 
 def test_unported_ops_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RandAugmentDCT(ops_list=["Equalize"])
+    """The ops outside the kernel's set are ported: ``RandAugmentDCT`` takes
+    Equalize and runs it (the test of its values against JAX's is
+    ``tests/test_torch_port_dct_ops.py``); the kernel's op table still
+    refuses Solarize, so such a list takes the plain path."""
+    aug = RandAugmentDCT(ops_list=["Equalize"], num_ops=1, grid=12)
+    y, c = _torch(*_coeffs(2))
+    policy = aug.draw_policy(torch.Generator().manual_seed(0), 3, 12, 12)
+    gy, gc = aug.apply(y, c, policy)
+    assert torch.equal(gc, torch.clamp(c, -1024, 1016))  # luma only
+    assert not torch.equal(gy[..., 0, 0], torch.clamp(y, -1024, 1016)[..., 0, 0])
     with pytest.raises(ValueError, match="does not support"):
         augpipe.op_tables(["Solarize"], 3, 11, 28, 28)
 

@@ -101,15 +101,15 @@ BENCHMARK_KEYS = {"train_loader_fps", "test_loader_fps", "model_fbp_fps", "model
     (["--stage_data"], "module 7"),
     (["--transfer", "packed", "--model_arch", "vitti", "--embed_type", "1"], None),
     (["--transfer", "dense", "--model_arch", "vitti", "--embed_type", "1"], None),
-    (["--domain", "rgb"], "module 6"),
+    (["--domain", "rgb"], None),  # the CLI's defaults in the RGB domain: ViT-S/16
     (["--embed_type", "2"], None),  # the CLI's defaults: ViT-S/16, embed_type 2
     (["--embed_type", "3", "--model_arch", "vitti"], None),
 ], ids=["benchmark", "stage_data", "packed", "dense", "rgb", "embed2", "embed3"])
 def test_unported_flags_raise(argv, module, small_corpus, tmp_path, monkeypatch):
     """The flags still in the queue raise naming their module; those ported
     run on the CPU: the benchmark returns the six metrics, each > 0; a
-    transfer or an embedding trains one step at full width, writes the
-    weights and scores the test split."""
+    transfer, an embedding or the RGB domain trains one step at full width,
+    writes the weights and scores the test split."""
     if module is not None:
         argv = ["--embed_type", "1", "--train", "--device", "cpu"] + argv
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue: {module}"):
@@ -129,7 +129,9 @@ def test_unported_flags_raise(argv, module, small_corpus, tmp_path, monkeypatch)
     assert got["test"]["count"] == 6 and len(got["history"]) == 1
     assert np.isfinite(got["history"][0]["train_loss"])
     state = torch.load(weights, weights_only=True)
-    if argv == ["--embed_type", "2"]:  # vits: 384 = 256 luma + 128 chroma features
+    if "rgb" in argv:  # vits on pixels: a 16x16 stride-16 convolution to 384
+        assert state["patchembed.projection.weight"].shape == (384, 3, 16, 16)
+    elif argv == ["--embed_type", "2"]:  # vits: 384 = 256 luma + 128 chroma features
         assert state["patchembed.projection_y.weight"].shape == (256, 256)
         assert state["patchembed.projection_c.weight"].shape == (128, 128)
         assert state["patchembed.linear_mix.weight"].shape == (384, 384)

@@ -136,7 +136,12 @@ def test_amp_modules_import_alone(module):
                                     "rgbnomore_tpu_torch.benchmark",
                                     "rgbnomore_tpu_torch.bench",
                                     "rgbnomore_tpu_torch.utils.timing",
-                                    "rgbnomore_tpu_torch.augment.crops"])
+                                    "rgbnomore_tpu_torch.augment.crops",
+                                    "rgbnomore_tpu_torch.augment.rgb",
+                                    "rgbnomore_tpu_torch.augment.convert",
+                                    "rgbnomore_tpu_torch.ops.geometry",
+                                    "rgbnomore_tpu_torch.ops.fastdct",
+                                    "rgbnomore_tpu_torch.ops.pixel_decode"])
 def test_trainer_modules_import_alone(module):
     """The trainer's modules (the CLIs, data parallelism, the loss window,
     checkpoints, the epoch loop) import on their own with nothing of JAX,
@@ -212,11 +217,13 @@ def _swin_cfg():
     lambda: Trainer(_cfg(), transfer="packed"),
     lambda: benchmark_model_synthetic(_cfg(), 1, "fwd"),
     lambda: benchmark_model(_cfg(), 1, "unused.csv", "unused.csv"),
+    lambda: Trainer(generate_config("vits", "rgb")),
+    lambda: cli.main(["--train", "--eval", "--domain", "rgb"]),
 ], ids=["resolve_device", "resolve_cuda", "build_model", "example_inputs", "Trainer",
         "create_state", "train_step", "train_pipe", "evaluate_model", "swin_build_model",
         "swin_example_inputs", "swin_Trainer", "swin_evaluate_model", "train_and_eval",
         "cli", "init_distributed", "packed_Trainer", "benchmark_model_synthetic",
-        "benchmark_model"])
+        "benchmark_model", "rgb_Trainer", "rgb_cli"])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()

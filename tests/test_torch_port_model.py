@@ -157,10 +157,14 @@ def _unknown_amp_dtype(cfg):
     cfg.train.amp, cfg.model.amp_dtype = True, "fp8"
 
 
+def _rgb_domain(cfg):
+    cfg.model.domain, cfg.model.input_size = "RGB", 64
+
+
 @pytest.mark.parametrize("change,error", [
     # embed_type 2 is ported: the sub-block separate embedding builds and runs
     (lambda cfg: setattr(cfg.model, "version", 2), None),
-    (lambda cfg: setattr(cfg.model, "domain", "RGB"), NotImplementedError),
+    (_rgb_domain, None),  # the RGB domain is ported: the convolution embedding runs
     (_unknown_amp_dtype, ValueError),  # bf16 and fp16 AMP are ported; other dtypes refused
 ], ids=["embed_type2", "rgb", "amp"])
 def test_unported_configs_raise(rng, change, error):
@@ -171,7 +175,11 @@ def test_unported_configs_raise(rng, change, error):
             build_model(cfg, device="cpu")
         return
     model = build_model(cfg, device="cpu")
-    assert type(model.patchembed).__name__ == "PatchEmbeddingDCTSeparateSubblock"
+    if cfg.model.domain == "RGB":
+        want, inputs = "PatchEmbeddingRGB", (rng.standard_normal((2, 3, 64, 64)),)
+    else:
+        want, inputs = "PatchEmbeddingDCTSeparateSubblock", _dct_inputs(rng)
+    assert type(model.patchembed).__name__ == want
     with torch.inference_mode():
-        logits = model(*(torch.from_numpy(a) for a in _dct_inputs(rng)))
+        logits = model(*(torch.from_numpy(np.asarray(a, np.float32)) for a in inputs))
     assert logits.shape == (2, 5) and bool(torch.isfinite(logits).all())

@@ -57,27 +57,67 @@ def mm_1xtf32(a, b):
     return tf32_rna(a) @ tf32_rna(b)
 
 
+def jax_rgb_policy(aug, key, batch):
+    """The draws that the JAX ``RandAugmentRGB(key, img)`` makes inside its
+    ops (``augment/rgb.py:349-376``), as the port's ``draw_policy`` tuple
+    ``(idx, sign, cut_ch, cut_cw, drop)`` of (batch, num_ops) numpy arrays:
+    one key a sample, each round split in four (the next key, the op, the
+    sign, the op's own key); Cutout splits the op's key into its row and
+    column keys, ChromaDrop draws its bit from the op's key."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    n = len(aug.ops_list)
+    h, w = aug.image_hw
+    signed = jnp.asarray(aug._signed)
+
+    def rounds(rng):
+        def body(rng, _):
+            rng, k_op, k_sign, k_inner = jax.random.split(rng, 4)
+            idx = jax.random.randint(k_op, (), 0, n)
+            sign = jnp.where(jax.random.bernoulli(k_sign) & (signed[idx] > 0), -1.0, 1.0)
+            kh, kw = jax.random.split(k_inner)
+            return rng, (idx, sign, jax.random.randint(kh, (), 0, h),
+                         jax.random.randint(kw, (), 0, w), jax.random.bernoulli(k_inner))
+
+        return jax.lax.scan(body, rng, None, length=aug.num_ops)[1]
+
+    outs = jax.vmap(rounds)(jax.random.split(key, batch))
+    dtypes = (np.int32, np.float32, np.int32, np.int32, np.bool_)
+    return tuple(np.asarray(o).astype(dt) for o, dt in zip(outs, dtypes))
+
+
 def jax_step_draws(trainer, base_rng, step, batch, grid):
     """The draws of the JAX Trainer's step ``step`` (``loop.py:247-263``,
-    ``pipeline.py:399-404``) as the port's ``StepDraws``: fold the step into
-    the base key, split it in three (augment, mixup, dropout), split the
-    augment key in two (flip, policy).  The dropout key is not used: the
-    tests run without drop path."""
+    ``pipeline.py:399-404``; RGB: ``pipeline.py:208-212``) as the port's
+    ``StepDraws``: fold the step into the base key, split it in three
+    (augment, mixup, dropout), split the augment key in two (flip, policy).
+    The dropout key is not used: the tests run without drop path.  ``grid``
+    is the DCT block grid; an RGB trainer's policy is
+    :func:`jax_rgb_policy`'s at its input size."""
     import jax
     import jax.numpy as jnp
     import numpy as np
     import torch
 
     from rgbnomore_tpu.augment.randaugment import RandAugmentDCT
+    from rgbnomore_tpu.augment.rgb import RandAugmentRGB
     from rgbnomore_tpu_torch.train.loop import StepDraws
 
     k_aug, k_mix, _ = jax.random.split(jax.random.fold_in(base_rng, step), 3)
     k_flip, k_pol = jax.random.split(k_aug)
     flip = jax.random.bernoulli(k_flip, 0.5, (batch,))
     cfg = trainer.cfg
-    aug = RandAugmentDCT(ops_list=list(cfg.train.auglist), num_ops=cfg.train.num_ops,
-                         magnitude=cfg.train.augstr, grid=grid)
-    policy = aug.draw_policy(k_pol, batch, grid, grid)
+    if cfg.model.domain == "RGB":
+        size = cfg.model.input_size
+        aug = RandAugmentRGB(ops_list=list(cfg.train.auglist), num_ops=cfg.train.num_ops,
+                             magnitude=cfg.train.augstr, image_hw=(size, size), fill=128.0)
+        policy = jax_rgb_policy(aug, k_pol, batch)
+    else:
+        aug = RandAugmentDCT(ops_list=list(cfg.train.auglist), num_ops=cfg.train.num_ops,
+                             magnitude=cfg.train.augstr, grid=grid)
+        policy = aug.draw_policy(k_pol, batch, grid, grid)
     u = jax.random.beta(k_mix, cfg.train.mixup_alpha, cfg.train.mixup_alpha)
     return StepDraws(torch.from_numpy(np.array(flip)),
                      tuple(torch.from_numpy(np.array(p)) for p in policy),
