@@ -23,8 +23,10 @@ SwinV2-T's absolute position embedding, the packed and dense transfers
 (the augmentation kernel's dense entry) and the benchmark harness; then the
 RGB domain (ViT-S/16 and SwinV2-T on pixels decoded on the card, every RGB
 transfer, the CLIs, the benchmark) and the DCT RandAugment ops outside the
-augmentation kernel's set.  It checks that every kernel of each path was
-launched and that what comes out is right.
+augmentation kernel's set; then the rest of the harness: the reference
+``.pth`` import, FLOP counts and a profiler trace, the model summary and
+``--stage_data``.  It checks that every kernel of each path was launched
+and that what comes out is right.
 
 Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
@@ -146,7 +148,21 @@ Phases, each raising on failure (the script then exits non-zero):
  24. dct ops: one ViT-Ti step on the cropped DCT wire with the ops outside
      the augmentation kernel's set (Rotate, ShearX, ShearY, Equalize,
      Solarize, Invert, FreqEnhance): no #5 launch, the step and its input
-     stage card vs CPU, each op forced card vs CPU.
+     stage card vs CPU, each op forced card vs CPU;
+ 25. harness: a reference-named ViT-S/16 (embed_type 2, random qkv rows)
+     saved as a bare ``.pth`` and as an epoch checkpoint with ``module.``
+     names, imported by ``load_torch_checkpoint`` (one state dict from
+     both, loaded strictly): 512 images through the eval (12 #1 launches a
+     batch), logits card vs CPU at 4 images, 1 + 3 train steps at the
+     preset's batch; SwinV2-T through ``import_swin_state_dict``, one eval
+     batch (12 #3 launches), logits card vs CPU; ``model_flops`` on the card
+     equal to the CPU's for both, GFLOP an image and achieved TFLOP/s; a
+     ``utils/profiling.trace`` of 3 ViT-Ti train steps whose trace file
+     names #1's, #2's and #5w's kernels as often as their launch counters
+     say; ``--stage_data`` on ILSVRC-shaped tars (512x512 4:2:0 out, val
+     split by class), the eval CLI at ``--verbose 2`` logging the model
+     summary (its total the model's parameter count) on the imported
+     weights, and ViT-Ti trained one epoch on the staged corpus by the CLI.
 
 Phase 3 also holds #1, #2, #1h and #2h (bf16) at ViT-S's shapes (256, 6,
 196, 64) and (256, 6, 294, 64).  On every cropped path the input stage is
@@ -313,6 +329,55 @@ RGB_AUG_SHARE = 1e-3  # pixels allowed beyond RGB_LEVEL_ATOL after RandAugment
 DCT_OPS = ["Rotate", "ShearX", "ShearY", "Equalize", "Solarize", "Invert", "FreqEnhance"]
 DCT_OPS_ATOL = 1e-2
 # (tag, generate_config arguments, embedding, tokens) of the embed phase
+# the harness phase (module 7): train steps of the imported ViT-S at the
+# preset's batch and of the traced ViT-Ti, images of the card-vs-CPU logits,
+# and the ILSVRC-shaped tars it stages: classes, JPEGs a class (320x240),
+# val images (named as ImageNet's, classed by assets/val_wnid_map.csv.gz)
+HARNESS_STEPS = 3
+HARNESS_CPU_IMAGES = 4
+STAGE_CLASSES, STAGE_PER_CLASS, STAGE_VAL = ("n01440764", "n01443537"), 16, 4
+STAGE_BATCH = 8
+# port name -> the reference's (models/plainvit.py, models/swinv2.py) for
+# ViT-S/16 embed_type 2 with sub-blocks and SwinV2-T in the DCT domain;
+# first match
+# port name -> reference name (models/plainvit.py), first match; the
+# embeddings whose names depend on embed_type and sub-blocks apart
+VIT_REFERENCE_NAMES = [
+    (r"encoder_(\d+)\.ln1\.", r"encoder.\1.0.fn.eb_lrnorm1."),
+    (r"encoder_(\d+)\.mha\.", r"encoder.\1.0.fn.eb_mha."),
+    (r"encoder_(\d+)\.ln2\.", r"encoder.\1.1.fn.eb_lrnorm2."),
+    (r"encoder_(\d+)\.mlp1\.", r"encoder.\1.1.fn.eb_ffb.0."),
+    (r"encoder_(\d+)\.mlp2\.", r"encoder.\1.1.fn.eb_ffb.3."),
+    (r"head\.ln\.", "classhead.ch_lrnorm."),
+    (r"head\.linear(\d)\.", r"classhead.ch_linear\1."),
+    (r"patchembed\.projection\.", "patchembed.projection.0."),
+    (r"patchembed\.linear_y(\d+)\.", r"patchembed.LinearY.\1."),
+    (r"patchembed\.linear_c(\d+)\.", r"patchembed.LinearC.\1."),
+]
+VIT_EMBED_REFERENCE_NAMES = {  # (embed_type, sub-blocks) -> rules
+    (2, True): [(r"patchembed\.projection_y\.", "patchembed.projection_Y.1."),
+                (r"patchembed\.projection_c\.", "patchembed.projection_C.1."),
+                (r"patchembed\.linear_mix\.", "patchembed.linearMix.")],
+    (2, False): [(r"patchembed\.linear_mix\.", "patchembed.LinearMix.")],
+    (3, True): [(r"patchembed\.projection_y\.", "patchembed.projectionY.1."),
+                (r"patchembed\.projection_c\.", "patchembed.projectionC.1.")],
+}
+# port name -> reference name (models/swinv2.py)
+SWIN_REFERENCE_NAMES = [
+    (r"layer(\d+)_block(\d+)\.attn\.cpb_mlp1\.", r"layers.\1.blocks.\2.attn.cpb_mlp.0."),
+    (r"layer(\d+)_block(\d+)\.attn\.cpb_mlp2\.", r"layers.\1.blocks.\2.attn.cpb_mlp.2."),
+    (r"layer(\d+)_block(\d+)\.mlp(\d)\.", r"layers.\1.blocks.\2.mlp.fc\3."),
+    (r"layer(\d+)_block(\d+)\.", r"layers.\1.blocks.\2."),
+    (r"layer(\d+)_downsample\.", r"layers.\1.downsample."),
+    (r"patch_embed\.projection\.", "patch_embed.projection.0."),
+    (r"patch_embed\.(weight|bias)$", r"patch_embed.proj.\1"),
+    (r"patch_norm\.", "patch_embed.norm."),
+]
+# the kernels' names in a torch.profiler trace, by launch counter
+TRACE_KERNELS = {"attention_fwd_kernel": "fused_attention", "delta_kernel": "fused_attention_bwd",
+                 "dkdv_kernel": "fused_attention_bwd", "dq_kernel": "fused_attention_bwd",
+                 "augpipe_kernel": "wire_flip_aug_range"}
+
 EMBED_PATHS = [
     ("embed2 no_subblock", dict(modelver=2, subblock=False), "PatchEmbeddingDCTSeparate", 196),
     ("embed3", dict(modelver=3), "PatchEmbeddingDCTConcat", 294),
@@ -3572,6 +3637,405 @@ def phase_dct_ops(report: dict) -> None:
         f"{op} {e:.3e}" for op, e in errs.items()), flush=True)
 
 
+# ------------------------------------------------------- harness (module 7)
+def reference_state_dict(model, rules, rng, std: float) -> dict:
+    """A state dict under the reference's module names (``rules``, the first
+    match renames) with ``model``'s shapes, drawn from ``rng``: weights and
+    biases N(0, std^2), LayerNorm scales 1 + N(0, 0.1^2), SwinV2's logit
+    scales log 10 + N(0, 0.1^2); the ViT's fused qkv rows are so random,
+    not symmetric under the reference's (h, d, qkv) interleave."""
+    import torch
+
+    out = {}
+    for key, value in model.state_dict().items():
+        arr = rng.standard_normal(tuple(value.shape)).astype(np.float32)
+        if key.endswith("logit_scale"):
+            arr = np.float32(math.log(10)) + np.float32(0.1) * arr
+        elif re.search(r"(ln\d?|norm\d?)\.weight$", key):
+            arr = 1 + np.float32(0.1) * arr
+        else:
+            arr *= np.float32(std)
+        for pattern, repl in rules:
+            key, n = re.subn(pattern, repl, key)
+            if n:
+                break
+        out[key] = torch.from_numpy(arr)
+    return out
+
+
+def logits_card_vs_cpu(tag: str, trainer, cpu_model, rows: np.ndarray) -> float:
+    """The eval pipeline on the card, then the logits of ``trainer.model``
+    on the card against ``cpu_model`` on the CPU on the same planes; returns
+    the max abs error (checked at ``LOGIT_TOL``)."""
+    import torch
+
+    with torch.inference_mode():
+        y, c, _, _ = trainer.eval_pipe(trainer.put_batch({"packed": rows})["packed"])
+        got = trainer.model.eval()(y, c).cpu()
+        want = cpu_model.eval()(y.cpu(), c.cpu())
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **LOGIT_TOL),
+          f"{tag}: logits card vs CPU max abs err {err} beyond {LOGIT_TOL}")
+    return err
+
+
+def flops_card_vs_cpu(tag: str, card_model, cpu_model, cfg) -> float:
+    """``model_flops`` at batch 1 on the card and on the CPU: equal, or the
+    phase fails; returns the count."""
+    from rgbnomore_tpu_torch.train.config import example_inputs
+    from rgbnomore_tpu_torch.utils.profiling import model_flops
+
+    card = model_flops(card_model, *example_inputs(cfg, 1, device="cuda"))
+    cpu = model_flops(cpu_model, *example_inputs(cfg, 1, device="cpu"))
+    check(card == cpu and card > 0, f"{tag}: model_flops {card} on the card, {cpu} on the CPU")
+    return card
+
+
+def timed_steps(trainer, packed, steps: int) -> float:
+    """Seconds a train step over ``steps`` steps after a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(packed)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps
+
+
+def harness_import(report: dict, tmp: str, card: str) -> str:
+    """(a) A reference-named ViT-S/16 (the CLI's default, embed_type 2) as
+    a bare ``.pth`` and as an epoch checkpoint with ``module.`` names:
+    ``load_torch_checkpoint`` gives one state dict from both, which the
+    port's model loads strictly; 512 images through ``Trainer.evaluate`` (1
+    wire and 12 #1 launches a batch) and 4 images' logits card vs CPU; the
+    same for SwinV2-T through ``import_swin_state_dict``, one eval batch (12
+    #3 launches).  (b) ``model_flops`` on the card equal to the CPU's for
+    both, GFLOP per image, and the achieved TFLOP/s of the imported ViT-S's
+    train step at the preset's batch (3 x forward FLOPs x batch / step
+    time) and of both evals.  Returns the imported ViT-S's weights file."""
+    import gc
+
+    import torch
+
+    from rgbnomore_tpu_torch.train.config import build_model
+    from rgbnomore_tpu_torch.train.loop import Trainer
+    from rgbnomore_tpu_torch.train.torch_import import (
+        import_swin_state_dict,
+        load_torch_checkpoint,
+    )
+
+    cfg = vits_config(batchsize=VITS_BATCHES[0])
+    cpu_model = build_model(cfg, device="cpu")
+    rules = VIT_REFERENCE_NAMES + VIT_EMBED_REFERENCE_NAMES[(2, True)]
+    ref = reference_state_dict(cpu_model, rules, np.random.default_rng(SEED + 20), 0.02)
+    torch.save(ref, f"{tmp}/vits.pth")
+    torch.save({"epoch": 0, "model_state_dict": {f"module.{k}": v for k, v in ref.items()}},
+               f"{tmp}/vits_epoch.ckpt")
+    m = cfg.model
+    kw = dict(num_heads=m.heads, head_size=m.head_size, depth=m.depth, ver=m.version,
+              use_subblock=m.subblock)
+    sd = load_torch_checkpoint(f"{tmp}/vits.pth", **kw)
+    other = load_torch_checkpoint(f"{tmp}/vits_epoch.ckpt", **kw)
+    check(sd.keys() == other.keys() and all(torch.equal(sd[k], other[k]) for k in sd),
+          "import: the epoch checkpoint imports to other tensors than the bare .pth")
+    cpu_model.load_state_dict(sd, strict=True)
+    trainer = Trainer(cfg, device="cuda")
+    trainer.model.load_state_dict(sd, strict=True)
+    eval_path(report, "import vits eval", trainer, {"fused_attention": 12})
+    rng = np.random.default_rng(SEED + 21)
+    err = logits_card_vs_cpu("import vits", trainer, cpu_model,
+                             vit_rows(rng, HARNESS_CPU_IMAGES, K_EVAL))
+    weights = f"{tmp}/vits_imported.pt"
+    torch.save(trainer.model.state_dict(), weights)
+    print(f"import: ViT-S/16 (embed_type 2) from a reference-named .pth and an epoch "
+          f"checkpoint ({len(ref)} tensors), loaded strictly; logits card vs CPU max abs err "
+          f"{err:.3e} on {HARNESS_CPU_IMAGES} images", flush=True)
+
+    vits_flops = flops_card_vs_cpu("vits", trainer.model, cpu_model, cfg)
+    batch = cfg.train.batch_size
+    eval_rows = [{"packed": vit_rows(rng, BATCH, K_EVAL)}]
+    trainer.evaluate(eval_rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.evaluate(eval_rows)
+    vits_eval_s = time.perf_counter() - t0
+    trainer.create_state(steps_per_epoch=HARNESS_STEPS + 1)
+    packed = trainer.put_batch({"packed": vit_rows(rng, batch, K_TRAIN)})["packed"]
+    trainer.train_step(packed)  # warm-up
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        step_s = timed_steps(trainer, packed, HARNESS_STEPS)
+    launches = all_launches()
+    check_input_stage(report, "import_vits_train", launches, len(unpacks),
+                      train_steps=HARNESS_STEPS)
+    check_launches("import vits train", launches,
+                   {"fused_attention": 12 * HARNESS_STEPS,
+                    "fused_attention_bwd": 12 * HARNESS_STEPS})
+    record_launches(report, "import_vits_train", launches)
+    del trainer, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = swin_config(SWIN_EVAL_BATCH)
+    cpu_model = build_model(cfg, device="cpu")
+    ref = reference_state_dict(cpu_model, SWIN_REFERENCE_NAMES, np.random.default_rng(SEED + 22),
+                               0.02)
+    sd = import_swin_state_dict(ref, depths=tuple(cfg.model.depth))
+    cpu_model.load_state_dict(sd, strict=True)
+    trainer = Trainer(cfg, device="cuda")
+    trainer.model.load_state_dict(sd, strict=True)
+    y, c = synthetic_planes(rng, SWIN_EVAL_BATCH, SWIN_GRID)
+    rows = write_rows(y, c, (np.arange(SWIN_EVAL_BATCH) % 1000).astype(np.int32), K_EVAL)
+    trainer.evaluate([{"packed": rows}])  # warm-up
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        t0 = time.perf_counter()
+        res = trainer.evaluate([{"packed": rows}])
+        swin_eval_s = time.perf_counter() - t0
+    launches = all_launches()
+    check_input_stage(report, "import_swin_eval", launches, len(unpacks), eval_batches=1)
+    check_launches("import swin eval", launches, {"window_attention": 12})
+    record_launches(report, "import_swin_eval", launches)
+    check(res["count"] == SWIN_EVAL_BATCH and math.isfinite(res["loss"]),
+          f"import swin eval gave {res}")
+    err = logits_card_vs_cpu("import swin", trainer, cpu_model, rows[:HARNESS_CPU_IMAGES])
+    print(f"import: SwinV2-T from a reference-named state dict through "
+          f"import_swin_state_dict, eval {res}; logits card vs CPU max abs err {err:.3e} "
+          f"on {HARNESS_CPU_IMAGES} images", flush=True)
+    swin_flops = flops_card_vs_cpu("swinv2", trainer.model, cpu_model, cfg)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"profiling: model_flops card == CPU: ViT-S/16 {vits_flops / 1e9:.6f} and SwinV2-T "
+          f"{swin_flops / 1e9:.6f} GFLOP an image (forward); {card}", flush=True)
+    print(f"profiling: ViT-S/16 train step at batch {batch}: {step_s * 1e3:.3f} ms, "
+          f"{3 * vits_flops * batch / step_s / 1e12:.2f} TFLOP/s achieved (3 x forward); eval "
+          f"(upload + pipeline + forward) at {BATCH}: "
+          f"{vits_flops * BATCH / vits_eval_s / 1e12:.2f} TFLOP/s; SwinV2-T eval at "
+          f"{SWIN_EVAL_BATCH}: {swin_flops * SWIN_EVAL_BATCH / swin_eval_s / 1e12:.2f} "
+          f"TFLOP/s; {card}", flush=True)
+    return weights
+
+
+def read_trace(logdir: str) -> dict:
+    """The one trace file in ``logdir``: its path, how often it names each
+    kernel of ``TRACE_KERNELS``, its device kernels, its host launches, the
+    times into its window of the launches with no kernel (matched by
+    correlation id), and each kernel's start on the device's clock less its
+    launch's on the host's, in µs."""
+    import collections
+    import glob
+
+    files = glob.glob(f"{logdir}/*.pt.trace.json")
+    check(len(files) == 1, f"trace: {files} in {logdir}, want one trace file")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    pattern = re.compile(r"::(" + "|".join(TRACE_KERNELS) + r")\b")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    seen = collections.Counter(m.group(1) for e in kernels
+                               for m in [pattern.search(e.get("name", ""))] if m)
+    started = {e["args"].get("correlation"): e["ts"] for e in kernels}
+    launched = [e for e in events if e.get("cat") == "cuda_runtime" and "Launch" in e["name"]]
+    t0 = min(e["ts"] for e in events if e.get("ph") == "X")
+    return {"path": files[0], "seen": dict(seen), "kernels": len(kernels),
+            "launches": len(launched),
+            "dropped": [e["ts"] - t0 for e in launched
+                        if e["args"].get("correlation") not in started],
+            "lags": [started[e["args"]["correlation"]] - e["ts"] for e in launched
+                     if e["args"].get("correlation") in started]}
+
+
+def harness_trace(report: dict, tmp: str, card: str) -> None:
+    """(b) ``utils/profiling.trace`` over 3 ViT-Ti train steps at batch 256:
+    one trace file, which names #1's, #2's three and #5w's kernels exactly
+    as many times as their launch counters say; the step's achieved
+    TFLOP/s from 3 steps timed without the profiler.  Each trace follows a
+    profiler session of the CUDA activity alone (``device_ms``); late in
+    this script a bare ``torch.profiler`` session then lost the first fifty
+    or so kernels of its block on the H100 (``tools/trace_drop_ab.py``), so
+    one bare session is read beside ``trace``'s."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from rgbnomore_tpu_torch.train.config import build_model, example_inputs, generate_config
+    from rgbnomore_tpu_torch.train.loop import Trainer
+    from rgbnomore_tpu_torch.utils.profiling import model_flops, trace
+
+    cfg = generate_config("vitti", "dct", modelver=1, batchsize=BATCH, seed=SEED, epochs=1,
+                          warmup_steps=1)
+    flops = model_flops(build_model(cfg, device="cpu"), *example_inputs(cfg, 1, device="cpu"))
+    trainer = Trainer(cfg, device="cuda")
+    trainer.create_state(steps_per_epoch=4 * HARNESS_STEPS + 8)
+    packed = trainer.put_batch({"packed": vit_rows(np.random.default_rng(SEED + 23), BATCH,
+                                                   K_TRAIN)})["packed"]
+    trainer.train_step(packed)  # warm-up
+    step_s = timed_steps(trainer, packed, HARNESS_STEPS)
+    device_ms(lambda: trainer.train_step(packed), reps=1)
+    with plain_unpacks(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                  on_trace_ready=tensorboard_trace_handler(f"{tmp}/bare")):
+        timed_steps(trainer, packed, HARNESS_STEPS)
+    bare = read_trace(f"{tmp}/bare")
+    device_ms(lambda: trainer.train_step(packed), reps=1)
+    logdir = f"{tmp}/trace"
+    reset_launches()
+    with plain_unpacks() as unpacks, trace(logdir):
+        timed_steps(trainer, packed, HARNESS_STEPS)
+    launches = all_launches()
+    check_input_stage(report, "harness_trace", launches, len(unpacks), train_steps=HARNESS_STEPS)
+    check_launches("harness trace", launches, {"fused_attention": 12 * HARNESS_STEPS,
+                                               "fused_attention_bwd": 12 * HARNESS_STEPS})
+    record_launches(report, "harness_trace", launches)
+    got = read_trace(logdir)
+    want = {name: launches[counter] for name, counter in TRACE_KERNELS.items()}
+    for tag, t in (("a bare torch.profiler session", bare), ("utils/profiling.trace", got)):
+        lags = t["lags"]
+        print(f"trace: {tag}: {t['launches']} launches on the host, {len(t['dropped'])} with "
+              f"no kernel (at {[round(x) for x in t['dropped'][:4]]} us into the window); names "
+              f"{t['seen']}; kernel start less launch: least "
+              f"{min(lags, default=float('nan')):.1f} us, median "
+              f"{statistics.median(lags) if lags else float('nan'):.1f} us", flush=True)
+    check(got["seen"] == want, f"trace: the kernels named {got['seen']} times, want {want}")
+    print(f"trace: {os.path.basename(got['path'])} ({os.path.getsize(got['path']) / 2**20:.1f} "
+          f"MiB, {got['kernels']} device kernels in 3 ViT-Ti steps) names {got['seen']}, as the "
+          f"launch counters say", flush=True)
+    print(f"profiling: ViT-Ti {flops / 1e9:.6f} GFLOP an image (forward); train step at batch "
+          f"{BATCH}: {step_s * 1e3:.3f} ms, {3 * flops * BATCH / step_s / 1e12:.2f} TFLOP/s "
+          f"achieved (3 x forward); {card}", flush=True)
+
+
+def val_names(n: int) -> list[str]:
+    """The file names of the first ``n`` images of ImageNet's val set."""
+    return [f"ILSVRC2012_val_{i:08d}.JPEG" for i in range(1, n + 1)]
+
+
+def write_imagenet_tars(root, rng, classes=("n01440764", "n01443537"), per_class=2, n_val=2,
+                        size=(32, 32)):
+    """ILSVRC-shaped tars of random ``size`` (width, height) JPEGs in
+    ``root/src``: the train tar an outer tar of ``per_class`` images in a
+    tar for each of ``classes``, the val tar ``n_val`` flat images named as
+    the real val set's (:func:`val_names`); returns ``root/src``."""
+    import tarfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    src, scratch = Path(root) / "src", Path(root) / "scratch"
+    src.mkdir()
+    scratch.mkdir()
+
+    def jpg(path):
+        arr = rng.integers(0, 256, (size[1], size[0], 3), dtype=np.uint8)
+        Image.fromarray(arr, "RGB").save(path, "JPEG")
+
+    class_tars = []
+    for cls in classes:
+        cdir = scratch / cls
+        cdir.mkdir()
+        for i in range(per_class):
+            jpg(cdir / f"{cls}_{i}.JPEG")
+        ct = scratch / f"{cls}.tar"
+        with tarfile.open(ct, "w") as t:
+            for p in sorted(cdir.iterdir()):
+                t.add(p, arcname=p.name)
+        class_tars.append(ct)
+    with tarfile.open(src / "ILSVRC2012_img_train.tar", "w") as t:
+        for ct in class_tars:
+            t.add(ct, arcname=ct.name)
+    for name in val_names(n_val):
+        jpg(scratch / name)
+    with tarfile.open(src / "ILSVRC2012_img_val.tar", "w") as t:
+        for name in val_names(n_val):
+            t.add(scratch / name, arcname=name)
+    return src
+
+
+def run_cli(tag: str, args: list[str]) -> tuple[dict, str]:
+    """``python -m <args>`` from the checkout's root: exit 0, or the phase
+    fails; returns its last line's JSON and its standard error."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    check(res.returncode == 0, f"{tag}: exit {res.returncode}: {res.stderr[-4000:]}")
+    print(f"{tag}: python -m {args[0]} exited 0 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return json.loads(res.stdout.strip().splitlines()[-1]), res.stderr
+
+
+def harness_cli(tmp: str, vits_weights: str) -> None:
+    """(d) ``--stage_data`` on ILSVRC-shaped tars: every staged JPEG 512x512
+    in 4:2:0, the val images in their classes' directories; the index CSVs
+    (``build_index_csv``).  (c) The eval CLI at ``--verbose 2`` on the
+    imported ViT-S/16's weights over the staged val split logs the model
+    summary, whose total is the model's parameter count.  (d) ViT-Ti trains
+    one epoch on the staged corpus and is scored, through the CLI."""
+    from rgbnomore_tpu_torch import codec
+    from rgbnomore_tpu_torch.data.staging import build_index_csv, load_valprep_mapping
+    from rgbnomore_tpu_torch.train.config import build_model
+
+    src = str(write_imagenet_tars(tmp, np.random.default_rng(SEED + 24), STAGE_CLASSES,
+                                  STAGE_PER_CLASS, STAGE_VAL, size=(320, 240)))
+    staged = f"{tmp}/staged"
+    run_cli("stage", ["rgbnomore_tpu_torch.cli", "--stage_data", "--datapath", src,
+                      "--temp_datapath", staged, "--num_cpus", "8"])
+    mapping = load_valprep_mapping()
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(staged) for f in fs)
+    want_val = {f"{staged}/val/{mapping[n]}/{n}" for n in val_names(STAGE_VAL)}
+    check(len(files) == len(STAGE_CLASSES) * STAGE_PER_CLASS + STAGE_VAL
+          and want_val <= set(files), f"stage: staged {files}")
+    for path in files:
+        _, _, y, cbcr = codec.read_coefficients(path)
+        check(y.shape == (1, 64, 64, 8, 8) and cbcr is not None
+              and cbcr.shape == (2, 32, 32, 8, 8),
+              f"stage: {path} has luma {y.shape}, chroma {None if cbcr is None else cbcr.shape}")
+    index = {}
+    for split in ("train", "val"):
+        index[split] = f"{tmp}/staged_{split}.csv"
+        build_index_csv(staged, index[split], split)
+    print(f"stage: {len(files)} JPEGs staged at 512x512 4:2:0, val split into "
+          f"{len({os.path.dirname(p) for p in want_val})} class directories", flush=True)
+
+    indexpaths = f"{index['train']},{index['val']}"
+    common = ["--indexpaths", indexpaths, "--batch", str(STAGE_BATCH), "--num_cpus", "8",
+              "--seed", str(SEED)]
+    out, err = run_cli("summary", ["rgbnomore_tpu_torch.eval", "--loadpath", vits_weights,
+                                   "--verbose", "2", *common])
+    n_params = sum(p.numel() for p in build_model(vits_config(), device="cpu").parameters())
+    check(f"Total Parameters: {n_params:,} " in err and "PatchEmbeddingDCTSeparateSubblock" in err
+          and out["test"]["count"] == STAGE_VAL,
+          f"summary: the eval CLI's log has no table totalling {n_params:,}: {err[-3000:]}")
+    print(f"summary: the eval CLI at --verbose 2 logged the model summary, Total Parameters: "
+          f"{n_params:,} (ViT-S/16 embed_type 2); the imported weights scored {out['test']} on "
+          f"the staged val split", flush=True)
+    weights = f"{tmp}/staged_vitti.pt"
+    out, _ = run_cli("staged train", [
+        "rgbnomore_tpu_torch.cli", "--train", "--eval", "--model_arch", "vitti",
+        "--embed_type", "1", "--epochs", "1", "--warmup_steps", "1", "--savepath", weights,
+        "--verbose", "1", *common])
+    check(os.path.isfile(weights) and len(out["history"]) == 1
+          and math.isfinite(out["history"][0]["train_loss"])
+          and out["test"]["count"] == STAGE_VAL,
+          f"staged train: {out}")
+    print(f"staged train: ViT-Ti, one epoch on the staged corpus: train loss "
+          f"{out['history'][0]['train_loss']:.4f}, test {out['test']}", flush=True)
+
+
+def phase_harness(report: dict) -> None:
+    """The rest of the harness (module 7): the reference ``.pth`` import,
+    ``model_flops`` and the trace, the model summary, ``--stage_data``."""
+    import tempfile
+
+    from rgbnomore_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    t0 = time.perf_counter()
+    card = phase_card()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        weights = harness_import(report, tmp, card)
+        harness_trace(report, tmp, card)
+        harness_cli(tmp, weights)
+    print(f"harness: {time.perf_counter() - t0:.1f} s", flush=True)
+
 def main() -> int:
     import torch
 
@@ -3634,6 +4098,7 @@ def main() -> int:
         phase_rgb(report, index_train, index_val)
         phase_rgb_paths(report, tmp, index_train, index_val)
     phase_dct_ops(report)
+    phase_harness(report)
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,14 +23,16 @@ Subpackages
 - ``augment``  — the device half of the input pipelines (DCT and RGB), the
                  batched DCT and RGB RandAugment, the pixel oracles.
 - ``codec``    — the host JPEG codec (C++/libjpeg extension + wrappers).
-- ``data``     — index datasets and the loaders of both domains.
+- ``data``     — index datasets, the loaders of both domains, dataset
+                 staging.
 - ``models``   — the ViT with every patch embedding, SwinV2, and flax's
                  dtype rules and dropout.
 - ``train``    — config, mixup and loss, clip + AdamW + schedule, the
-                 trainer's train step and eval, checkpoints and the epoch
-                 loop ``train_and_eval``.
+                 trainer's train step and eval, checkpoints, the epoch
+                 loop ``train_and_eval``, the reference ``.pth`` importer.
 - ``parallel`` — data parallelism: one process per GPU over NCCL.
-- ``utils``    — the loss window.
+- ``utils``    — the loss window, timing, the model summary, profiling and
+                 FLOP counts.
 - ``cli``, ``eval`` — the train and eval CLIs (``python -m``), with
                  ``train.py``'s flags.
 """

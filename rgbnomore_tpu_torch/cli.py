@@ -20,12 +20,20 @@ rgbnomore_tpu_torch.eval`` is this CLI with ``--eval`` forced.
 
 ``--domain rgb`` trains the paper's RGB baseline: the same models on pixels
 decoded on the device from K=63 coefficient rows, with ``AUGLIST_RGB`` at
-magnitude 10, lr 1e-3 and wd 1e-4 unless the flags say otherwise.  The flag
-whose feature is still in the port's queue (ROADMAP.md section 1) raises
-``NotImplementedError``: ``--stage_data`` (module 7).  ``--transfer`` takes
-``cropped`` (the default), ``packed`` or ``dense``.  The weights are
-a bare ``state_dict`` written by ``torch.save`` whatever ``--savepath``'s
-extension; checkpoints are ``torch.save`` files (``train/checkpoint.py``).
+magnitude 10, lr 1e-3 and wd 1e-4 unless the flags say otherwise.
+``--transfer`` takes ``cropped`` (the default), ``packed`` or ``dense``.
+
+``--stage_data`` stages ImageNet first (``data/staging.py``): the tars in
+``--datapath`` are extracted into ``--temp_datapath`` (``--no_extract``
+keeps a tree already there, ``--use_msrsync`` copies one instead), the val
+images are moved into their class directories and every image is resized
+to 512x512 4:2:0 (``--no_resize`` skips that); ``data.staging.
+build_index_csv`` then writes the index CSVs.  ``--verbose 2`` logs the
+model summary (``utils/summary.py``).
+
+The weights are a bare ``state_dict`` written by ``torch.save`` whatever
+``--savepath``'s extension; checkpoints are ``torch.save`` files
+(``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -62,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_cpus", type=int, default=4, help="Host threads for the loader")
     p.add_argument("--use_msrsync", action="store_true")
     p.add_argument("--stage_data", action="store_true",
-                   help="Run dataset staging (still to be ported)")
+                   help="Stage the dataset from --datapath's tars into --temp_datapath")
     # pipeline config
     p.add_argument("--train", action="store_true")
     p.add_argument("--eval", action="store_true")
@@ -121,22 +129,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a flag whose feature the port
-    does not have yet, naming its item of ROADMAP.md's port queue."""
-    queue = "ROADMAP.md, port queue"
-    if args.stage_data:
-        raise NotImplementedError(f"--stage_data is still to be ported ({queue}: module 7)")
-
-
 def main(argv: list[str] | None = None) -> dict:
-    """Parse ``argv`` (default: the command line), then benchmark (``--benchmark
-    N``: returns the six FPS metrics), or train and/or evaluate (returns
-    ``train_and_eval``'s results, empty without --train or --eval)."""
+    """Parse ``argv`` (default: the command line), stage the dataset
+    (``--stage_data``), then benchmark (``--benchmark N``: returns the six
+    FPS metrics), or train and/or evaluate (returns ``train_and_eval``'s
+    results, empty without --train or --eval)."""
     logging.basicConfig(format="[%(asctime)s] %(levelname)s: %(message)s",
                         datefmt="%m/%d/%Y %H:%M:%S", level=logging.INFO)
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
 
     import torch
 
@@ -192,6 +192,12 @@ def _run(args: argparse.Namespace) -> dict:
     if args.bias_init:
         cfg.model.bias_init = args.bias_init
     configure_determinism(cfg)
+    if args.stage_data:
+        from rgbnomore_tpu_torch.data.staging import stage_dataset
+
+        stage_dataset(args.datapath, args.temp_datapath, no_extract=args.no_extract,
+                      no_resize=args.no_resize, use_msrsync=args.use_msrsync,
+                      workers=args.num_cpus)
     index_train, index_val = args.indexpaths.split(",")
     transfer = args.transfer or "cropped"
 

@@ -3,8 +3,9 @@
 The port's copy of ``rgbnomore_tpu/codec.py``: ``read_into_canvas`` (dense
 canvases), ``read_into_packed``, ``read_into_packed_mask`` and
 ``read_into_packed_mask16`` (the packed wire), the crop modes,
-``crop_row_offsets`` and ``read_crop_resize_pack_row`` (the cropped DCT
-wire), the RGB crop modes, ``rgb_crop_row_offsets`` and
+``read_crop_resize_pack`` (into the fields' own arrays),
+``crop_row_offsets`` and ``read_crop_resize_pack_row`` (into one row: the
+cropped DCT wire), the RGB crop modes, ``rgb_crop_row_offsets`` and
 ``read_rgb_crop_pack_row`` (the cropped RGB wire), ``read_jpeg`` (a full
 decode, for ``RgbCanvasLoader``), and the cold utilities
 ``read_coefficients``, ``write_coefficients``, ``quantize_at_quality``,
@@ -37,6 +38,7 @@ __all__ = [
     "decode_coeff",
     "quantize_at_quality",
     "read_coefficients",
+    "read_crop_resize_pack",
     "read_crop_resize_pack_row",
     "read_into_canvas",
     "read_into_packed",
@@ -134,6 +136,45 @@ def read_into_packed_mask16(path: str, k: int, vy, my, sy, dy, vc, mc, sc, dc, q
 CROP_RANDOM = 0  # RandomResizedCrop_DCT box distribution (train)
 CROP_CENTER = 1  # ResizedCenterCrop_DCT (ViT val)
 CROP_FULL = 2  # whole-image Resize_DCT (swin val)
+
+
+def read_crop_resize_pack(
+    path: str,
+    k: int,
+    mode: int,
+    uniforms: np.ndarray,
+    pack,
+    vy: np.ndarray, my: np.ndarray, sy: np.ndarray, dy: np.ndarray,
+    vc: np.ndarray, mc: np.ndarray, sc: np.ndarray, dc: np.ndarray,
+    quant_out: np.ndarray,
+    *,
+    scale: tuple[float, float] = (0.05, 1.0),
+    ratio: float = 1.0,
+    wide: bool = False,
+    requant: bool = False,
+):
+    """Decode + host crop/resize to the target grid + mask16 pack of one
+    image into the wire fields' own arrays (``vy``/``my``/``sy``/``dy`` for
+    luma, ``vc``/``mc``/``sc``/``dc`` for chroma, ``quant_out``; e.g. the
+    ``data.loader.row_views`` of one row).  :func:`read_crop_resize_pack_row`
+    writes the same bytes into one consolidated row.
+
+    ``mode`` selects the crop (``CROP_*``); ``uniforms`` float64 (12,) are
+    the crop draws (mode 0 only: 10 area draws and 2 offset draws);
+    ``ratio`` the center-crop ratio (mode 1); ``pack`` a
+    ``data.croppack.OpPack``.  Values are dequantized (exact int16 DC, int8
+    x uint8-scale ACs), so the device does not apply the quant table again,
+    except on the ``mask16q`` wire (``requant``: values rounded back to
+    JPEG units before top-K).  ``wide`` selects the int16-AC ``mask16w``
+    wire (``vy``/``vc`` int16).  Returns ``(ncomp, yh, yw, ch, cw, bi, bj,
+    bh, bw)`` with the sampled box.
+    """
+    return _dctcodec.read_crop_resize_pack(
+        str(path), k, mode, pack.t_y, pack.t_c, pack.max_src,
+        np.ascontiguousarray(uniforms, np.float64), float(scale[0]),
+        float(scale[1]), float(ratio), pack.evens, pack.spec, pack.data,
+        vy, my, sy, dy, vc, mc, sc, dc, quant_out, int(wide), int(requant),
+    )
 
 
 def crop_row_offsets(layout: dict) -> np.ndarray:

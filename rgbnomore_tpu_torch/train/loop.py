@@ -697,8 +697,11 @@ def train_and_eval(
     if verbose >= 1:
         log.info("config: %s", cfg)
     if verbose >= 2:
-        log.info("model summary: not printed; utils/summary.py is still to be ported "
-                 "(ROADMAP.md, port queue: module 7)")
+        # the shape and parameter table on the declared input shapes, the
+        # reference's torchinfo.summary (pipeline_utils.py:383-384)
+        from rgbnomore_tpu_torch.utils.summary import model_summary
+
+        log.info("model summary:\n%s", model_summary(trainer.model, cfg))
     savepath = str(savepath)
     if run_train:
         Path(savepath).resolve().parent.mkdir(parents=True, exist_ok=True)

@@ -1,1 +1,2 @@
-"""Small host-side helpers (the JAX package's ``utils/metrics.py``)."""
+"""Host-side helpers: the loss window (the JAX package's ``utils/metrics.py``),
+timing, the model summary and profiling."""

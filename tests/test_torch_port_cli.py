@@ -4,11 +4,12 @@ eval.py``) on the CPU.
 - The parser takes every flag of the JAX package's ``train.py`` under the
   same option strings, with the same default, type, choices and action,
   and adds ``--device`` (default ``cuda``).
-- Each flag whose feature is still in the port's queue raises
-  ``NotImplementedError`` naming its ROADMAP module; the flags ported since
-  (``--benchmark``, ``--transfer packed/dense``, ``--embed_type 2/3``) run on
-  the CPU: a step is trained and the weights written, or the six metrics
-  returned.  The eval CLI forces ``--eval`` and drops ``--train``.
+- The flags ported since the first CLI (``--benchmark``, ``--stage_data``,
+  ``--transfer packed/dense``, ``--embed_type 2/3``, ``--domain rgb``) run
+  on the CPU: a step is trained and the weights written, or the six metrics
+  returned; ``--stage_data`` stages ILSVRC-shaped tars first, which are then
+  indexed and trained on.  The eval CLI forces ``--eval`` and drops
+  ``--train``.
 - ``python -m rgbnomore_tpu_torch.cli --train --eval --device cpu`` trains
   one epoch of the full-width ViT-Ti in a subprocess, writes its weights,
   and ``python -m rgbnomore_tpu_torch.eval --loadpath`` on them scores the
@@ -17,6 +18,7 @@ eval.py``) on the CPU.
 
 import argparse
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -26,9 +28,11 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import write_imagenet_tars
 from torch_port_support import settle_inspect_module_walk, torch_threads, write_corpus
 from rgbnomore_tpu_torch import cli
 from rgbnomore_tpu_torch import eval as port_eval
+from rgbnomore_tpu_torch.data.staging import build_index_csv
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -96,26 +100,36 @@ BENCHMARK_KEYS = {"train_loader_fps", "test_loader_fps", "model_fbp_fps", "model
                   "train_pipeline_fps", "test_pipeline_fps"}
 
 
-@pytest.mark.parametrize("argv,module", [
-    (["--benchmark", "1", "--model_arch", "vitti", "--embed_type", "1"], None),
-    (["--stage_data"], "module 7"),
-    (["--transfer", "packed", "--model_arch", "vitti", "--embed_type", "1"], None),
-    (["--transfer", "dense", "--model_arch", "vitti", "--embed_type", "1"], None),
-    (["--domain", "rgb"], None),  # the CLI's defaults in the RGB domain: ViT-S/16
-    (["--embed_type", "2"], None),  # the CLI's defaults: ViT-S/16, embed_type 2
-    (["--embed_type", "3", "--model_arch", "vitti"], None),
+@pytest.mark.parametrize("argv", [
+    ["--benchmark", "1", "--model_arch", "vitti", "--embed_type", "1"],
+    ["--stage_data", "--model_arch", "vitti", "--embed_type", "1"],
+    ["--transfer", "packed", "--model_arch", "vitti", "--embed_type", "1"],
+    ["--transfer", "dense", "--model_arch", "vitti", "--embed_type", "1"],
+    ["--domain", "rgb"],  # the CLI's defaults in the RGB domain: ViT-S/16
+    ["--embed_type", "2"],  # the CLI's defaults: ViT-S/16, embed_type 2
+    ["--embed_type", "3", "--model_arch", "vitti"],
 ], ids=["benchmark", "stage_data", "packed", "dense", "rgb", "embed2", "embed3"])
-def test_unported_flags_raise(argv, module, small_corpus, tmp_path, monkeypatch):
-    """The flags still in the queue raise naming their module; those ported
-    run on the CPU: the benchmark returns the six metrics, each > 0; a
-    transfer, an embedding or the RGB domain trains one step at full width,
-    writes the weights and scores the test split."""
-    if module is not None:
-        argv = ["--embed_type", "1", "--train", "--device", "cpu"] + argv
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue: {module}"):
-            cli.main(argv)
-        return
-    common = ["--device", "cpu", "--indexpaths", f"{small_corpus},{small_corpus}",
+def test_unported_flags_raise(argv, small_corpus, tmp_path, monkeypatch, caplog):
+    """The flags once in the port's queue now run on the CPU: the benchmark
+    returns the six metrics, each > 0; a transfer, an embedding or the RGB
+    domain trains one step at full width, writes the weights and scores the
+    test split; ``--stage_data`` stages 2 classes of 3 JPEGs and 2 val
+    images (resized to 512x512), which are indexed and trained on so, at
+    ``--verbose 2``: the model summary is logged with ViT-Ti's parameter
+    count."""
+    indexpaths, test_count = f"{small_corpus},{small_corpus}", 6
+    if argv[0] == "--stage_data":
+        src = write_imagenet_tars(tmp_path, np.random.default_rng(0), per_class=3,
+                                  size=(96, 64))
+        staged = tmp_path / "staged"
+        assert cli.main(["--stage_data", "--datapath", str(src), "--temp_datapath",
+                         str(staged), "--num_cpus", "2", "--device", "cpu"]) == {}
+        for split, n in (("train", 6), ("val", 2)):
+            assert build_index_csv(staged, tmp_path / f"{split}.csv", split) == n
+        indexpaths, test_count = f"{tmp_path / 'train.csv'},{tmp_path / 'val.csv'}", 2
+        argv = argv[1:] + ["--verbose", "2"]
+        caplog.set_level(logging.INFO, logger="rgbnomore_tpu_torch.train.loop")
+    common = ["--device", "cpu", "--indexpaths", indexpaths,
               "--batch", "2", "--num_cpus", "2", "--verbose", "0"]
     settle_inspect_module_walk()  # each case builds a torch.optim optimizer
     if argv[0] == "--benchmark":
@@ -126,7 +140,9 @@ def test_unported_flags_raise(argv, module, small_corpus, tmp_path, monkeypatch)
     weights = tmp_path / "w.pt"
     got = cli.main(common + ["--train", "--eval", "--epochs", "1", "--max_steps_per_epoch",
                              "1", "--savepath", str(weights)] + argv)
-    assert got["test"]["count"] == 6 and len(got["history"]) == 1
+    assert got["test"]["count"] == test_count and len(got["history"]) == 1
+    if argv[-2:] == ["--verbose", "2"]:
+        assert "Total Parameters: 5,642,728 " in caplog.text  # ViT-Ti, embed_type 1
     assert np.isfinite(got["history"][0]["train_loss"])
     state = torch.load(weights, weights_only=True)
     if "rgb" in argv:  # vits on pixels: a 16x16 stride-16 convolution to 384

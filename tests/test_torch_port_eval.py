@@ -11,6 +11,8 @@
   shuffled, the last partial batch dropped) writes the JAX one's rows.
 - ``chip_smoke.write_rows``, which feeds the slice on the card, writes rows
   the port's pipeline unpacks to the planes it was given.
+- ``codec.read_crop_resize_pack`` (the fields' own arrays) writes the JAX
+  wrapper's bytes and returns its box, in each crop mode and wire format.
 """
 
 import jax
@@ -22,14 +24,16 @@ import torch
 import chip_smoke
 from rgbnomore_tpu import codec as jax_codec
 from rgbnomore_tpu.augment.pipeline import make_cropped_eval_pipeline as jax_eval_pipeline
+from rgbnomore_tpu.data import croppack as jax_croppack
 from rgbnomore_tpu.data import loader as jax_loader
 from rgbnomore_tpu.data.index import load_index as jax_load_index
 from rgbnomore_tpu.train.config import generate_config as jax_generate_config
 from rgbnomore_tpu.train.loop import Trainer as JaxTrainer
 from rgbnomore_tpu.train.loop import make_loaders as jax_make_loaders
+from rgbnomore_tpu_torch import codec
 from rgbnomore_tpu_torch.augment.pipeline import make_cropped_eval_pipeline
 from rgbnomore_tpu_torch.convert import flax_to_state_dict
-from rgbnomore_tpu_torch.data import loader
+from rgbnomore_tpu_torch.data import croppack, loader
 from rgbnomore_tpu_torch.data.index import load_index
 from rgbnomore_tpu_torch.eval import evaluate_model
 from rgbnomore_tpu_torch.train.config import generate_config
@@ -100,6 +104,31 @@ def test_eval_pipeline_bit_exact(corpus, fmt):
         w = np.asarray(w)
         assert g.numpy().dtype == w.dtype, name
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["random", "center", "full"])
+@pytest.mark.parametrize("fmt", ["mask16", "mask16w", "mask16q"])
+def test_read_crop_resize_pack_matches_jax(corpus, mode, fmt):
+    """Each corpus image into one row's field views, by both wrappers from
+    the same draws: the same bytes and the same sampled box."""
+    crop = {"random": codec.CROP_RANDOM, "center": codec.CROP_CENTER,
+            "full": codec.CROP_FULL}[mode]
+    layout = loader.packed_layout(28, 16, fmt)
+    uniforms = np.random.default_rng(5).random((len(IMAGES), 12))
+    kw = dict(ratio=28 / 32, wide=fmt == "mask16w", requant=fmt == "mask16q")
+    for i, path in enumerate(load_index(corpus).paths):
+        rows = []
+        for mod, pack in ((codec, croppack.build_op_pack(28)),
+                          (jax_codec, jax_croppack.build_op_pack(28))):
+            row = np.zeros(layout["row"], np.uint8)
+            v = loader.row_views(row, layout)
+            box = mod.read_crop_resize_pack(path, 16, crop, uniforms[i], pack, v["vy"],
+                                            v["iy"], v["sy"], v["dy"], v["vc"], v["ic"],
+                                            v["sc"], v["dc"], v["quant"], **kw)
+            rows.append((row, box))
+        (got, got_box), (want, want_box) = rows
+        assert got_box == want_box and got.any()
+        np.testing.assert_array_equal(got, want)
 
 
 def _eval_cfg(gen):
