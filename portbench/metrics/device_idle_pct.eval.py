@@ -1,0 +1,7 @@
+"""Share of the traced eval window in which nothing ran on the card."""
+
+
+def read(ctx):
+    if ctx.kind != "eval":
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
