@@ -185,6 +185,7 @@ of standard output are the kernel report and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -377,6 +378,12 @@ SWIN_REFERENCE_NAMES = [
 TRACE_KERNELS = {"attention_fwd_kernel": "fused_attention", "delta_kernel": "fused_attention_bwd",
                  "dkdv_kernel": "fused_attention_bwd", "dq_kernel": "fused_attention_bwd",
                  "augpipe_kernel": "wire_flip_aug_range"}
+
+# a ViT-Ti train step's port spans below ``rgbnm.step`` on the card (the
+# step draws for itself), and how often a step opens each
+VIT_STEP_SPANS = {"rgbnm.draw": 1, "rgbnm.pipeline": 1, "rgbnm.pipeline.policy": 1,
+                  "rgbnm.mixup": 1, "rgbnm.forward": 1, "rgbnm.backward": 1,
+                  "rgbnm.optimizer": 1, "rgbnm.attn.fwd": 12, "rgbnm.attn.bwd": 12}
 
 EMBED_PATHS = [
     ("embed2 no_subblock", dict(modelver=2, subblock=False), "PatchEmbeddingDCTSeparate", 196),
@@ -1551,17 +1558,18 @@ def phase_kernels() -> dict:
     return report
 
 
-def augpipe_wrappers() -> dict:
-    """The input stage's wrappers: the kernel's dense entry and its wire
-    reader's train and eval entries."""
-    from rgbnomore_tpu_torch.ops.augpipe import (
-        fused_flip_aug_range,
-        wire_flip_aug_range,
-        wire_to_range,
-    )
-
-    return {"fused_flip_aug_range": fused_flip_aug_range,
-            "wire_flip_aug_range": wire_flip_aug_range, "wire_to_range": wire_to_range}
+# the input stage's wrappers: the kernel's dense entry and its wire reader's
+# train and eval entries
+AUGPIPE_WRAPPERS = ("fused_flip_aug_range", "wire_flip_aug_range", "wire_to_range")
+# the port's launch counters (``rgbnm.launch.<counter>`` in ``utils/profiling.
+# totals()``) by the names this script reports them under
+LAUNCH_COUNTERS = {"fused_attention": "fused_attention_fwd",
+                   "fused_attention_bwd": "fused_attention_bwd",
+                   "fused_attention_h16": "fused_attention_h16_fwd",
+                   "fused_attention_h16_bwd": "fused_attention_h16_bwd",
+                   "window_attention": "window_attention_fwd",
+                   "window_attention_bwd": "window_attention_bwd",
+                   **{name: name for name in AUGPIPE_WRAPPERS}}
 
 
 @contextlib.contextmanager
@@ -1588,7 +1596,7 @@ def check_no_input_kernel(report: dict, path: str, launches: dict) -> None:
     """A path whose input stage is tensor code (the RGB domain, a DCT op
     list outside the kernel's set): no launch of #5's dense entry nor of its
     wire reader; the path's zero is kept per path."""
-    got = {name: launches[name] for name in augpipe_wrappers()}
+    got = {name: launches[name] for name in AUGPIPE_WRAPPERS}
     check(not any(got.values()), f"{path}: input stage launches {got}, want none")
     for name, wrappers in (("fused_flip_aug_range", ("fused_flip_aug_range",)),
                            ("augpipe_wire", ("wire_flip_aug_range", "wire_to_range"))):
@@ -1646,14 +1654,12 @@ def phase_slice(report: dict):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     trainer.evaluate(batches)  # warm-up: cuBLAS handles, allocator, pinned buffers
-    wrappers = {"fused_attention": fused_attention, **augpipe_wrappers()}
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     with plain_unpacks() as unpacks:
         t0 = time.perf_counter()
         res = trainer.evaluate(batches)  # ends in a host read of every sum
         eval_s = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = all_launches()
     report["fused_attention"]["launches"] = launches["fused_attention"]
     check_input_stage(report, "vit_eval", launches, len(unpacks), eval_batches=len(batches))
     per_batch = cfg.model.depth  # one attention launch per encoder block
@@ -1749,7 +1755,6 @@ def phase_train(report: dict):
     logits alone make the loss fall from ln 1000."""
     import torch
 
-    from rgbnomore_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
     from rgbnomore_tpu_torch.train.config import generate_config
     from rgbnomore_tpu_torch.train.loop import Trainer
 
@@ -1769,17 +1774,14 @@ def phase_train(report: dict):
 
     losses = [trainer.train_step(packed)]  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    wrappers = {"fused_attention": fused_attention, "fused_attention_bwd": fused_attention_bwd,
-                **augpipe_wrappers()}
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     with plain_unpacks() as unpacks:
         t0 = time.perf_counter()
         for _ in range(TRAIN_STEPS):
             losses.append(trainer.train_step(packed))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = all_launches()
     check_input_stage(report, "vit_train", launches, len(unpacks), train_steps=TRAIN_STEPS)
     want = {"fused_attention": 12 * TRAIN_STEPS, "fused_attention_bwd": 12 * TRAIN_STEPS}
     for name in want:
@@ -1968,16 +1970,14 @@ def phase_swin_eval(report: dict):
                for i in range(0, N_IMAGES, SWIN_EVAL_BATCH)]
 
     trainer.evaluate(batches)  # warm-up
-    wrappers = {"window_attention": window_attention, **augpipe_wrappers()}
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     with plain_unpacks() as unpacks:
         t0 = time.perf_counter()
         res = trainer.evaluate(batches)
         eval_s = time.perf_counter() - t0
-    check_input_stage(report, "swin_eval", {n: w.launches for n, w in wrappers.items()},
-                      len(unpacks), eval_batches=len(batches))
-    launches = window_attention.launches
+    check_input_stage(report, "swin_eval", all_launches(), len(unpacks),
+                      eval_batches=len(batches))
+    launches = all_launches()["window_attention"]
     report["window_attention"]["launches"] = launches
     check(res["count"] == N_IMAGES, f"swin eval counted {res['count']} images")
     check(math.isfinite(res["loss"]) and math.isfinite(res["accuracy"]),
@@ -2102,7 +2102,6 @@ def phase_swin_train(report: dict):
     repeated batch (warmup 1, lr 3e-3), and the peak device memory."""
     import torch
 
-    from rgbnomore_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
     from rgbnomore_tpu_torch.train.config import AUGLIST_DCT
     from rgbnomore_tpu_torch.train.loop import Trainer
 
@@ -2124,10 +2123,7 @@ def phase_swin_train(report: dict):
     torch.cuda.reset_peak_memory_stats()
     losses = [trainer.train_step(packed)]  # warm-up
     torch.cuda.synchronize()
-    wrappers = {"window_attention": window_attention, "window_attention_bwd": window_attention_bwd,
-                **augpipe_wrappers()}
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     with plain_unpacks() as unpacks:
         t0 = time.perf_counter()
         for _ in range(SWIN_TRAIN_STEPS):
@@ -2135,7 +2131,7 @@ def phase_swin_train(report: dict):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = all_launches()
     check_input_stage(report, "swin_train", launches, len(unpacks), train_steps=SWIN_TRAIN_STEPS)
     want = {"window_attention": 12 * SWIN_TRAIN_STEPS, "window_attention_bwd": 24 * SWIN_TRAIN_STEPS}
     for name in want:
@@ -2153,45 +2149,25 @@ def phase_swin_train(report: dict):
 
 
 def reset_launches() -> None:
-    """Every kernel wrapper's launch count to 0."""
-    from rgbnomore_tpu_torch.ops.attention import (
-        fused_attention,
-        fused_attention_bwd,
-        fused_attention_h16_bwd,
-        fused_attention_h16_fwd,
-    )
-    from rgbnomore_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
+    """The port's spans and counters, the launch counts among them, to 0."""
+    from rgbnomore_tpu_torch.utils import profiling
 
-    for w in (fused_attention, fused_attention_bwd, fused_attention_h16_fwd,
-              fused_attention_h16_bwd, window_attention, window_attention_bwd,
-              *augpipe_wrappers().values()):
-        w.launches = 0
+    profiling.reset()
 
 
 def all_launches() -> dict:
-    """Every kernel wrapper's launch count."""
-    from rgbnomore_tpu_torch.ops.attention import (
-        fused_attention,
-        fused_attention_bwd,
-        fused_attention_h16_bwd,
-        fused_attention_h16_fwd,
-    )
-    from rgbnomore_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
+    """Every kernel wrapper's launch count (``LAUNCH_COUNTERS``)."""
+    from rgbnomore_tpu_torch.utils import profiling
 
-    return {"fused_attention": fused_attention.launches,
-            "fused_attention_bwd": fused_attention_bwd.launches,
-            "fused_attention_h16": fused_attention_h16_fwd.launches,
-            "fused_attention_h16_bwd": fused_attention_h16_bwd.launches,
-            "window_attention": window_attention.launches,
-            "window_attention_bwd": window_attention_bwd.launches,
-            **{name: w.launches for name, w in augpipe_wrappers().items()}}
+    counters = profiling.totals()["counters"]
+    return {name: counters.get(f"rgbnm.launch.{c}", 0) for name, c in LAUNCH_COUNTERS.items()}
 
 
 def check_launches(tag: str, got: dict, want: dict) -> None:
     """``want`` gives the launches of some kernels; every other attention
     and window kernel must have none (``fused_flip_aug_range`` and the wire
     reader are ``check_input_stage``'s)."""
-    skip = set(augpipe_wrappers())
+    skip = set(AUGPIPE_WRAPPERS)
     full = {name: want.get(name, 0) for name in got if name not in skip}
     seen = {name: got[name] for name in full}
     check(seen == full, f"{tag}: launches {seen}, want {full}")
@@ -3822,6 +3798,7 @@ def harness_import(report: dict, tmp: str, card: str) -> str:
 def read_trace(logdir: str) -> dict:
     """The one trace file in ``logdir``: its path, how often it names each
     kernel of ``TRACE_KERNELS``, its device kernels, its host launches, the
+    port's spans (``port_spans``), the
     times into its window of the launches with no kernel (matched by
     correlation id), and each kernel's start on the device's clock less its
     launch's on the host's, in µs."""
@@ -3840,17 +3817,55 @@ def read_trace(logdir: str) -> dict:
     launched = [e for e in events if e.get("cat") == "cuda_runtime" and "Launch" in e["name"]]
     t0 = min(e["ts"] for e in events if e.get("ph") == "X")
     return {"path": files[0], "seen": dict(seen), "kernels": len(kernels),
-            "launches": len(launched),
+            "launches": len(launched), "spans": port_spans(events),
             "dropped": [e["ts"] - t0 for e in launched
                         if e["args"].get("correlation") not in started],
             "lags": [started[e["args"]["correlation"]] - e["ts"] for e in launched
                      if e["args"].get("correlation") in started]}
 
 
+def port_spans(events: list) -> list[dict]:
+    """The port's spans (``rgbnm.*`` host events; the profiler repeats each
+    span that launched device work on the device's timeline as a
+    ``gpu_user_annotation``, left out here) among a Chrome trace's events:
+    name, host thread, start and end (µs) and index (the span's one input,
+    None without one)."""
+    out = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "user_annotation" \
+                or not str(e.get("name", "")).startswith("rgbnm."):
+            continue
+        inputs = e.get("args", {}).get("Concrete Inputs") or [""]
+        out.append({"name": e["name"], "tid": e.get("tid"), "ts": float(e["ts"]),
+                    "end": float(e["ts"]) + float(e["dur"]),
+                    "index": int(inputs[0]) if inputs[0] != "" else None})
+    return out
+
+
+def spans_per_step(spans: list) -> tuple[list[dict], list[str]]:
+    """For each ``rgbnm.step`` span, in order: its index and how many of
+    each other port span lie inside it in time (on any thread); and the
+    names of the spans that lie in no step."""
+    steps = sorted((s for s in spans if s["name"] == "rgbnm.step"), key=lambda s: s["ts"])
+    rows = [{"index": st["index"], "spans": collections.Counter()} for st in steps]
+    outside = []
+    for s in spans:
+        if s["name"] == "rgbnm.step":
+            continue
+        home = [r for r, st in zip(rows, steps) if st["ts"] <= s["ts"] and s["end"] <= st["end"]]
+        if home:
+            home[0]["spans"][s["name"]] += 1
+        else:
+            outside.append(s["name"])
+    return [{"index": r["index"], "spans": dict(r["spans"])} for r in rows], outside
+
+
 def harness_trace(report: dict, tmp: str, card: str) -> None:
     """(b) ``utils/profiling.trace`` over 3 ViT-Ti train steps at batch 256:
     one trace file, which names #1's, #2's three and #5w's kernels exactly
-    as many times as their launch counters say; the step's achieved
+    as many times as their launch counters say, and holds every port span
+    of a train step (``VIT_STEP_SPANS``) as often a step inside its
+    ``rgbnm.step``; the step's achieved
     TFLOP/s from 3 steps timed without the profiler.  Each trace follows a
     profiler session of the CUDA activity alone (``device_ms``); late in
     this script a bare ``torch.profiler`` session then lost the first fifty
@@ -3896,6 +3911,13 @@ def harness_trace(report: dict, tmp: str, card: str) -> None:
               f"{min(lags, default=float('nan')):.1f} us, median "
               f"{statistics.median(lags) if lags else float('nan'):.1f} us", flush=True)
     check(got["seen"] == want, f"trace: the kernels named {got['seen']} times, want {want}")
+    steps, outside = spans_per_step(got["spans"])
+    check(len(steps) == HARNESS_STEPS and not outside
+          and all(st["spans"] == VIT_STEP_SPANS for st in steps),
+          f"trace: port spans a step {steps} (outside any step: {outside}), want "
+          f"{HARNESS_STEPS} steps of {VIT_STEP_SPANS}")
+    print(f"trace: {HARNESS_STEPS} rgbnm.step spans (steps {[st['index'] for st in steps]}), "
+          f"each over {VIT_STEP_SPANS}", flush=True)
     print(f"trace: {os.path.basename(got['path'])} ({os.path.getsize(got['path']) / 2**20:.1f} "
           f"MiB, {got['kernels']} device kernels in 3 ViT-Ti steps) names {got['seen']}, as the "
           f"launch counters say", flush=True)

@@ -25,7 +25,11 @@ writes, byte for byte (``tests/test_torch_port_eval.py``,
 The host's only job in the hot path is the libjpeg Huffman decode (plus the
 crop, resize and pack of ``codec.read_crop_resize_pack_row``), which
 releases the GIL, so a thread pool decodes in parallel and a background
-thread keeps a small queue of ready batches ahead of the consumer.
+thread keeps a small queue of ready batches ahead of the consumer.  The
+producer's decode of each batch is the span ``rgbnm.loader.decode`` and the
+consumer's wait for it ``rgbnm.loader.wait``, both with the batch's index in
+the iteration; ``rgbnm.loader.batches`` counts the batches handed over and
+``rgbnm.loader.starved`` those the consumer found not ready.
 
 Sharding: each loader takes ``(shard_id, num_shards)`` and reads only its
 strided slice — train shards rebalance per epoch with the shuffle; eval uses
@@ -37,6 +41,7 @@ expressed as zero weights instead of dropped examples.
 from __future__ import annotations
 
 import functools
+import itertools
 import queue
 import threading
 import types
@@ -45,6 +50,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from rgbnomore_tpu_torch.data.index import IndexDataset
+from rgbnomore_tpu_torch.utils import profiling
 
 __all__ = ["DctCanvasLoader", "DctCroppedLoader", "DctPackedLoader", "RgbCanvasLoader",
            "RgbCroppedLoader", "packed_layout", "row_views"]
@@ -151,7 +157,9 @@ class _BaseLoader:
                         lo = b * self.batch_size
                         batch_idx = indices[lo : lo + self.batch_size]
                         try:
-                            if not put_or_stop(self._decode_batch(pool, batch_idx, b)):
+                            with profiling.span("rgbnm.loader.decode", produced):
+                                batch = self._decode_batch(pool, batch_idx, b)
+                            if not put_or_stop(batch):
                                 return
                         except Exception as exc:  # surface decode errors
                             put_or_stop(exc)
@@ -165,12 +173,16 @@ class _BaseLoader:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
-            while True:
-                item = out_q.get()
+            for consumed in itertools.count():
+                if out_q.empty():
+                    profiling.count("rgbnm.loader.starved")
+                with profiling.span("rgbnm.loader.wait", consumed):
+                    item = out_q.get()
                 if item is None:
                     return
                 if isinstance(item, Exception):
                     raise item
+                profiling.count("rgbnm.loader.batches")
                 yield item
         finally:
             stop.set()

@@ -23,8 +23,7 @@ forward ``_fwd_kernel`` :39-48 and its VJP ``_bwd_kernel`` :51-69).
   warpgroup products (``wgmma``, ``csrc/wgmma.cuh``) and keep a whole head
   in shared memory; the backward's dS never leaves it.  Nothing is upcast
   to float32 on the way in; their launches are counted apart
-  (``fused_attention_h16_fwd.launches``,
-  ``fused_attention_h16_bwd.launches``).
+  (the counters ``rgbnm.launch.fused_attention_h16_fwd`` and ``_bwd``).
 - On CPU tensors the forward is :func:`attention_plain`, the einsum path of
   the JAX ViT (``models/vit.py:69-73``), and the backward is autograd
   through it (:func:`attention_bwd_plain`).  The tests and ``chip_smoke.py``
@@ -38,6 +37,7 @@ import ctypes
 import torch
 
 from rgbnomore_tpu_torch.ops import cuda_build
+from rgbnomore_tpu_torch.utils import profiling
 
 __all__ = ["attention_bwd_plain", "attention_plain", "fused_attention",
            "fused_attention_bwd", "fused_attention_fwd", "fused_attention_h16_bwd",
@@ -178,11 +178,12 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale
                         with_lse: bool = False):
     """Launch the float32 forward kernel on CUDA tensors (B, H, N, D)
     float32: returns ``out``, or ``(out, lse)`` with each row's log-sum-exp
-    (B, H, N) when ``with_lse``.  Adds one to ``fused_attention.launches``."""
+    (B, H, N) when ``with_lse``.  Adds one to the counter
+    ``rgbnm.launch.fused_attention_fwd``."""
     if q.dtype != torch.float32:
         raise TypeError(f"the float32 attention kernel takes float32, got {q.dtype}")
     res = _launch_fwd("attention_fwd", q, k, v, scale, with_lse)
-    fused_attention.launches += 1
+    profiling.count("rgbnm.launch.fused_attention_fwd")
     return res
 
 
@@ -191,16 +192,13 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float):
     """Launch the float32 backward kernel on CUDA tensors: (dq, dk, dv) from
     the forward's inputs, its output ``out``, its log-sum-exp ``lse`` (B, H,
-    N) and the output gradient ``dout``.  Adds one to
-    ``fused_attention_bwd.launches``."""
+    N) and the output gradient ``dout``.  Adds one to the counter
+    ``rgbnm.launch.fused_attention_bwd``."""
     if q.dtype != torch.float32:
         raise TypeError(f"the float32 attention kernel takes float32, got {q.dtype}")
     res = _launch_bwd("attention_bwd", q, k, v, out, lse, dout, scale)
-    fused_attention_bwd.launches += 1
+    profiling.count("rgbnm.launch.fused_attention_bwd")
     return res
-
-
-fused_attention_bwd.launches = 0  # kernel launches since the count was last reset
 
 
 def fused_attention_h16_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -208,11 +206,11 @@ def fused_attention_h16_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, s
     """Launch the half-precision forward kernel on CUDA tensors (B, H, N, D)
     bf16 or fp16: returns ``out`` in that dtype, or ``(out, lse)`` with
     each row's float32 log-sum-exp (B, H, N) when ``with_lse``.  Adds one to
-    ``fused_attention_h16_fwd.launches``."""
+    the counter ``rgbnm.launch.fused_attention_h16_fwd``."""
     if q.dtype not in HALF_DTYPES:
         raise TypeError(f"the half-precision attention kernel takes bf16 or fp16, got {q.dtype}")
     res = _launch_fwd("attention_h16_fwd", q, k, v, scale, with_lse)
-    fused_attention_h16_fwd.launches += 1
+    profiling.count("rgbnm.launch.fused_attention_h16_fwd")
     return res
 
 
@@ -221,17 +219,12 @@ def fused_attention_h16_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale: float):
     """Launch the half-precision backward kernel on CUDA tensors of one
     dtype, bf16 or fp16: (dq, dk, dv) in it, as ``fused_attention_bwd``.
-    Adds one to ``fused_attention_h16_bwd.launches``."""
+    Adds one to the counter ``rgbnm.launch.fused_attention_h16_bwd``."""
     if q.dtype not in HALF_DTYPES:
         raise TypeError(f"the half-precision attention kernel takes bf16 or fp16, got {q.dtype}")
     res = _launch_bwd("attention_h16_bwd", q, k, v, out, lse, dout, scale)
-    fused_attention_h16_bwd.launches += 1
+    profiling.count("rgbnm.launch.fused_attention_h16_bwd")
     return res
-
-
-# kernel launches, of either dtype, since the counts were last reset
-fused_attention_h16_fwd.launches = 0
-fused_attention_h16_bwd.launches = 0
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -251,13 +244,15 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        dout = dout.contiguous()
-        if dout.device.type == "cpu":
-            q, k, v = ctx.saved_tensors
-            dq, dk, dv = attention_bwd_plain(q, k, v, dout, ctx.scale)
-        else:
-            bwd = fused_attention_bwd if dout.dtype == torch.float32 else fused_attention_h16_bwd
-            dq, dk, dv = bwd(*ctx.saved_tensors, dout, ctx.scale)
+        with profiling.span("rgbnm.attn.bwd"):
+            dout = dout.contiguous()
+            if dout.device.type == "cpu":
+                q, k, v = ctx.saved_tensors
+                dq, dk, dv = attention_bwd_plain(q, k, v, dout, ctx.scale)
+            else:
+                bwd = fused_attention_bwd if dout.dtype == torch.float32 \
+                    else fused_attention_h16_bwd
+                dq, dk, dv = bwd(*ctx.saved_tensors, dout, ctx.scale)
         return dq, dk, dv, None
 
 
@@ -268,18 +263,17 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`attention_plain`.  CUDA tensors launch the
     hand-written kernels on the current stream (D <= 128, any N): float32
-    the 3xTF32 ones, whose forward adds one to ``fused_attention.launches``
-    and backward one to ``fused_attention_bwd.launches``; bf16 and fp16 the
-    half-precision ones, counted in ``fused_attention_h16_fwd.launches`` and
-    ``fused_attention_h16_bwd.launches``.
+    the 3xTF32 ones, whose forward adds one to the counter
+    ``rgbnm.launch.fused_attention_fwd`` and backward one to
+    ``rgbnm.launch.fused_attention_bwd``; bf16 and fp16 the half-precision
+    ones, counted in ``rgbnm.launch.fused_attention_h16_fwd`` and ``_bwd``.
+    The call is the span ``rgbnm.attn.fwd``, its backward ``rgbnm.attn.bwd``.
     """
     _check_inputs(q, k, v)
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    if q.device.type == "cuda" and not grad:  # eval: no log-sum-exp, nothing saved
-        if q.dtype == torch.float32:
-            return fused_attention_fwd(q, k, v, scale)
-        return fused_attention_h16_fwd(q, k, v, scale)
-    return _FusedAttention.apply(q, k, v, scale)
-
-
-fused_attention.launches = 0  # forward kernel launches since the count was last reset
+    with profiling.span("rgbnm.attn.fwd"):
+        if q.device.type == "cuda" and not grad:  # eval: no log-sum-exp, nothing saved
+            if q.dtype == torch.float32:
+                return fused_attention_fwd(q, k, v, scale)
+            return fused_attention_h16_fwd(q, k, v, scale)
+        return _FusedAttention.apply(q, k, v, scale)

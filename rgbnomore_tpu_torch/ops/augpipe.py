@@ -20,7 +20,8 @@ core with two readers, and each has its wrapper here:
   exact against both (plain: :func:`wire_to_range_plain`).
 
 On CUDA tensors a wrapper launches the kernel on the current stream, adds
-one to its ``.launches`` and raises if the launch is refused; on CPU tensors
+one to its counter ``rgbnm.launch.<wrapper>`` (``utils/profiling.py``) and
+raises if the launch is refused; on CPU tensors
 it runs its plain version, which the tests and ``chip_smoke.py`` hold the
 kernel against.  The train pipelines also call the plain versions directly,
 on either device, for an op list with an op outside ``SUPPORTED_OPS``
@@ -47,6 +48,7 @@ from rgbnomore_tpu_torch.augment.randaugment import (
 from rgbnomore_tpu_torch.data.loader import packed_layout
 from rgbnomore_tpu_torch.ops import cuda_build
 from rgbnomore_tpu_torch.ops.photometric import DCT_MAX, DCT_MIN
+from rgbnomore_tpu_torch.utils import profiling
 
 __all__ = ["SUPPORTED_OPS", "OP_CODES", "WIRE_FORMATS", "flip_aug_range_plain",
            "fused_flip_aug_range", "op_tables", "wire_flip_aug_range",
@@ -250,26 +252,32 @@ def _device_policy(policy, flip, ops_list, num_ops: int, magnitude: int, num_bin
     copy from the host) and the addresses of its parts: idx, sign (its
     float32 bits), cut_ch, cut_cw, drop, flip; then the addresses of the op
     table's codes, params and filters.  Keep the tensor alive until the
-    launch is enqueued."""
+    launch is enqueued.  The call is the span ``rgbnm.pipeline.policy``; a
+    policy on the host goes to the card in one copy from pageable memory,
+    counted in ``rgbnm.h2d.pageable_bytes``."""
     if num_ops > _MAX_ROUNDS:
         raise ValueError(f"num_ops {num_ops} > {_MAX_ROUNDS} is not supported by the kernel")
-    idx, sign, cut_ch, cut_cw, drop = policy
-    # the kernel indexes the op table with idx: a policy on the host (the
-    # pipeline's) is checked there, at no device sync; one already on the
-    # card is taken as ``draw_policy`` made it, in range by construction
-    if num_ops and idx.device.type == "cpu" and \
-            not bool(((idx >= 0) & (idx < len(ops_list))).all()):
-        raise ValueError(f"policy op index outside the list of {len(ops_list)} ops")
-    parts = [idx.to(torch.int32), sign.to(torch.float32).contiguous().view(torch.int32),
-             cut_ch.to(torch.int32), cut_cw.to(torch.int32), drop.to(torch.int32),
-             flip.to(torch.int32)]
-    if any(t.device != dev for t in parts) and any(t.device == dev for t in parts):
-        parts = [t.to(dev) for t in parts]  # mixed: join them on the card
-    args = torch.cat([t.reshape(-1) for t in parts]).to(dev)
-    sizes = [t.numel() for t in parts]
-    ptrs = [args.data_ptr() + 4 * int(off) for off in np.cumsum([0] + sizes[:-1])]
-    tables = _device_tables(tuple(ops_list), magnitude, num_bins, h, w, dev)
-    return args, ptrs + [t.data_ptr() for t in tables]
+    with profiling.span("rgbnm.pipeline.policy"):
+        idx, sign, cut_ch, cut_cw, drop = policy
+        # the kernel indexes the op table with idx: a policy on the host (the
+        # pipeline's) is checked there, at no device sync; one already on the
+        # card is taken as ``draw_policy`` made it, in range by construction
+        if num_ops and idx.device.type == "cpu" and \
+                not bool(((idx >= 0) & (idx < len(ops_list))).all()):
+            raise ValueError(f"policy op index outside the list of {len(ops_list)} ops")
+        parts = [idx.to(torch.int32), sign.to(torch.float32).contiguous().view(torch.int32),
+                 cut_ch.to(torch.int32), cut_cw.to(torch.int32), drop.to(torch.int32),
+                 flip.to(torch.int32)]
+        if any(t.device != dev for t in parts) and any(t.device == dev for t in parts):
+            parts = [t.to(dev) for t in parts]  # mixed: join them on the card
+        args = torch.cat([t.reshape(-1) for t in parts])
+        if args.device != dev:
+            profiling.count("rgbnm.h2d.pageable_bytes", args.numel() * args.element_size())
+            args = args.to(dev)
+        sizes = [t.numel() for t in parts]
+        ptrs = [args.data_ptr() + 4 * int(off) for off in np.cumsum([0] + sizes[:-1])]
+        tables = _device_tables(tuple(ops_list), magnitude, num_bins, h, w, dev)
+        return args, ptrs + [t.data_ptr() for t in tables]
 
 
 def fused_flip_aug_range(y: torch.Tensor, c: torch.Tensor, policy, flip: torch.Tensor, *,
@@ -278,8 +286,8 @@ def fused_flip_aug_range(y: torch.Tensor, c: torch.Tensor, policy, flip: torch.T
 
     CPU tensors take :func:`flip_aug_range_plain`.  CUDA tensors launch the
     hand-written kernel's dense reader on the current stream (at most 4
-    rounds) and add one to ``fused_flip_aug_range.launches``; a refused
-    launch raises.
+    rounds) and add one to the counter ``rgbnm.launch.fused_flip_aug_range``;
+    a refused launch raises.
     """
     ops_list = list(ops_list)
     _check_inputs(y, c, policy, flip, ops_list, num_ops)
@@ -298,7 +306,7 @@ def fused_flip_aug_range(y: torch.Tensor, c: torch.Tensor, policy, flip: torch.T
         err = lib.augpipe_fwd(y.data_ptr(), c.data_ptr(), yo.data_ptr(), co.data_ptr(), *ptrs,
                               b, h, w, num_ops, _VAL_SCALE, _VAL_SHIFT, stream)
     _raise_on(lib, "augpipe_fwd", err)
-    fused_flip_aug_range.launches += 1
+    profiling.count("rgbnm.launch.fused_flip_aug_range")
     return yo, co
 
 
@@ -334,8 +342,8 @@ def wire_flip_aug_range(packed: torch.Tensor, flip: torch.Tensor, policy, *, tar
 
     A CPU buffer takes :func:`wire_flip_aug_range_plain`.  A CUDA buffer
     launches the kernel's wire reader on the current stream, one launch for
-    the whole stage, and adds one to ``wire_flip_aug_range.launches``; a
-    refused launch raises.
+    the whole stage, and adds one to the counter
+    ``rgbnm.launch.wire_flip_aug_range``; a refused launch raises.
     """
     ops_list = list(ops_list)
     layout = _check_wire(packed, target, k, fmt)
@@ -348,7 +356,7 @@ def wire_flip_aug_range(packed: torch.Tensor, flip: torch.Tensor, policy, *, tar
                                 target, packed.device)
     out = _launch_wire(packed, layout, target, k, fmt, ptrs, num_ops)
     del args  # enqueued: the policy's memory may go back to the allocator
-    wire_flip_aug_range.launches += 1
+    profiling.count("rgbnm.launch.wire_flip_aug_range")
     return out
 
 
@@ -358,18 +366,12 @@ def wire_to_range(packed: torch.Tensor, *, target: int, k: int, fmt: str):
     :func:`wire_to_range_plain` and the JAX pipeline.
 
     A CPU buffer takes :func:`wire_to_range_plain`.  A CUDA buffer launches
-    the kernel's wire reader on the current stream and adds one to
-    ``wire_to_range.launches``; a refused launch raises.
+    the kernel's wire reader on the current stream and adds one to the
+    counter ``rgbnm.launch.wire_to_range``; a refused launch raises.
     """
     layout = _check_wire(packed, target, k, fmt)
     if packed.device.type == "cpu":
         return wire_to_range_plain(packed, target=target, k=k, fmt=fmt)
     out = _launch_wire(packed, layout, target, k, fmt)
-    wire_to_range.launches += 1
+    profiling.count("rgbnm.launch.wire_to_range")
     return out
-
-
-# kernel launches since the count was last reset, per wrapper
-fused_flip_aug_range.launches = 0
-wire_flip_aug_range.launches = 0
-wire_to_range.launches = 0

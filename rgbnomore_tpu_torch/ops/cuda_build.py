@@ -7,7 +7,9 @@ takes seconds), for ``sm_90a``, into the build directory
 name carries a hash of its source, of the headers beside it (``*.cuh``) and
 of the flags, so a changed source is never served a stale build.
 ``build()`` starts one ``nvcc`` per stale source, all at once, and waits for
-them together.
+them together; each call is the span ``rgbnm.kernel_build`` and counts its
+libraries in ``rgbnm.kernel.built`` (compiled) and ``rgbnm.kernel.cached``
+(found built).
 
 Nothing is compiled or loaded at import time: the first launch of a kernel
 builds it (``load``), and ``chip_smoke.py`` builds every kernel up front.
@@ -22,6 +24,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from rgbnomore_tpu_torch.utils import profiling
 
 __all__ = ["KERNELS", "build", "load", "library_path"]
 
@@ -77,32 +81,34 @@ def build(names=None) -> dict[str, Path]:
     failed compile.
     """
     names = list(KERNELS) if names is None else list(names)
-    paths = {name: library_path(name) for name in names}
-    stale = [name for name in names if not paths[name].exists()]
-    if not stale:
-        return paths
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "kernels.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # one builder at a time per checkout
-        stale = [name for name in stale if not paths[name].exists()]
-        nvcc = _nvcc() if stale else ""
+    with profiling.span("rgbnm.kernel_build"):
+        paths = {name: library_path(name) for name in names}
+        stale = [name for name in names if not paths[name].exists()]
         jobs = {}
-        for name in stale:
-            tmp = paths[name].with_name(paths[name].name + f".tmp{os.getpid()}")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name])]
-            jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True))
-        failures = []
-        for name, (tmp, proc) in jobs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failures.append(f"{KERNELS[name]} (nvcc exit {proc.returncode}):\n{out}")
-                tmp.unlink(missing_ok=True)
-                continue
-            os.replace(tmp, paths[name])
-            paths[name].with_name(paths[name].name + ".log").write_text(out)
-        if failures:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        if stale:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / "kernels.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # one build at a time per checkout
+                stale = [name for name in stale if not paths[name].exists()]
+                nvcc = _nvcc() if stale else ""
+                for name in stale:
+                    tmp = paths[name].with_name(paths[name].name + f".tmp{os.getpid()}")
+                    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name])]
+                    jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                        stderr=subprocess.STDOUT, text=True))
+                failures = []
+                for name, (tmp, proc) in jobs.items():
+                    out, _ = proc.communicate()
+                    if proc.returncode != 0:
+                        failures.append(f"{KERNELS[name]} (nvcc exit {proc.returncode}):\n{out}")
+                        tmp.unlink(missing_ok=True)
+                        continue
+                    os.replace(tmp, paths[name])
+                    paths[name].with_name(paths[name].name + ".log").write_text(out)
+                if failures:
+                    raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    profiling.count("rgbnm.kernel.built", len(jobs))
+    profiling.count("rgbnm.kernel.cached", len(names) - len(jobs))
     return paths
 
 

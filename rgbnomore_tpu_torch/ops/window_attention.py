@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from rgbnomore_tpu_torch.ops import cuda_build
+from rgbnomore_tpu_torch.utils import profiling
 
 __all__ = ["window_attention", "window_attention_bwd", "window_attention_bwd_plain",
            "window_attention_fwd", "window_attention_plain"]
@@ -122,8 +123,8 @@ def _require_cuda(q: torch.Tensor) -> None:
 
 def window_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel on CUDA tensors; adds one to
-    ``window_attention.launches``."""
+    """Launch the forward kernel on CUDA tensors; adds one to the counter
+    ``rgbnm.launch.window_attention_fwd``."""
     _check_inputs(q, k, v, bias)
     _require_cuda(q)
     bw, h, n, d = q.shape
@@ -135,7 +136,7 @@ def window_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        bias.data_ptr(), out.data_ptr(), bw, h, n, d,
                                        bias.shape[0], stream)
     _raise_on(lib, "window_attention_fwd", err)
-    window_attention.launches += 1
+    profiling.count("rgbnm.launch.window_attention_fwd")
     return out
 
 
@@ -150,8 +151,8 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the forward's inputs and the output gradient ``dout``.  ``chunk``
     (default: enough for about 1,000 blocks, at most 32) is the number of
     windows of one pattern each block of the first pass sums.  Adds two to
-    ``window_attention_bwd.launches``: the per-chunk pass and the reduction
-    of the bias gradient."""
+    the counter ``rgbnm.launch.window_attention_bwd``: the per-chunk pass
+    and the reduction of the bias gradient."""
     _check_inputs(q, k, v, bias, dout)
     _require_cuda(q)
     bw, h, n, d = q.shape
@@ -171,11 +172,8 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                        db.data_ptr(), bw, h, n, d, npat, chunk, stream)
     _raise_on(lib, "window_attention_bwd", err)
-    window_attention_bwd.launches += 2
+    profiling.count("rgbnm.launch.window_attention_bwd", 2)
     return dq, dk, dv, db
-
-
-window_attention_bwd.launches = 0  # kernel launches since the count was last reset
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -191,10 +189,11 @@ class _WindowAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        dout = dout.contiguous()
-        if dout.device.type == "cpu":
-            return window_attention_bwd_plain(*ctx.saved_tensors, dout)
-        return window_attention_bwd(*ctx.saved_tensors, dout)
+        with profiling.span("rgbnm.winattn.bwd"):
+            dout = dout.contiguous()
+            if dout.device.type == "cpu":
+                return window_attention_bwd_plain(*ctx.saved_tensors, dout)
+            return window_attention_bwd(*ctx.saved_tensors, dout)
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -204,15 +203,14 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     four inputs.
 
     CPU tensors take :func:`window_attention_plain`.  CUDA tensors launch the
-    hand-written kernels on the current stream: the forward adds one to
-    ``window_attention.launches``, each backward two to
-    ``window_attention_bwd.launches``.
+    hand-written kernels on the current stream: the forward adds one to the
+    counter ``rgbnm.launch.window_attention_fwd``, each backward two to
+    ``rgbnm.launch.window_attention_bwd``.  The call is the span
+    ``rgbnm.winattn.fwd``, its backward ``rgbnm.winattn.bwd``.
     """
     _check_inputs(q, k, v, bias)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias))
-    if q.device.type == "cuda" and not grad:  # eval: nothing saved
-        return window_attention_fwd(q, k, v, bias)
-    return _WindowAttention.apply(q, k, v, bias)
-
-
-window_attention.launches = 0  # forward kernel launches since the count was last reset
+    with profiling.span("rgbnm.winattn.fwd"):
+        if q.device.type == "cuda" and not grad:  # eval: nothing saved
+            return window_attention_fwd(q, k, v, bias)
+        return _WindowAttention.apply(q, k, v, bias)

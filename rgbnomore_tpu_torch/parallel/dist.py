@@ -10,7 +10,11 @@ global batch compute what one process computes on it (gradients averaged,
 mixup's roll taken over the global batch, eval sums added up).
 
 Without a process group every helper is the one-process identity, so the
-trainer's single-GPU path calls none of ``torch.distributed``.
+trainer's single-GPU path calls none of ``torch.distributed``.  In a process
+group each collective is a span, ``rgbnm.exchange.grads`` (the gradient
+all-reduce), ``rgbnm.exchange.mixup`` (mixup's ring) or
+``rgbnm.exchange.sums`` (eval sums and losses), and adds the bytes this rank
+puts into it to the counter ``rgbnm.exchange.<grads|mixup|sums>.bytes``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from rgbnomore_tpu_torch.utils import profiling
 
 __all__ = ["all_reduce_mean_", "all_reduce_sum_", "barrier", "init_distributed",
            "is_initialized", "is_rank0", "local_rank", "rank", "ring_roll", "world_size"]
@@ -89,7 +95,9 @@ def barrier() -> None:
 def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
     """Sum ``t`` over the ranks, in place; returns it."""
     if is_initialized():
-        dist.all_reduce(t)
+        with profiling.span("rgbnm.exchange.sums"):
+            profiling.count("rgbnm.exchange.sums.bytes", t.numel() * t.element_size())
+            dist.all_reduce(t)
     return t
 
 
@@ -98,11 +106,13 @@ def all_reduce_mean_(tensors: list[torch.Tensor]) -> None:
     in one flat all-reduce: the gradient sync of one train step."""
     if not is_initialized():
         return
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    flat /= world_size()
-    torch._foreach_copy_(tensors, [v.view_as(t) for v, t in
-                                   zip(flat.split([t.numel() for t in tensors]), tensors)])
+    with profiling.span("rgbnm.exchange.grads"):
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        profiling.count("rgbnm.exchange.grads.bytes", flat.numel() * flat.element_size())
+        dist.all_reduce(flat)
+        flat /= world_size()
+        torch._foreach_copy_(tensors, [v.view_as(t) for v, t in
+                                       zip(flat.split([t.numel() for t in tensors]), tensors)])
 
 
 def ring_roll(tensors: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
@@ -114,11 +124,13 @@ def ring_roll(tensors: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
     ``torch.roll``.  The tensors share one dtype."""
     if not is_initialized():
         return tuple(torch.roll(t, 1, dims=0) for t in tensors)
-    last = torch.cat([t[-1].reshape(-1) for t in tensors])
-    gathered = [torch.empty_like(last) for _ in range(world_size())]
-    dist.all_gather(gathered, last)
-    prev = gathered[(rank() - 1) % world_size()]
-    out = []
-    for t, row in zip(tensors, prev.split([t[-1].numel() for t in tensors])):
-        out.append(torch.cat([row.view_as(t[-1])[None], t[:-1]]))
-    return tuple(out)
+    with profiling.span("rgbnm.exchange.mixup"):
+        last = torch.cat([t[-1].reshape(-1) for t in tensors])
+        profiling.count("rgbnm.exchange.mixup.bytes", last.numel() * last.element_size())
+        gathered = [torch.empty_like(last) for _ in range(world_size())]
+        dist.all_gather(gathered, last)
+        prev = gathered[(rank() - 1) % world_size()]
+        out = []
+        for t, row in zip(tensors, prev.split([t[-1].numel() for t in tensors])):
+            out.append(torch.cat([row.view_as(t[-1])[None], t[:-1]]))
+        return tuple(out)

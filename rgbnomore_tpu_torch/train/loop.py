@@ -101,13 +101,15 @@ from rgbnomore_tpu_torch.train.steps import (
     mixup_batch,
     softmax_cross_entropy,
 )
+from rgbnomore_tpu_torch.utils import profiling
 from rgbnomore_tpu_torch.utils.metrics import LocalWindow
 
 log = logging.getLogger(__name__)
 
-__all__ = ["PinnedUploader", "StepDraws", "SummaryWriter", "TRANSFERS", "Trainer",
-           "check_cropped_only", "cropped_eval_defaults", "guard_eval_sums", "load_params",
-           "make_loaders", "packed_defaults", "save_params", "tensorboard_dir", "train_and_eval"]
+__all__ = ["EPOCH_HOST_SPANS", "PinnedUploader", "StepDraws", "SummaryWriter", "TRANSFERS",
+           "Trainer", "check_cropped_only", "cropped_eval_defaults", "guard_eval_sums",
+           "load_params", "make_loaders", "packed_defaults", "save_params", "tensorboard_dir",
+           "train_and_eval"]
 
 # the train side of the crop-before-pack wire (the JAX Trainer's defaults
 # for transfer="cropped", loop.py:121-123, 154)
@@ -206,7 +208,10 @@ class PinnedUploader:
     The rows go into the buffer through PyTorch's copy, which spreads a
     large one over the host's threads.  The buffers are ordinary tensors even
     when the first upload runs under ``torch.inference_mode`` (as
-    ``Trainer.evaluate`` does), so later uploads outside it may write them."""
+    ``Trainer.evaluate`` does), so later uploads outside it may write them.
+    The wait is the span ``rgbnm.upload.wait`` (``rgbnm.upload.waits`` counts
+    the waits that found the copy still in flight), the copy into the buffer
+    ``rgbnm.upload.stage``."""
 
     DEPTH = 2
 
@@ -227,8 +232,12 @@ class PinnedUploader:
         turn = self._turn[key]
         self._turn[key] = (turn + 1) % self.DEPTH
         pinned, copied = self._rings[key][turn]
-        copied.synchronize()  # the last copy out of this buffer (none yet: returns at once)
-        pinned.copy_(torch.from_numpy(rows))
+        with profiling.span("rgbnm.upload.wait"):
+            if not copied.query():
+                profiling.count("rgbnm.upload.waits")
+            copied.synchronize()  # the last copy out of this buffer (none yet: returns at once)
+        with profiling.span("rgbnm.upload.stage"):
+            pinned.copy_(torch.from_numpy(rows))
         out = torch.empty(key, dtype=torch.uint8, device=self.device)
         out.copy_(pinned, non_blocking=True)
         copied.record(torch.cuda.current_stream(self.device))
@@ -325,6 +334,7 @@ class Trainer:
         self.optimizer: Optimizer | None = None
         self.loss_scale: LossScaleState | None = None
         self._uploader: PinnedUploader | None = None
+        self.eval_batches = 0  # eval_step calls, the index of rgbnm.eval_step
 
     def global_batch(self) -> int:
         """The batch of one step over every rank."""
@@ -349,9 +359,14 @@ class Trainer:
     def upload(self, batch: dict):
         """A loader's batch as ``train_step`` and ``eval_step`` take it: the
         uploaded (B, row) rows, or for the dense transfer the dict of
-        uploaded arrays."""
-        put = self.put_batch(batch)
-        return put if self.transfer == "dense" else put["packed"]
+        uploaded arrays.  The call is the span ``rgbnm.upload``; the bytes
+        uploaded are counted in ``rgbnm.upload.bytes``."""
+        dense = self.transfer == "dense"
+        with profiling.span("rgbnm.upload"):
+            profiling.count("rgbnm.upload.bytes", sum(v.nbytes for v in batch.values())
+                            if dense else batch["packed"].nbytes)
+            put = self.put_batch(batch)
+        return put if dense else put["packed"]
 
     # ------------------------------------------------------------------ train
     def create_state(self, steps_per_epoch: int) -> Optimizer:
@@ -419,29 +434,39 @@ class Trainer:
         scaled loss divided by the scale, as the JAX step reports it.  In a
         process group the gradients are averaged over the ranks right after
         the backward, and mixup pairs across them; the loss returned is
-        this rank's."""
-        *inputs, labels, _ = self.train_pipe(packed, draws.flip, draws.policy, draws.crop)
+        this rank's.  The parts are the spans ``rgbnm.pipeline``,
+        ``rgbnm.mixup``, ``rgbnm.forward`` (with the loss) and
+        ``rgbnm.backward``."""
+        with profiling.span("rgbnm.pipeline"):
+            *inputs, labels, _ = self.train_pipe(packed, draws.flip, draws.policy, draws.crop)
         num_classes = self.cfg.model.classes
         if self.cfg.model.mixup:
-            inputs, targets = mixup_batch(tuple(inputs), labels, num_classes, draws.lam,
-                                          parallel.ring_roll if self.distributed else None)
+            with profiling.span("rgbnm.mixup"):
+                inputs, targets = mixup_batch(tuple(inputs), labels, num_classes, draws.lam,
+                                              parallel.ring_roll if self.distributed else None)
         else:
             targets = torch.nn.functional.one_hot(
                 labels.to(torch.int64), num_classes).to(torch.float32)
         self.model.train()
-        extra = {} if draws.drop_keep is None else {
-            "drop_keep": draws.drop_keep.to(self.device, non_blocking=True)}
-        if draws.dropout is not None:
-            extra["dropout"] = draws.dropout
-        loss = softmax_cross_entropy(self.model(*inputs, **extra), targets)
+        with profiling.span("rgbnm.forward"):
+            extra = {}
+            if draws.drop_keep is not None:
+                if draws.drop_keep.device != self.device:
+                    profiling.count("rgbnm.h2d.pageable_bytes", draws.drop_keep.nbytes)
+                extra["drop_keep"] = draws.drop_keep.to(self.device, non_blocking=True)
+            if draws.dropout is not None:
+                extra["dropout"] = draws.dropout
+            loss = softmax_cross_entropy(self.model(*inputs, **extra), targets)
         self.model.zero_grad(set_to_none=True)
         if self.loss_scale is None:
-            loss.backward()
+            with profiling.span("rgbnm.backward"):
+                loss.backward()
             self._sync_grads()
             return loss.detach()
         scale = self.loss_scale.scale
         scaled = loss * scale
-        scaled.backward()
+        with profiling.span("rgbnm.backward"):
+            scaled.backward()
         self._sync_grads()
         torch._foreach_div_([p.grad for p in self.model.parameters()], scale)
         return (scaled / scale).detach()
@@ -457,28 +482,39 @@ class Trainer:
         own draws (the tests hand over JAX's).  No host sync, but with the
         loss scaler (fp16): there the host reads whether every gradient is
         finite, skips the update if not (``Optimizer.step``), and the scale
-        backs off or grows on the device (``train/scaler.py``)."""
+        backs off or grows on the device (``train/scaler.py``).  The call is
+        the span ``rgbnm.step`` with the step's index (the host's enqueue of
+        the whole step), its own draws ``rgbnm.draw``."""
         if self.optimizer is None:
             raise RuntimeError("call create_state before train_step")
-        if draws is None:
-            rows = packed["labels"] if self.transfer == "dense" else packed
-            draws = self.draw(rows.shape[0])
-        loss = self.compute_grads(packed, draws)
-        if self.loss_scale is None:
-            self.optimizer.step()
+        with profiling.span("rgbnm.step", self.step):
+            if draws is None:
+                rows = packed["labels"] if self.transfer == "dense" else packed
+                with profiling.span("rgbnm.draw"):
+                    draws = self.draw(rows.shape[0])
+            loss = self.compute_grads(packed, draws)
+            if self.loss_scale is None:
+                self.optimizer.step()
+                return loss
+            finite = all_finite(p.grad for p in self.model.parameters())
+            self.optimizer.step(finite)
+            self.loss_scale = update_loss_scale(self.loss_scale, finite)
             return loss
-        finite = all_finite(p.grad for p in self.model.parameters())
-        self.optimizer.step(finite)
-        self.loss_scale = update_loss_scale(self.loss_scale, finite)
-        return loss
 
     # ------------------------------------------------------------------ eval
     def eval_step(self, packed) -> dict[str, torch.Tensor]:
         """Pipeline -> model (in eval mode, in the compute dtype, float32
-        logits) -> weighted sums for one uploaded batch (``upload``)."""
-        self.model.eval()
-        *inputs, labels, weights = self.eval_pipe(packed)
-        return eval_sums(self.model(*inputs), labels, weights)
+        logits) -> weighted sums for one uploaded batch (``upload``).  The
+        call is the span ``rgbnm.eval_step`` with the eval batch's index
+        (``eval_batches``, counted over the Trainer's life), its parts
+        ``rgbnm.pipeline`` and ``rgbnm.forward`` (with the sums)."""
+        with profiling.span("rgbnm.eval_step", self.eval_batches):
+            self.eval_batches += 1
+            self.model.eval()
+            with profiling.span("rgbnm.pipeline"):
+                *inputs, labels, weights = self.eval_pipe(packed)
+            with profiling.span("rgbnm.forward"):
+                return eval_sums(self.model(*inputs), labels, weights)
 
     @torch.inference_mode()
     def evaluate(self, loader) -> dict:
@@ -486,14 +522,16 @@ class Trainer:
         ``loader`` (an iterable of the transfer's loader batches).
         The per-batch sums stay on the device until the merge; in a process
         group they are added up over the ranks first (each rank's loader
-        holds its shard, padded with weight-0 rows to one batch count)."""
-        sums = [self.eval_step(self.upload(batch)) for batch in loader]
-        if self.distributed and sums:
-            keys = ("correct", "loss_sum", "count")
-            table = parallel.all_reduce_sum_(
-                torch.stack([torch.stack([s[k] for k in keys]) for s in sums]))
-            sums = [dict(zip(keys, row)) for row in table]
-        return guard_eval_sums(sums)
+        holds its shard, padded with weight-0 rows to one batch count).  The
+        call is the span ``rgbnm.eval``."""
+        with profiling.span("rgbnm.eval"):
+            sums = [self.eval_step(self.upload(batch)) for batch in loader]
+            if self.distributed and sums:
+                keys = ("correct", "loss_sum", "count")
+                table = parallel.all_reduce_sum_(
+                    torch.stack([torch.stack([s[k] for k in keys]) for s in sums]))
+                sums = [dict(zip(keys, row)) for row in table]
+            return guard_eval_sums(sums)
 
 
 def guard_eval_sums(sums: list) -> dict:
@@ -503,8 +541,10 @@ def guard_eval_sums(sums: list) -> dict:
     masquerade as a model failure.  A 0-BATCH loader is a legitimately empty
     split at tiny corpus scale (split=1% of a handful of files) — warn and
     report zeros; real batches whose weights ALL unpacked to zero is a wiring
-    bug — raise.
+    bug — raise.  The merge reads the sums from the device: one
+    ``rgbnm.host.syncs``.
     """
+    profiling.count("rgbnm.host.syncs")
     out = merge_eval_metrics(sums)
     raw_count = sum(float(s["count"]) for s in sums)
     if sums and raw_count <= 0:
@@ -625,13 +665,23 @@ def load_params(path: str | Path, model: torch.nn.Module) -> None:
     model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
 
 
+# the spans of an epoch's host split (``train_and_eval``'s log line and
+# ``Host/<name>_s`` scalars), by the name they are reported under
+EPOCH_HOST_SPANS = {"loader.wait": "rgbnm.loader.wait", "upload": "rgbnm.upload",
+                    "step": "rgbnm.step", "loss_read": "rgbnm.loss_read", "eval": "rgbnm.eval",
+                    "checkpoint": "rgbnm.checkpoint"}
+
+
 def _flush_losses(pending: list, window: LocalWindow, world: int) -> float:
     """Feed the pending per-step losses, averaged over the ranks, to the
-    window (one device read); returns the window's mean."""
+    window (one device read, the span ``rgbnm.loss_read``); returns the
+    window's mean."""
     if pending:
-        losses = parallel.all_reduce_sum_(torch.stack(pending))
-        for v in (losses / world).tolist():
-            window.put(v)
+        with profiling.span("rgbnm.loss_read"):
+            profiling.count("rgbnm.host.syncs")
+            losses = parallel.all_reduce_sum_(torch.stack(pending))
+            for v in (losses / world).tolist():
+                window.put(v)
         pending.clear()
     return window.mean()
 
@@ -673,6 +723,11 @@ def train_and_eval(
 
     Eval: test, then minival (and trainval without training) on the trained
     weights, or, eval-only, on ``loadpath`` or ``savepath``.
+
+    Each epoch's log line and its ``Host/<name>_s`` scalars give the host's
+    seconds in the loader's waits, the uploads, the steps' enqueue, the loss
+    reads, the evals and the checkpoint (``EPOCH_HOST_SPANS``, read from
+    ``utils/profiling.totals()``).
 
     Returns ``{"test", "val", "trainval"}`` (each ``{"accuracy", "loss",
     "count"}``) and, after training, ``"epoch"`` and ``"history"``: per
@@ -725,6 +780,7 @@ def train_and_eval(
         history = []
         for epoch in range(start_epoch, cfg.train.epochs):
             loaders["train"].set_epoch(epoch)
+            before = profiling.totals()["spans"]
             t0 = time.perf_counter()
             n_img = 0
             pending: list = []  # per-step device losses, read at the logging cadence
@@ -748,23 +804,31 @@ def train_and_eval(
             eval_dt = time.perf_counter() - t0
             train_img_s = n_img / max(dt, 1e-9)
             eval_img_s = (val["count"] + tval["count"]) / trainer.world / max(eval_dt, 1e-9)
+            # the reference checkpoints every epoch (train.py:196-199);
+            # ckpt_every thins the cadence, always keeping the last
+            if (epoch + 1) % ckpt_every == 0 or epoch + 1 == cfg.train.epochs:
+                with profiling.span("rgbnm.checkpoint"):
+                    profiling.count("rgbnm.host.syncs")  # the save reads the device's state
+                    ckpt.save_checkpoint(ckpt_dir, trainer, epoch, {
+                        "val_acc": val["accuracy"], "val_loss": val["loss"],
+                        "train_loss": train_loss})
+            after = profiling.totals()["spans"]
+            host = {k: after.get(n, {}).get("host_s", 0.0) - before.get(n, {}).get("host_s", 0.0)
+                    for k, n in EPOCH_HOST_SPANS.items()}
             if verbose >= 1:
                 log.info("epoch %d: loss %.4f | val acc %.2f%% loss %.4f | trainval acc %.2f%% "
-                         "| train %.1f img/s, eval %.1f img/s (this process)", epoch + 1,
-                         train_loss, val["accuracy"] * 100, val["loss"],
-                         tval["accuracy"] * 100, train_img_s, eval_img_s)
+                         "| train %.1f img/s, eval %.1f img/s (this process) | host s: %s",
+                         epoch + 1, train_loss, val["accuracy"] * 100, val["loss"],
+                         tval["accuracy"] * 100, train_img_s, eval_img_s,
+                         ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+            for name, seconds in host.items():
+                writer.scalar(f"Host/{name}_s", seconds, epoch)
             writer.scalar("Loss/Train", train_loss, epoch)
             writer.scalar("Loss/Val", val["loss"], epoch)
             writer.scalar("Acc/Val", val["accuracy"], epoch)
             writer.scalar("Loss/Train_val", tval["loss"], epoch)
             writer.scalar("Acc/Train_val", tval["accuracy"], epoch)
             writer.scalar("Learning Rate", trainer.optimizer.schedule(trainer.step), epoch)
-            # the reference checkpoints every epoch (train.py:196-199);
-            # ckpt_every thins the cadence, always keeping the last
-            if (epoch + 1) % ckpt_every == 0 or epoch + 1 == cfg.train.epochs:
-                ckpt.save_checkpoint(ckpt_dir, trainer, epoch, {
-                    "val_acc": val["accuracy"], "val_loss": val["loss"],
-                    "train_loss": train_loss})
             history.append({"epoch": epoch, "train_loss": train_loss,
                             "train_img_s": train_img_s, "eval_img_s": eval_img_s})
             results.update({"val": val, "trainval": tval, "epoch": epoch, "history": history})

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from rgbnomore_tpu_torch.utils import profiling
+
 __all__ = ["Optimizer", "clip_by_global_norm", "decay_parameter_names",
            "warmup_cosine_schedule"]
 
@@ -93,6 +95,8 @@ class Optimizer:
     def step(self, finite: torch.Tensor | None = None) -> torch.Tensor | None:
         """Clip the gradients, update the parameters, advance the count;
         returns the global gradient norm before clipping (on the device).
+        The call is the span ``rgbnm.optimizer``; fp16's read of ``finite``
+        is ``rgbnm.scaler.read`` (one ``rgbnm.host.syncs``).
 
         ``finite`` (fp16 loss scaling, ``train/scaler.py``) is a 0-d bool
         tensor; where it is False the step is skipped: no clip and no AdamW
@@ -104,14 +108,19 @@ class Optimizer:
         parameter, moment and count made the step slower on the card,
         where it waits on the host's enqueue (``tools/fp16_skip_ab.py``,
         PERF.md, PR 7)."""
-        if finite is not None and not bool(finite):
+        with profiling.span("rgbnm.optimizer"):
+            if finite is not None:
+                with profiling.span("rgbnm.scaler.read"):
+                    profiling.count("rgbnm.host.syncs")
+                    skip = not bool(finite)
+                if skip:
+                    self.count += 1
+                    return None
+            grads = [p.grad for p in self.params]
+            norm = clip_by_global_norm(grads, self.clip_norm)
+            lr = self.schedule(self.count)
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+            self.opt.step()
             self.count += 1
-            return None
-        grads = [p.grad for p in self.params]
-        norm = clip_by_global_norm(grads, self.clip_norm)
-        lr = self.schedule(self.count)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        self.opt.step()
-        self.count += 1
-        return norm
+            return norm

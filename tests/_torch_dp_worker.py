@@ -64,8 +64,10 @@ def global_batches(cfg, corpus: Path) -> list:
 
 def run_case(name: str, corpus: Path) -> dict:
     """Eval of the test split at init, then ``STEPS`` train steps on this
-    rank's slice of each global batch."""
+    rank's slice of each global batch; the port's span and counter totals
+    of the train steps (``utils/profiling.totals()``)."""
     from rgbnomore_tpu_torch.train.loop import Trainer, make_loaders
+    from rgbnomore_tpu_torch.utils import profiling
 
     cfg = CASES[name]()
     trainer = Trainer(cfg, device="cpu")
@@ -74,11 +76,16 @@ def run_case(name: str, corpus: Path) -> dict:
     trainer.create_state(steps_per_epoch=10)
     b = trainer.cfg.train.batch_per_device
     losses = []
-    for rows in global_batches(cfg, corpus):
+    batches = global_batches(cfg, corpus)
+    profiling.reset()
+    for rows in batches:
         mine = rows[trainer.rank * b:(trainer.rank + 1) * b]
         losses.append(float(trainer.train_step(trainer.put_batch({"packed": mine})["packed"])))
+    totals = profiling.totals()
     params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
-    return {"losses": losses, "params": params, "eval": evals}
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    return {"losses": losses, "params": params, "eval": evals, "totals": totals,
+            "n_params": n_params}
 
 
 def count_writes(corpus: Path, out: Path) -> dict:

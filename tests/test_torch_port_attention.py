@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from rgbnomore_tpu.ops.pallas.attention import fused_attention as pallas_attention
+from torch_port_support import launches
 from rgbnomore_tpu_torch.ops.attention import (
     attention_bwd_plain,
     attention_plain,
@@ -43,9 +44,9 @@ def test_matches_pallas_kernel(rng, n, d, fn):
 
 def test_cpu_path_launches_no_kernel(rng):
     q, k, v = (torch.from_numpy(a) for a in _inputs(rng, 16, 8))
-    before = fused_attention.launches
+    before = launches("fused_attention_fwd")
     fused_attention(q, k, v, SCALE)
-    assert fused_attention.launches == before
+    assert launches("fused_attention_fwd") == before
 
 
 def _grad_inputs(rng, b, h, n, d):
@@ -98,12 +99,12 @@ def test_kernel_matches_plain_on_card(b, n, d):
         pytest.skip("no CUDA device: the kernel runs only on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn((b, 3, n, d), generator=gen, device="cuda") for _ in range(3))
-    before = fused_attention.launches
+    before = launches("fused_attention_fwd")
     with torch.inference_mode():
         got = fused_attention(q, k, v, SCALE)
         want = attention_plain(q, k, v, SCALE)
     torch.cuda.synchronize()
-    assert fused_attention.launches == before + 1
+    assert launches("fused_attention_fwd") == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=1e-4)
 
 
@@ -112,15 +113,13 @@ def test_kernel_matches_plain_on_card(b, n, d):
 def test_kernel_gradients_match_plain_on_card(b, n, d):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    from rgbnomore_tpu_torch.ops.attention import fused_attention_bwd
-
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, g = (torch.randn((b, 3, n, d), generator=gen, device="cuda") for _ in range(4))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    before = fused_attention_bwd.launches
+    before = launches("fused_attention_bwd")
     fused_attention(*leaves, SCALE).backward(g)
     torch.cuda.synchronize()
-    assert fused_attention_bwd.launches == before + 1
+    assert launches("fused_attention_bwd") == before + 1
     for leaf, w in zip(leaves, attention_bwd_plain(q, k, v, g, SCALE)):
         np.testing.assert_allclose(leaf.grad.cpu().numpy(), w.cpu().numpy(), atol=5e-4,
                                    rtol=1e-3)

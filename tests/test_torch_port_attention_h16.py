@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from rgbnomore_tpu.ops.pallas.attention import fused_attention as pallas_attention
+from torch_port_support import launches
 from rgbnomore_tpu_torch.ops.attention import (
     attention_bwd_plain,
     attention_plain,
@@ -331,9 +332,9 @@ def test_build_log_names_kernel_instances(symbol, want):
 
 def test_cpu_path_launches_no_kernel():
     q = torch.zeros((1, 1, 4, 8), dtype=torch.float16)
-    before = (fused_attention_h16_fwd.launches, fused_attention_h16_bwd.launches)
+    before = (launches("fused_attention_h16_fwd"), launches("fused_attention_h16_bwd"))
     fused_attention(q, q, q, 0.1)
-    assert (fused_attention_h16_fwd.launches, fused_attention_h16_bwd.launches) == before
+    assert (launches("fused_attention_h16_fwd"), launches("fused_attention_h16_bwd")) == before
 
 
 # ------------------------------------------------------------ on the card
@@ -355,21 +356,19 @@ def test_kernels_match_plain_on_card(shape, tag):
     the same dtype and against the float32 reference; one launch each,
     counted by the half-precision wrappers, none of the float32 kernels."""
     _card()
-    from rgbnomore_tpu_torch.ops.attention import fused_attention_bwd
-
     dtype = DTYPES[tag][0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
     scale = 1.0 / (shape[1] * shape[3]) ** 0.5
-    f32_before = (fused_attention.launches, fused_attention_bwd.launches)
-    before = (fused_attention_h16_fwd.launches, fused_attention_h16_bwd.launches)
+    f32_before = (launches("fused_attention_fwd"), launches("fused_attention_bwd"))
+    before = (launches("fused_attention_h16_fwd"), launches("fused_attention_h16_bwd"))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = fused_attention(*leaves, scale)
     out.backward(g)
     torch.cuda.synchronize()
-    assert (fused_attention_h16_fwd.launches, fused_attention_h16_bwd.launches) \
+    assert (launches("fused_attention_h16_fwd"), launches("fused_attention_h16_bwd")) \
         == (before[0] + 1, before[1] + 1)
-    assert (fused_attention.launches, fused_attention_bwd.launches) == f32_before
+    assert (launches("fused_attention_fwd"), launches("fused_attention_bwd")) == f32_before
     assert out.dtype == dtype
     ref_out, ref_grads = reference(q, k, v, g, scale)
     plain = attention_plain(q, k, v, scale)
@@ -438,13 +437,13 @@ def test_backward_keeps_ds_on_chip_at_vitb_shape(tag):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = fused_attention(*leaves, VIT_SCALE)
         torch.cuda.synchronize()
-        before = fused_attention_h16_bwd.launches
+        before = launches("fused_attention_h16_bwd")
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         out.backward(g)
         torch.cuda.synchronize()
         grown = torch.cuda.max_memory_allocated() - base
-        assert fused_attention_h16_bwd.launches == before + 1
+        assert launches("fused_attention_h16_bwd") == before + 1
         # dq, dk, dv and the contiguous copy autograd may make of g; a
         # (B, H, N, N) float32 buffer would add 472 MB
         assert grown <= 4 * q.numel() * q.element_size() + 2**20, grown

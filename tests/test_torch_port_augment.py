@@ -26,6 +26,7 @@ from rgbnomore_tpu.augment.randaugment import RandAugmentDCT as JaxRandAugmentDC
 from rgbnomore_tpu.ops.pallas.augpipe import SUPPORTED_OPS as JAX_SUPPORTED_OPS
 from rgbnomore_tpu.ops.pallas.augpipe import fused_flip_aug_range as jax_fused
 from rgbnomore_tpu.train.config import AUGLIST_DCT, AUGLIST_DCT_VITTI
+from torch_port_support import launches
 from rgbnomore_tpu_torch.augment.pipeline import make_cropped_train_pipeline
 from rgbnomore_tpu_torch.augment.randaugment import CHROMA_OPS, RandAugmentDCT
 from rgbnomore_tpu_torch.ops import augpipe
@@ -196,10 +197,10 @@ def test_unported_ops_raise():
 def test_cpu_path_launches_no_kernel():
     y, c = _coeffs(1)
     policy, flip = _forced_policy()
-    before = fused_flip_aug_range.launches
+    before = launches("fused_flip_aug_range")
     fused_flip_aug_range(*_torch(y, c), tuple(_torch(*policy)), torch.from_numpy(flip),
                          ops_list=["Identity"], num_ops=1, magnitude=3)
-    assert fused_flip_aug_range.launches == before
+    assert launches("fused_flip_aug_range") == before
 
 
 @pytest.mark.cuda
@@ -228,10 +229,10 @@ def test_kernel_matches_plain_on_card(auglist):
     flip = torch.rand(64, generator=gen) < 0.5
     y, c = (torch.from_numpy(a).cuda() for a in _coeffs(2, b=64, h=28, w=28))
     kw = dict(ops_list=list(auglist), num_ops=2, magnitude=3)
-    before = fused_flip_aug_range.launches
+    before = launches("fused_flip_aug_range")
     gy, gc = fused_flip_aug_range(y, c, policy, flip, **kw)
     torch.cuda.synchronize()
-    assert fused_flip_aug_range.launches == before + 1
+    assert launches("fused_flip_aug_range") == before + 1
     wy, wc = flip_aug_range_plain(y, c, policy, flip, **kw)
     np.testing.assert_allclose(gy.cpu().numpy(), wy.cpu().numpy(), **TOL)
     np.testing.assert_allclose(gc.cpu().numpy(), wc.cpu().numpy(), **TOL)

@@ -15,6 +15,9 @@ drop path, at ``--drop 0`` (dropout's masks are per rank):
 - the eval sums of the test split through the sharded loaders: the count
   and the accuracy exactly, the loss at rtol 2e-5.
 
+Each rank's train steps open one ``rgbnm.exchange.grads`` (4 bytes a
+parameter) and one ``rgbnm.exchange.mixup`` a step.
+
 Also: the shards of the port's loader partition an epoch, and in a
 ``train_and_eval`` run of two ranks rank 0 alone writes (weights,
 checkpoint, TensorBoard).
@@ -122,6 +125,22 @@ def test_two_ranks_eval_sums_match_one_process(two_ranks, one_process, case):
         got = r[case]["eval"]
         assert got["count"] == want["count"] and got["accuracy"] == want["accuracy"]
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=2e-5)
+
+
+@pytest.mark.parametrize("case", sorted(worker.CASES))
+def test_two_ranks_exchange_spans(two_ranks, one_process, case):
+    """Each train step of each rank: one ``rgbnm.exchange.grads`` of 4 bytes
+    a float32 parameter and one ``rgbnm.exchange.mixup``; one process
+    exchanges nothing."""
+    _, ranks, _ = two_ranks
+    names = ("rgbnm.step", "rgbnm.exchange.grads", "rgbnm.exchange.mixup")
+    for r in ranks:
+        totals = r[case]["totals"]
+        assert [totals["spans"][name]["calls"] for name in names] == [worker.STEPS] * 3
+        assert totals["counters"]["rgbnm.exchange.grads.bytes"] == \
+            worker.STEPS * 4 * r[case]["n_params"]
+    assert not any(name.startswith("rgbnm.exchange") for name in
+                   one_process[case]["totals"]["spans"])
 
 
 def test_rank0_alone_writes(two_ranks):

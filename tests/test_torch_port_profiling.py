@@ -8,7 +8,8 @@ CPU.
 - ``model_flops`` of a small ViT is the exact sum of its products; against
   XLA's count (which also counts elementwise work) the port's full-width
   ViT-Ti, ViT-S/16 and SwinV2-T fall within [0.90, 1.00].
-- ``Timer``, ``Timer.sync`` and ``trace`` work on the CPU.
+- ``span`` and ``trace`` work on the CPU: a span's host seconds, and its
+  event in the trace.
 """
 
 import re
@@ -24,7 +25,8 @@ from rgbnomore_tpu.train.config import generate_config as jax_generate_config
 from rgbnomore_tpu.utils.profiling import model_flops as xla_model_flops
 from rgbnomore_tpu.utils.summary import model_summary as jax_model_summary
 from rgbnomore_tpu_torch.train.config import build_model, example_inputs, generate_config
-from rgbnomore_tpu_torch.utils.profiling import Timer, compiled_cost, model_flops, trace
+from rgbnomore_tpu_torch.utils import profiling
+from rgbnomore_tpu_torch.utils.profiling import compiled_cost, model_flops, trace
 from rgbnomore_tpu_torch.utils.summary import model_summary
 
 
@@ -124,11 +126,18 @@ def test_model_flops_against_xla(case):
 
 
 def test_timer_and_trace(tmp_path):
+    """``span`` times a block on the host (and, inside ``trace``, is an
+    event of the trace beside the operators it issued)."""
+    profiling.reset()
     a = torch.randn(64, 64)
-    with Timer() as t:
-        out = Timer.sync({"y": [a @ a]})
-    assert t.elapsed > 0 and out["y"][0].shape == (64, 64)
-    with trace(str(tmp_path)):
+    with profiling.span("rgbnm.test.mm"):
         a @ a
+    with trace(str(tmp_path)), profiling.span("rgbnm.test.mm"):
+        a @ a
+    spans = profiling.totals()["spans"]
+    profiling.reset()
+    assert spans["rgbnm.test.mm"]["calls"] == 2 and spans["rgbnm.test.mm"]["host_s"] > 0
     files = list(tmp_path.glob("*.pt.trace.json"))
-    assert len(files) == 1 and "aten::mm" in files[0].read_text()
+    assert len(files) == 1
+    text = files[0].read_text()
+    assert "aten::mm" in text and '"rgbnm.test.mm"' in text

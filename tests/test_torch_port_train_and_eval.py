@@ -10,9 +10,10 @@
   mask16w.  ``evaluate_model`` gives the same.
 - ``packed_k`` and ``train_fmt`` reach both ends of the train wire.
 - A training run writes the JAX loop's TensorBoard tags
-  (``rgbnomore_tpu/train/loop.py:601-649``) and its weights file, a bare
-  ``state_dict`` of the trained model that eval-only mode scores to the
-  run's own test result.
+  (``rgbnomore_tpu/train/loop.py:601-649``) with the port's host split
+  (``Host/<span>_s``, each the epoch's seconds in that span) and its
+  weights file, a bare ``state_dict`` of the trained model that eval-only
+  mode scores to the run's own test result.
 """
 
 import jax
@@ -29,9 +30,11 @@ from rgbnomore_tpu_torch.eval import evaluate_model
 from rgbnomore_tpu_torch.train import loop
 from rgbnomore_tpu_torch.train.config import generate_config
 
-# the scalars of the JAX loop: per logged step, per epoch, after the test eval
+# the scalars of the JAX loop: per logged step, per epoch, after the test
+# eval; and the port's per-epoch host split (``loop.EPOCH_HOST_SPANS``)
 TAGS = {"Loss/Peritr_Train", "Loss/Train", "Loss/Val", "Acc/Val", "Loss/Train_val",
-        "Acc/Train_val", "Learning Rate", "Acc/Test", "Loss/Test"}
+        "Acc/Train_val", "Learning Rate", "Acc/Test", "Loss/Test", "Host/loader.wait_s",
+        "Host/upload_s", "Host/step_s", "Host/loss_read_s", "Host/eval_s", "Host/checkpoint_s"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -130,6 +133,7 @@ def test_training_writes_the_tensorboard_tags(trained):
     assert set(events.Tags()["scalars"]) == TAGS
     assert events.Scalars("Acc/Test")[0].value == pytest.approx(results["test"]["accuracy"])
     assert events.Scalars("Loss/Val")[0].value == pytest.approx(results["val"]["loss"])
+    assert all(events.Scalars(f"Host/{name}_s")[0].value > 0 for name in loop.EPOCH_HOST_SPANS)
 
 
 def test_training_writes_the_weights_file(corpus, trained):

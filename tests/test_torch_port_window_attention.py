@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from rgbnomore_tpu.ops.pallas.attention import fused_window_attention
+from torch_port_support import launches
 from rgbnomore_tpu_torch.ops.window_attention import (
     window_attention,
     window_attention_bwd_plain,
@@ -128,13 +129,11 @@ def test_shared_pattern_grad_is_sum_over_windows(rng):
 
 
 def test_cpu_path_launches_no_kernel(rng):
-    from rgbnomore_tpu_torch.ops.window_attention import window_attention_bwd
-
     q, k, v, _, bias = _inputs(rng, 4, 2, 16, 8, 1)
     leaves = [x.requires_grad_(True) for x in _t(q, k, v, bias)]
-    before = (window_attention.launches, window_attention_bwd.launches)
+    before = (launches("window_attention_fwd"), launches("window_attention_bwd"))
     window_attention(*leaves).sum().backward()
-    assert (window_attention.launches, window_attention_bwd.launches) == before
+    assert (launches("window_attention_fwd"), launches("window_attention_bwd")) == before
 
 
 def test_cpu_backward_is_autograd_through_plain(rng):
@@ -191,12 +190,12 @@ def test_kernel_matches_plain_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
     q, k, v, _, bias = _card_inputs(case, 0)
-    before = window_attention.launches
+    before = launches("window_attention_fwd")
     with torch.inference_mode():
         got = window_attention(q, k, v, bias)
         want = window_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
-    assert window_attention.launches == before + 1
+    assert launches("window_attention_fwd") == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **FWD_TOL)
 
 
@@ -224,12 +223,12 @@ def test_kernel_gradients_match_plain_on_card(case, chunk):
     from rgbnomore_tpu_torch.ops.window_attention import window_attention_bwd
 
     q, k, v, g, bias = _card_inputs(case, 1)
-    before = window_attention_bwd.launches
+    before = launches("window_attention_bwd")
     got = window_attention_bwd(q, k, v, bias, g, chunk=chunk)
     again = window_attention_bwd(q, k, v, bias, g, chunk=chunk)
     want = window_attention_bwd_plain(q, k, v, bias, g)
     torch.cuda.synchronize()
-    assert window_attention_bwd.launches == before + 4
+    assert launches("window_attention_bwd") == before + 4
     for name, a, b, w in zip("qkvb", got, again, want):
         assert torch.equal(a, b), f"d{name} differs between two runs"
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), err_msg=f"d{name}",

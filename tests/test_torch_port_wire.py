@@ -45,7 +45,6 @@ from rgbnomore_tpu_torch.augment.pipeline import (
 from rgbnomore_tpu_torch.data.loader import packed_layout
 from rgbnomore_tpu_torch.ops.augpipe import (
     SUPPORTED_OPS,
-    fused_flip_aug_range,
     wire_flip_aug_range,
     wire_flip_aug_range_plain,
     wire_to_range,
@@ -53,6 +52,7 @@ from rgbnomore_tpu_torch.ops.augpipe import (
 )
 from rgbnomore_tpu_torch.train.config import generate_config
 from rgbnomore_tpu_torch.train.loop import Trainer
+from torch_port_support import launches
 
 TOL = dict(atol=2e-6, rtol=0)  # the Pallas augmentation test's, on the [-1, 1] output
 FORMATS = ["mask16", "mask16w", "mask16q"]
@@ -196,7 +196,8 @@ def test_cpu_buffers_launch_no_kernel():
     policy = (torch.zeros((2, 1), dtype=torch.int32), torch.ones((2, 1)),
               torch.zeros((2, 1), dtype=torch.int32), torch.zeros((2, 1), dtype=torch.int32),
               torch.zeros((2, 1), dtype=torch.bool))
-    counts = [w.launches for w in (wire_flip_aug_range, wire_to_range, fused_flip_aug_range)]
+    kernels = ("wire_flip_aug_range", "wire_to_range", "fused_flip_aug_range")
+    counts = [launches(k) for k in kernels]
     got = wire_flip_aug_range(rows, flip, policy, target=8, k=16, fmt="mask16",
                               ops_list=["Identity"], num_ops=1, magnitude=3)
     want = wire_flip_aug_range_plain(rows, flip, policy, target=8, k=16, fmt="mask16",
@@ -205,8 +206,7 @@ def test_cpu_buffers_launch_no_kernel():
     got = wire_to_range(rows, target=8, k=16, fmt="mask16")
     want = wire_to_range_plain(rows, target=8, k=16, fmt="mask16")
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert counts == [w.launches for w in (wire_flip_aug_range, wire_to_range,
-                                           fused_flip_aug_range)]
+    assert counts == [launches(k) for k in kernels]
 
 
 def test_wire_refuses_bad_rows():
@@ -243,10 +243,10 @@ def _forced_policy():
 
 def _held_on_card(rows, flip, policy, **kw):
     packed = torch.from_numpy(rows).cuda()
-    before = wire_flip_aug_range.launches
+    before = launches("wire_flip_aug_range")
     got = wire_flip_aug_range(packed, flip, policy, **kw)
     torch.cuda.synchronize()
-    assert wire_flip_aug_range.launches == before + 1
+    assert launches("wire_flip_aug_range") == before + 1
     want = wire_flip_aug_range_plain(packed, flip, policy, **kw)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
@@ -284,10 +284,10 @@ def test_wire_kernel_presets_on_card(fmt, preset):
 def test_wire_kernel_eval_bit_exact_on_card(fmt, grid):
     _card()
     rows = chip_smoke.random_wire_rows(np.random.default_rng(6), 16, grid, 48, fmt)
-    before = wire_to_range.launches
+    before = launches("wire_to_range")
     got = wire_to_range(torch.from_numpy(rows).cuda(), target=grid, k=48, fmt=fmt)
     torch.cuda.synchronize()
-    assert wire_to_range.launches == before + 1
+    assert launches("wire_to_range") == before + 1
     want = wire_to_range_plain(torch.from_numpy(rows), target=grid, k=48, fmt=fmt)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)

@@ -246,3 +246,11 @@ def torch_threads(n: int):
         yield
     finally:
         torch.set_num_threads(saved)
+
+
+def launches(kernel: str) -> int:
+    """The launches of ``kernel`` (a wrapper's name) that the port has
+    counted, ``rgbnm.launch.<kernel>`` in ``utils/profiling.totals()``."""
+    from rgbnomore_tpu_torch.utils import profiling
+
+    return profiling.totals()["counters"].get(f"rgbnm.launch.{kernel}", 0)
