@@ -32,11 +32,13 @@ Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
   2. build: compile the kernels, one ``nvcc`` per source, started together,
      and the host codec beside them; fail where ptxas serialises the
-     half-precision kernels' ``wgmma`` products;
+     ``wgmma`` products of the half-precision attention kernels or of #6;
   3. kernels: each kernel (attention forward and backward in float32 and
      their bf16 and fp16 variants, the fused flip + RandAugment + ToRange
      stage through its dense entry and through its wire reader, window
-     attention forward and backward) against its plain
+     attention forward and backward, #6's float32 Linear forward, input
+     gradient and weight gradient at ViT-S's and SwinV2-T's shapes, the
+     weight gradient twice for the same bits) against its plain
      version at the main paths' shapes and the JAX package's test shapes,
      then timed with CUDA events beside its plain version, its bound and,
      where one exists, a PyTorch library call.  The
@@ -113,9 +115,10 @@ Phases, each raising on failure (the script then exits non-zero):
  17. vits: ViT-S/16 as the CLI's defaults build it (``vits``, embed_type 2
      with sub-blocks, float32) at full width: 1 + 5 train steps at the
      preset's batch of 1024 (512 where that does not fit the card) with 1
-     wire, 12 #1 and 12 #2 launches a step, finite falling losses, the peak
-     memory; one step card vs CPU at 2 images; the stages and kernels of a
-     step; 512 images through the eval;
+     wire, 12 #1 and 12 #2 launches a step, and #6's 52 forward, 50 input
+     gradient and 52 weight gradient launches (52 an eval batch), finite
+     falling losses, the peak memory; one step card vs CPU at 2 images; the
+     stages and kernels of a step; 512 images through the eval;
  18. embed: ViT-S's width at batch 256, 1 + 3 train steps and 512 eval
      images each for embed_type 2 without sub-blocks, embed_type 3 (294
      tokens: #1 and #2 at N = 294) and embed_type 3 under bf16 (#1h's tiled
@@ -673,7 +676,7 @@ def phase_build() -> None:
         print(f"build: {name}: " + "; ".join(f"{k} {v}" for k, v in entries.items()), flush=True)
         for note in notes:
             print(f"build: {name}: ptxas {note}", flush=True)
-        check(not (name.startswith("attention_h16") and notes),
+        check(not ((name.startswith("attention_h16") or name == "linear_tf32x3") and notes),
               f"ptxas serialises the wgmma products of {name}: {notes}")
 
 
@@ -1543,6 +1546,100 @@ def kernel_attention_vits(report: dict, gen) -> None:
             torch.cuda.empty_cache()
 
 
+# (tag, rows M, in K, out N) of #6's shapes: ViT-S/16's four block Linears at
+# batches 1,024 and 256 (196 tokens), a SwinV2-T stage-1 block's at batch 128
+# (4,096 tokens) and its first patch merging
+LINEAR_SHAPES = [
+    *((f"vits{b} {name}", b * 196, k, n) for b in (1024, 256)
+      for name, k, n in (("qkv", 384, 1152), ("proj", 384, 384), ("mlp1", 384, 1536),
+                         ("mlp2", 1536, 384))),
+    *((f"swin128 {name}", 128 * 4096, k, n)
+      for name, k, n in (("proj", 96, 96), ("mlp1", 96, 384), ("mlp2", 384, 96))),
+    ("swin128 reduction", 128 * 1024, 384, 192),
+]
+LINEAR_WRAPPERS = ("linear_tf32x3_fwd", "linear_tf32x3_dgrad", "linear_tf32x3_wgrad")
+
+
+def kernel_linear(gen) -> list[dict]:
+    """#6 (``ops/linear.py``): the forward, input gradient and weight
+    gradient at ``LINEAR_SHAPES``, each against its plain version
+    (``mm_tf32x3``) and float64 (max abs errors; the kernel within 2e-5 of
+    the largest float64 entry), the weight gradient and bias gradient
+    repeated bit for bit; each timed beside its 3xTF32 bound, the plain
+    version and cuBLAS float32 (``library_ms``: ``F.linear``, ``dy @ w``,
+    ``dy.T @ x`` with ``dy.sum(0)``).  One entry per product, its shapes
+    under ``shapes``."""
+    import torch
+    import torch.nn.functional as F
+
+    from rgbnomore_tpu_torch.ops import linear as L
+
+    entries = {name: {"name": name, "route": "cuda",
+                      "source": "rgbnomore_tpu_torch/csrc/linear_tf32x3.cu",
+                      "replaces": "none (the JAX package's Dense products run in XLA)",
+                      "launches": None, "max_abs_err": 0.0, "shapes": []}
+               for name in LINEAR_WRAPPERS}
+    for tag, m, k, n in LINEAR_SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5
+        b = torch.randn(n, generator=gen, device="cuda")
+        dy = torch.randn(m, n, generator=gen, device="cuda")
+        wt = w.T.contiguous()
+        runs = {
+            "linear_tf32x3_fwd": (lambda: L.linear_fwd(x, w, b), lambda: L.linear_plain(x, w, b),
+                                  lambda: F.linear(x, w, b),
+                                  lambda: F.linear(x.double(), w.double(), b.double())),
+            "linear_tf32x3_dgrad": (lambda: L.linear_dgrad(dy, w), lambda: L.mm_tf32x3(dy, wt),
+                                    lambda: dy @ w, lambda: dy.double() @ w.double()),
+            "linear_tf32x3_wgrad": (lambda: L.linear_wgrad(dy, x),
+                                    lambda: (L.mm_tf32x3(dy.T.contiguous(), x.T.contiguous()),
+                                             dy.sum(0)),
+                                    lambda: (dy.T @ x, dy.sum(0)),
+                                    lambda: (dy.double().T @ x.double(), dy.double().sum(0))),
+        }
+        flop = 2 * m * n * k
+        for name, (kernel, plain, library, exact) in runs.items():
+            got, want, ref = kernel(), plain(), exact()
+            torch.cuda.synchronize()
+            got, want, ref = ((t,) if torch.is_tensor(t) else t for t in (got, want, ref))
+            err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+            rel = max(float((g.double() - r).abs().max() / r.abs().max())
+                      for g, r in zip(got, ref))
+            plain_rel = max(float((p.double() - r).abs().max() / r.abs().max())
+                            for p, r in zip(want, ref))
+            check(rel < 2e-5, f"{name} {tag}: {rel:.3e} of the largest float64 entry")
+            if name == "linear_tf32x3_wgrad":
+                again = kernel()
+                check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                      f"{name} {tag}: the weight gradient differs between two runs")
+            del got, want, ref
+            reps = 10 if m > 100_000 else 30
+            ms = time_ms(kernel, reps=reps)
+            plain_ms = time_ms(plain, reps=5, warmup=1)
+            library_ms = time_ms(library, reps=reps)
+            # X or dY read and the output written once (the weight is small)
+            nbytes = 4 * (m * k + m * n + n * k)
+            bounds = product_kernel_entry(ms, product_bounds_ms(flop, nbytes))
+            row = {"tag": tag, "m": m, "k": k, "n": n, "max_abs_err": err, "rel_err": rel,
+                   "plain_rel_err": plain_rel, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, **bounds}
+            entries[name]["shapes"].append(row)
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+            print(f"kernels: {name} {tag} (M {m}, K {k}, N {n}) {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, cuBLAS float32 {library_ms:.4f} ms; bound 3xTF32 "
+                  f"{bounds['bound_tc_ms']:.4f} ms ({bounds['bound_by']}, "
+                  f"{100 * bounds['bound_share']:.1f}%); max abs err against plain {err:.3e}, "
+                  f"of the largest float64 entry {rel:.3e} (plain {plain_rel:.3e})", flush=True)
+        del x, w, b, dy, wt
+    for entry in entries.values():  # the headline: ViT-S at batch 1,024, mlp1
+        head = next(r for r in entry["shapes"] if r["tag"] == "vits1024 mlp1")
+        entry.update({key: head[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "bound_share")})
+        entry["ptxas"] = PTXAS.get("linear_tf32x3", {})
+        entry["wgmma_notes"] = WGMMA_NOTES.get("linear_tf32x3", [])
+    return list(entries.values())
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -1555,6 +1652,8 @@ def phase_kernels() -> dict:
     report["augpipe_wire"] = kernel_augpipe_wire()
     report["window_attention"], report["window_attention_bwd"] = kernel_window_attention(gen)
     kernel_attention_vits(report, gen)
+    for entry in kernel_linear(gen):
+        report[entry["name"]] = entry
     return report
 
 
@@ -1569,7 +1668,8 @@ LAUNCH_COUNTERS = {"fused_attention": "fused_attention_fwd",
                    "fused_attention_h16_bwd": "fused_attention_h16_bwd",
                    "window_attention": "window_attention_fwd",
                    "window_attention_bwd": "window_attention_bwd",
-                   **{name: name for name in AUGPIPE_WRAPPERS}}
+                   **{name: name for name in AUGPIPE_WRAPPERS},
+                   **{name: name for name in LINEAR_WRAPPERS}}
 
 
 @contextlib.contextmanager
@@ -2167,7 +2267,7 @@ def check_launches(tag: str, got: dict, want: dict) -> None:
     """``want`` gives the launches of some kernels; every other attention
     and window kernel must have none (``fused_flip_aug_range`` and the wire
     reader are ``check_input_stage``'s)."""
-    skip = set(AUGPIPE_WRAPPERS)
+    skip = set(AUGPIPE_WRAPPERS) | set(LINEAR_WRAPPERS)
     full = {name: want.get(name, 0) for name in got if name not in skip}
     seen = {name: got[name] for name in full}
     check(seen == full, f"{tag}: launches {seen}, want {full}")
@@ -2874,7 +2974,8 @@ def record_launches(report: dict, path: str, launches: dict) -> None:
              "fused_attention_h16": "fused_attention_bf16",
              "fused_attention_h16_bwd": "fused_attention_bwd_bf16",
              "window_attention": "window_attention",
-             "window_attention_bwd": "window_attention_bwd"}
+             "window_attention_bwd": "window_attention_bwd",
+             **{name: name for name in LINEAR_WRAPPERS}}
     for wrapper, entry in names.items():
         if launches.get(wrapper):
             report[entry].setdefault("launches_by_path", {})[path] = launches[wrapper]
@@ -3026,6 +3127,16 @@ def phase_vits(report: dict):
                      rows[:VITS_CPU_BATCH])
     phase_train_breakdown(trainer, packed, "vits breakdown")
     eval_path(report, "vits eval", trainer, {"fused_attention": 12})
+    # #6 on every float32 Linear: 52 a forward (3 in the embedding, 4 in each
+    # of 12 blocks, the head's first), no input gradient for the embedding's
+    # two projections of the data
+    linear = {path: {w: report[w].get("launches_by_path", {}).get(path, 0)
+                     for w in LINEAR_WRAPPERS} for path in ("vits_train", "vits_eval")}
+    want = {"vits_train": dict(zip(LINEAR_WRAPPERS, (52 * VITS_TRAIN_STEPS,
+                                                     50 * VITS_TRAIN_STEPS,
+                                                     52 * VITS_TRAIN_STEPS))),
+            "vits_eval": dict(zip(LINEAR_WRAPPERS, (52 * N_IMAGES // BATCH, 0, 0)))}
+    check(linear == want, f"vits: #6 launches {linear}, want {want}")
     del trainer, packed
     gc.collect()
     torch.cuda.empty_cache()

@@ -18,7 +18,11 @@ from PyTorch's layers:
 
 Both subclass the PyTorch layers, so parameter names, ``state_dict`` keys
 and the ``isinstance`` tests of the init and of the weight-decay mask stay
-as they were.  At float32 each is the PyTorch layer unchanged.
+as they were.  At float32 each is the PyTorch layer unchanged, but that
+:class:`Linear` computes through ``ops/linear.py:linear_tf32x3``: 3xTF32
+on the tensor cores on the card, the same arithmetic in plain PyTorch on
+the CPU.  In bf16 and fp16 it calls ``F.linear``, counted in
+``rgbnm.linear.library``.
 
 :class:`Dropout` is flax's ``nn.Dropout``: ``select(mask, x / keep, 0)``
 with ``keep = 1 - rate`` rounded to x's dtype (flax divides by a
@@ -31,6 +35,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rgbnomore_tpu_torch.ops.linear import linear_tf32x3
+from rgbnomore_tpu_torch.utils import profiling
 
 __all__ = ["Conv2d", "Dropout", "DropoutMasks", "LayerNorm", "Linear"]
 
@@ -47,6 +54,9 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        if dt == torch.float32:
+            return linear_tf32x3(x.to(dt), self.weight.to(dt), bias)
+        profiling.count("rgbnm.linear.library")
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 

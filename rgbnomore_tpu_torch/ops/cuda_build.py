@@ -40,6 +40,7 @@ KERNELS = {
     "attention_h16_fwd": "attention_h16_fwd.cu",
     "attention_h16_bwd": "attention_h16_bwd.cu",
     "augpipe": "augpipe.cu",
+    "linear_tf32x3": "linear_tf32x3.cu",
     "window_attention_fwd": "window_attention_fwd.cu",
     "window_attention_bwd": "window_attention_bwd.cu",
 }

@@ -156,16 +156,19 @@ def test_trainer_modules_import_alone(module):
 
 
 # what a kernel source may include: the CUDA runtime and its 16-bit types,
-# the C++ standard library, and the port's own headers beside it
-_ALLOWED_INCLUDES = {"<cuda_runtime.h>", "<cuda_bf16.h>", "<cuda_fp16.h>", "<algorithm>",
-                     "<climits>", "<math.h>", "<stdint.h>", "<type_traits>"}
+# cuda.h's types (TMA's tensor maps), the C and C++ standard libraries
+# (dlfcn: libcuda's tensor-map encoder, looked up at run time), and the
+# port's own headers beside it
+_ALLOWED_INCLUDES = {"<cuda_runtime.h>", "<cuda_bf16.h>", "<cuda_fp16.h>", "<cuda.h>",
+                     "<algorithm>", "<climits>", "<dlfcn.h>", "<math.h>", "<stdint.h>",
+                     "<type_traits>"}
 
 
 def test_kernel_sources_stand_alone():
     """Every CUDA source under ``csrc/`` is built (``cuda_build.KERNELS``)
-    and every built one is there; each includes only the CUDA runtime, the
-    standard library and the port's headers, no PyTorch header (a build in
-    seconds, bound through ctypes)."""
+    and every built one is there; each includes only the CUDA toolkit's
+    headers, the standard library and the port's headers, no PyTorch header
+    (a build in seconds, bound through ctypes)."""
     from rgbnomore_tpu_torch.ops import cuda_build
 
     sources = {p.name for p in cuda_build.CSRC.glob("*.cu")}
