@@ -25,8 +25,9 @@ RGB domain (ViT-S/16 and SwinV2-T on pixels decoded on the card, every RGB
 transfer, the CLIs, the benchmark) and the DCT RandAugment ops outside the
 augmentation kernel's set; then the rest of the harness: the reference
 ``.pth`` import, FLOP counts and a profiler trace, the model summary and
-``--stage_data``.  It checks that every kernel of each path was launched
-and that what comes out is right.
+``--stage_data``; last SwinV2-B at window 16 (256-token windows).  It
+checks that every kernel of each path was launched and that what comes
+out is right.
 
 Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
@@ -50,7 +51,13 @@ Phases, each raising on failure (the script then exits non-zero):
      backward must give the same bits.  The window kernels are timed at
      every SwinV2-T stage, unshifted and shifted, summed over one train
      step and one eval batch, and reported with their ``ptxas`` registers
-     and spills;
+     and spills.  The tiled window kernels #3L and #4L (windows of 65-256
+     tokens) run at SwinV2-B/w16's stage shapes at batch 256: the forward
+     and its four gradients against float64 and the plain version within
+     2e-5 of the largest entry, which a TF32-rounded control must fail,
+     two runs bit-identical, times beside the bounds, the plain version
+     and SDPA summed over one train step; and at SwinV2-T's shapes beside
+     #3 and #4;
   4. slice: 512 images through the ViT-Ti ``Trainer.evaluate`` with launch
      counts; the pipeline on the card against the CPU, logits of the kernel
      path against the plain path and against the CPU;
@@ -165,7 +172,11 @@ Phases, each raising on failure (the script then exits non-zero):
      say; ``--stage_data`` on ILSVRC-shaped tars (512x512 4:2:0 out, val
      split by class), the eval CLI at ``--verbose 2`` logging the model
      summary (its total the model's parameter count) on the imported
-     weights, and ViT-Ti trained one epoch on the staged corpus by the CLI.
+     weights, and ViT-Ti trained one epoch on the staged corpus by the CLI;
+ 26. swinv2b: SwinV2-B at window 16 under its bf16 preset at batch 256, 1 +
+     10 train steps with the counters reset before each step: #3L 22, #4L
+     88 (22 calls x 4 kernels), #3 2 and #4 4 a step, finite falling
+     losses, the peak memory; one eval batch (#3L 22, #3 2).
 
 Phase 3 also holds #1, #2, #1h and #2h (bf16) at ViT-S's shapes (256, 6,
 196, 64) and (256, 6, 294, 64).  On every cropped path the input stage is
@@ -286,6 +297,22 @@ WIN_TOL = dict(atol=2e-5, rtol=1e-5)
 # (bw, h, n, d, P) of the JAX tests (bw 4 / 8 / 12, two pair patterns = four
 # of the port's) checked beside the main path's
 WIN_JAX_CASES = [(4, 2, 16, 8, 4), (8, 2, 16, 8, 4), (12, 2, 16, 8, 4)]
+# SwinV2-B/w16 (generate_config("swinv2b", "dct"): bf16 AMP, the window
+# kernels float32): 32x32 blocks -> 64x64 tokens, windows of 16x16 = 256
+# tokens in stages 1-3 (#3L, #4L), stage 4's 8x8 map one window of 64 (#3,
+# #4); head dim 32; the preset's batch of 256 on one card
+SWINB_BATCH = 256
+SWINB_TRAIN_STEPS = 10  # counted steps, after one warm-up step
+# (windows per image, heads, N, shifted-block patterns) of the four stages:
+# stage 3's 16x16 map is one window, so none of its 18 blocks shifts
+SWINB_STAGES = [(16, 4, 256, 16), (4, 8, 256, 4), (1, 16, 256, None), (1, 32, 64, None)]
+SWINB_BLOCKS_PER_STAGE = (2, 2, 18, 2)
+# #3L and #4L against float64, as a share of the reference's largest entry,
+# output by output: 3xTF32 leaves about float32's own error (the float32
+# plain version's); operands rounded once to TF32 (2^-11) read 5.7e-4 or
+# more on the card tests' shapes.  The card tests' TILED_TOL; the kernel
+# phase checks that the TF32-rounded control fails it.
+TILED_TOL = 2e-5
 N_CODEC = 256  # JPEG files of the codec phase
 N_CELL_IMAGES = 16  # of them, constant 16x16 colour cells at quality 100
 # the trainer phases: ViT-Ti at its preset's width, batch 256, on JPEGs the
@@ -1270,6 +1297,19 @@ def window_bounds_ms(case) -> tuple[dict, dict]:
             product_bounds_ms(10 * n * n * d * bw * h, 7 * qkv + 2 * bias))
 
 
+@functools.cache
+def benchmark_bounds():
+    """The benchmark's own bounds, ``portbench/bounds.py`` (it imports
+    nothing), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "bounds.py")
+    spec = importlib.util.spec_from_file_location("portbench_bounds", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def window_blocks(batch: int) -> list[tuple[tuple, int]]:
     """(case, blocks) of one SwinV2-T pass at ``batch``: each stage's even
     blocks unshifted, its odd ones shifted (stage 4, one window, never
@@ -1427,6 +1467,278 @@ def kernel_window_attention(gen) -> tuple[dict, dict]:
                 "rgbnomore_tpu/ops/pallas/attention.py:170", bwd_err, bwd_rows[main],
                 "window_attention_bwd", f"<{(WIN_D + 15) // 16},{(WIN_N + 15) // 16}>",
                 {"train_step": step["bwd"]})
+    return fwd, bwd
+
+
+def swinb_blocks(batch: int) -> list[tuple[tuple, int]]:
+    """(case, blocks) of one SwinV2-B/w16 pass at ``batch``, (bw, h, n, d,
+    P) as ``window_blocks``: each stage's even blocks unshifted, its odd
+    ones shifted where the stage has more than one window."""
+    out = []
+    for (wins, heads, n, shifted), n_blocks in zip(SWINB_STAGES, SWINB_BLOCKS_PER_STAGE):
+        n_shift = n_blocks // 2 if shifted else 0
+        out.append(((batch * wins, heads, n, WIN_D, 1), n_blocks - n_shift))
+        if n_shift:
+            out.append(((batch * wins, heads, n, WIN_D, shifted), n_shift))
+    return out
+
+
+def tiled_inputs(gen, case):
+    """As ``window_inputs`` (q cosine-normalized times 10, k normalized, v
+    and the output gradient N(0, 1), a 16 U(0, 1) bias), with SwinV2's own
+    -100 shift mask (``models/swinv2.py:_shift_attn_mask``) on the P
+    patterns of a shifted block of square windows."""
+    import torch
+
+    from rgbnomore_tpu_torch.models.swinv2 import _shift_attn_mask
+
+    bw, h, n, d, p = case
+    q, k, v, g = (torch.randn((bw, h, n, d), generator=gen, device="cuda") for _ in range(4))
+    q = 10.0 * q / q.norm(dim=-1, keepdim=True)
+    k = k / k.norm(dim=-1, keepdim=True)
+    bias = 16.0 * torch.rand((p, h, n, n), generator=gen, device="cuda")
+    if p > 1:
+        ws = math.isqrt(n)
+        side = ws * math.isqrt(p)
+        bias = bias + torch.from_numpy(_shift_attn_mask(side, side, ws, ws // 2)).cuda()[:, None]
+    return q.contiguous(), k.contiguous(), v, g, bias.contiguous()
+
+
+def to_tf32(x):
+    """``x`` rounded once to TF32 (10 mantissa bits, to nearest)."""
+    import torch
+
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+TILED_OUTPUTS = ("out", "dq", "dk", "dv", "db")
+
+
+def tiled_errors(got, q, k, v, bias, g) -> dict:
+    """Errors of the outputs ``got`` (out, dq, dk, dv, db) as shares of the
+    float64 reference's largest entry, output by output: ``kernel`` (got
+    against float64), ``vs_plain`` (got against the float32 plain version),
+    ``plain`` (the plain version against float64) and ``control`` (float64
+    on q, k, v and dO rounded once to TF32, against float64).  The
+    references run over slices of whole bias patterns, about 2^26 logits a
+    slice; the bias gradients are summed over the slices."""
+    import torch
+
+    from rgbnomore_tpu_torch.ops.window_attention import window_attention_plain
+
+    def grads(xq, xk, xv, xg, dtype):
+        leaves = [x.detach().to(dtype).requires_grad_(True) for x in (xq, xk, xv, bias)]
+        with torch.enable_grad():
+            out = window_attention_plain(*leaves)
+            return (out.detach(), *torch.autograd.grad(out, leaves, xg.to(dtype)))
+
+    bw, h, n, _ = q.shape
+    p = bias.shape[0]
+    step = max(1, (1 << 26) // (h * n * n * p)) * p
+    err = {who: [0.0] * 5 for who in ("kernel", "vs_plain", "plain", "control")}
+    top = [0.0] * 4
+    dbs = {who: torch.zeros(bias.shape, dtype=torch.float64, device=q.device)
+           for who in ("ref", "plain", "control")}
+    for s in range(0, bw, step):
+        part = [x[s:s + step] for x in (q, k, v, g)]
+        ref = grads(*part, torch.float64)
+        plain = grads(*part, torch.float32)
+        control = grads(*(to_tf32(x) for x in part), torch.float64)
+        mine = [x[s:s + step] for x in got[:4]]
+        for i in range(4):
+            top[i] = max(top[i], float(ref[i].abs().max()))
+            for who, a, b in (("kernel", mine[i], ref[i]), ("vs_plain", mine[i], plain[i]),
+                              ("plain", plain[i], ref[i]), ("control", control[i], ref[i])):
+                err[who][i] = max(err[who][i], float((a.double() - b.double()).abs().max()))
+        for who, res in (("ref", ref), ("plain", plain), ("control", control)):
+            dbs[who] += res[4].double()
+        del ref, plain, control
+    for i in range(4):
+        for who in err:
+            err[who][i] /= top[i]
+    db_top = float(dbs["ref"].abs().max())
+    for who, a, b in (("kernel", got[4], dbs["ref"]), ("vs_plain", got[4], dbs["plain"]),
+                      ("plain", dbs["plain"], dbs["ref"]),
+                      ("control", dbs["control"], dbs["ref"])):
+        err[who][4] = float((a.double() - b).abs().max()) / db_top
+    return {who: dict(zip(TILED_OUTPUTS, e)) for who, e in err.items()}
+
+
+def sdpa_windows(q, k, v, bias):
+    """SDPA with the (P, H, N, N) bias as its float ``attn_mask``, ``scale=1``:
+    the windows viewed (BW / P, P H, N, D), so that one broadcast view of
+    the bias, (1, P H, N, N), gives each window its own pattern."""
+    import torch.nn.functional as F
+
+    bw, h, n, d = q.shape
+    p = bias.shape[0]
+    qs, ks, vs = (x.view(bw // p, p * h, n, d) for x in (q, k, v))
+    mask = bias.view(1, p * h, n, n).expand(bw // p, p * h, n, n)
+    return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=1.0)
+
+
+def kernel_window_attention_tiled(gen) -> tuple[dict, dict]:
+    """Kernels #3L and #4L (windows of 65-256 tokens) at each SwinV2-B/w16
+    shape of a train step at batch 256 (stages 1-3, unshifted and
+    shifted): the forward through ``window_attention`` and its four
+    gradients against float64 and the float32 plain version
+    (``tiled_errors``) within ``TILED_TOL`` of the largest entry, a
+    TF32-rounded control beyond it on every output, two runs of each giving
+    the same bits; then each shape timed beside the bounds, the plain
+    version and SDPA, with its device time, and the times summed over one
+    step's 24 calls (stage 4's two on #3 and #4).  Last, the tiled pair at
+    SwinV2-T's shapes (N = 64) against #3 and #4, device time per train
+    step of 128: what keeping both pairs rests on.  The report's numbers
+    are stage 1, unshifted."""
+    import torch
+
+    from rgbnomore_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_bwd,
+        window_attention_plain,
+        window_attention_tiled_bwd,
+        window_attention_tiled_fwd,
+    )
+
+    blocks = swinb_blocks(SWINB_BATCH)
+    checked = ("kernel", "vs_plain", "plain")
+    worst = {part: dict.fromkeys(checked, 0.0) for part in ("fwd", "bwd")}
+    for case, _ in blocks:
+        if case[2] <= WIN_N:
+            continue
+        q, k, v, g, bias = tiled_inputs(gen, case)
+        with torch.inference_mode():
+            routed = window_attention(q, k, v, bias)
+        out, lse = window_attention_tiled_fwd(q, k, v, bias, lse=True)
+        out2, lse2 = window_attention_tiled_fwd(q, k, v, bias, lse=True)
+        got = (out, *window_attention_tiled_bwd(q, k, v, bias, out, lse, g))
+        again = (out2, *window_attention_tiled_bwd(q, k, v, bias, out2, lse2, g))
+        torch.cuda.synchronize()
+        check(torch.equal(routed, out) and torch.equal(lse, lse2),
+              f"window_attention_tiled {case}: window_attention or a second run differs")
+        for tag, a, b in zip(TILED_OUTPUTS, got, again):
+            check(torch.equal(a, b), f"window_attention_tiled {case} {tag} differs between runs")
+        errs = tiled_errors(got, q, k, v, bias, g)
+        for tag in TILED_OUTPUTS:
+            for who in checked:
+                check(errs[who][tag] < TILED_TOL, f"window_attention_tiled {case} {tag}: {who} "
+                      f"error {errs[who][tag]:.2e} of the largest entry, beyond {TILED_TOL}")
+            check(errs["control"][tag] > TILED_TOL,
+                  f"window_attention_tiled {case} {tag}: the TF32-rounded control reads "
+                  f"{errs['control'][tag]:.2e}, within {TILED_TOL}")
+        for who in checked:
+            worst["fwd"][who] = max(worst["fwd"][who], errs[who]["out"])
+            worst["bwd"][who] = max(worst["bwd"][who],
+                                    *(errs[who][t] for t in TILED_OUTPUTS[1:]))
+        print(f"kernels: window_attention_tiled {case} of the float64 largest entry, out/dq/dk/"
+              f"dv/db: " + "; ".join(f"{who} " + "/".join(f"{e:.1e}" for e in errs[who].values())
+                                     for who in errs), flush=True)
+        del q, k, v, g, bias, routed, out, out2, lse, lse2, got, again
+        torch.cuda.empty_cache()
+
+    def times(case) -> tuple[dict, dict]:
+        q, k, v, g, bias = tiled_inputs(gen, case)
+        if case[2] > WIN_N:
+            out, lse = window_attention_tiled_fwd(q, k, v, bias, lse=True)
+            bwd = lambda: window_attention_tiled_bwd(q, k, v, bias, out, lse, g)  # noqa: E731
+        else:
+            bwd = lambda: window_attention_bwd(q, k, v, bias, g)  # noqa: E731
+        with torch.inference_mode():
+            fwd = {"ms": time_ms(lambda: window_attention(q, k, v, bias)),
+                   "device": device_ms(lambda: window_attention(q, k, v, bias)),
+                   "plain": time_ms(lambda: window_attention_plain(q, k, v, bias),
+                                    reps=10, warmup=2),
+                   "sdpa": time_ms(lambda: sdpa_windows(q, k, v, bias)),
+                   "sdpa_device": device_ms(lambda: sdpa_windows(q, k, v, bias))}
+        back = {"ms": time_ms(bwd), "device": device_ms(bwd)}
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+        res = window_attention_plain(*leaves)
+        back["plain"] = time_ms(lambda: torch.autograd.grad(res, leaves, g, retain_graph=True),
+                                reps=10, warmup=2)
+        res = sdpa_windows(*leaves)
+        gs = g.view_as(res)
+        back["sdpa"] = time_ms(lambda: torch.autograd.grad(res, leaves, gs, retain_graph=True))
+        back["sdpa_device"] = device_ms(
+            lambda: torch.autograd.grad(res, leaves, gs, retain_graph=True))
+        fwd["bound"], back["bound"] = window_bounds_ms(case)
+        fwd["bench"], back["bench"] = (1e3 * benchmark_bounds().window_bound_s(*case, b)
+                                       for b in (False, True))
+        return fwd, back
+
+    def line(tag, case, r) -> str:
+        (tc, tc_by), (f32, _) = r["bound"]["tc"], r["bound"]["f32"]
+        return (f"kernels: {tag} {case}: {r['ms']:.4f} ms (device {ms_text(r['device'])}), plain "
+                f"{r['plain']:.4f}, sdpa {r['sdpa']:.4f} (device {ms_text(r['sdpa_device'])}); "
+                f"bound 3xTF32 {tc:.4f} ({tc_by}, {100 * tc / r['ms']:.1f}%), the benchmark's "
+                f"{r['bench']:.4f} ({100 * r['bench'] / r['ms']:.1f}%), float32 {f32:.4f} "
+                f"({100 * f32 / r['ms']:.1f}%)")
+
+    rows = {}
+    for case, _ in blocks:
+        rows[case] = times(case)
+        torch.cuda.empty_cache()
+        for tag, r in zip(("window_attention_tiled", "window_attention_tiled_bwd"), rows[case]):
+            print(line(tag if case[2] > WIN_N else tag.replace("_tiled", ""), case, r),
+                  flush=True)
+    step = {}
+    for i, tag in enumerate(("fwd", "bwd")):
+        step[tag] = {key: None if any(rows[c][i][key] is None for c, _ in blocks)
+                     else sum(nb * rows[c][i][key] for c, nb in blocks)
+                     for key in ("ms", "device", "plain", "sdpa", "sdpa_device", "bench")}
+        for key in ("tc", "f32"):
+            step[tag][key] = sum(nb * rows[c][i]["bound"][key][0] for c, nb in blocks)
+        t = step[tag]
+        print(f"kernels: window_attention {tag} per SwinV2-B/w16 train step of {SWINB_BATCH} "
+              f"(24 calls, 22 tiled): {t['ms']:.4f} ms (device {ms_text(t['device'])}), plain "
+              f"{t['plain']:.4f}, sdpa {t['sdpa']:.4f} (device {ms_text(t['sdpa_device'])}); "
+              f"bound 3xTF32 {t['tc']:.4f}, the benchmark's {t['bench']:.4f}, float32 "
+              f"{t['f32']:.4f}",
+              flush=True)
+
+    # the tiled pair where #3 and #4 run: SwinV2-T's stages at its train batch
+    pair_ms = {"#3/#4": [0.0, 0.0], "#3L/#4L": [0.0, 0.0]}
+    for case, nb in window_blocks(SWIN_TRAIN_BATCH):
+        q, k, v, g, bias = window_inputs(gen, case)
+        out, lse = window_attention_tiled_fwd(q, k, v, bias, lse=True)
+        pairs = {"#3/#4": (lambda: window_attention(q, k, v, bias),
+                           lambda: window_attention_bwd(q, k, v, bias, g)),
+                 "#3L/#4L": (lambda: window_attention_tiled_fwd(q, k, v, bias),
+                             lambda: window_attention_tiled_bwd(q, k, v, bias, out, lse, g))}
+        got = {}
+        with torch.inference_mode():
+            for who, calls in pairs.items():
+                got[who] = [device_ms(call) for call in calls]
+        for who, ms in got.items():
+            for i in range(2):
+                pair_ms[who][i] += nb * (math.nan if ms[i] is None else ms[i])
+        print(f"kernels: window_attention {case} device fwd / bwd: " + ", ".join(
+            f"{who} {ms_text(ms[0])} / {ms_text(ms[1])}" for who, ms in got.items()), flush=True)
+    print(f"kernels: window_attention per SwinV2-T train step of {SWIN_TRAIN_BATCH} (12 calls), "
+          f"device fwd / bwd: " + ", ".join(f"{who} {ms[0]:.4f} / {ms[1]:.4f} ms"
+                                            for who, ms in pair_ms.items()), flush=True)
+
+    def entry(name, source, r, lib, part, per_pass):
+        nc = (WIN_D + 15) // 16
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "rgbnomore_tpu/ops/pallas/attention.py:156 (fwd), :170 (bwd) past "
+                            "64 tokens",
+                "launches": None, "max_err_of_largest": worst[part]["kernel"],
+                "max_err_of_largest_vs_plain": worst[part]["vs_plain"], "ms": r["ms"],
+                "plain_ms": r["plain"], **product_kernel_entry(r["ms"], r["bound"]),
+                "bound_bench_ms": r["bench"], "library_ms": r["sdpa"], "device_ms": r["device"],
+                "library_device_ms": r["sdpa_device"],
+                "ptxas": {key: val for key, val in PTXAS.get(lib, {}).items()
+                          if key.endswith((f"<{nc}>", "<>"))},
+                "per_pass": per_pass}
+
+    main = blocks[0][0]  # stage 1, unshifted
+    fwd = entry("window_attention_tiled", "rgbnomore_tpu_torch/csrc/window_attention_tiled_fwd.cu",
+                rows[main][0], "window_attention_tiled_fwd", "fwd",
+                {"train_step": step["fwd"], "swinv2t_train_step_device": pair_ms})
+    bwd = entry("window_attention_tiled_bwd",
+                "rgbnomore_tpu_torch/csrc/window_attention_tiled_bwd.cu", rows[main][1],
+                "window_attention_tiled_bwd", "bwd", {"train_step": step["bwd"]})
     return fwd, bwd
 
 
@@ -1651,6 +1963,8 @@ def phase_kernels() -> dict:
     report["fused_flip_aug_range"] = kernel_augpipe()
     report["augpipe_wire"] = kernel_augpipe_wire()
     report["window_attention"], report["window_attention_bwd"] = kernel_window_attention(gen)
+    report["window_attention_tiled"], report["window_attention_tiled_bwd"] = (
+        kernel_window_attention_tiled(gen))
     kernel_attention_vits(report, gen)
     for entry in kernel_linear(gen):
         report[entry["name"]] = entry
@@ -1668,6 +1982,8 @@ LAUNCH_COUNTERS = {"fused_attention": "fused_attention_fwd",
                    "fused_attention_h16_bwd": "fused_attention_h16_bwd",
                    "window_attention": "window_attention_fwd",
                    "window_attention_bwd": "window_attention_bwd",
+                   "window_attention_tiled": "window_attention_tiled_fwd",
+                   "window_attention_tiled_bwd": "window_attention_tiled_bwd",
                    **{name: name for name in AUGPIPE_WRAPPERS},
                    **{name: name for name in LINEAR_WRAPPERS}}
 
@@ -4169,6 +4485,77 @@ def phase_harness(report: dict) -> None:
         harness_cli(tmp, weights)
     print(f"harness: {time.perf_counter() - t0:.1f} s", flush=True)
 
+def phase_swinv2b(report: dict) -> None:
+    """SwinV2-B at window 16 under its own preset (``generate_config(
+    "swinv2b", "dct")``: bf16 AMP, embed 128, depths (2, 2, 18, 2), heads
+    (4, 8, 16, 32), window 16, drop path 0.5) at batch 256 on the K=16
+    wire: 1 + 10 train steps on one repeated batch (warmup 1, lr 1e-3), the
+    counters reset just before each counted step and read after it: #3L 22
+    and #4L 88 (22 calls x 4 kernels), #3 2 and #4 4 (stage 4's blocks),
+    one wire launch, no ViT attention; finite falling losses; the peak
+    memory; then one eval batch of 256 (#3L 22, #3 2)."""
+    import torch
+
+    from rgbnomore_tpu_torch.train.config import generate_config
+    from rgbnomore_tpu_torch.train.loop import Trainer
+
+    torch.cuda.empty_cache()
+    cfg = generate_config("swinv2b", "dct", batchsize=SWINB_BATCH, seed=SEED, epochs=1,
+                          warmup_steps=1, lr=1e-3)
+    m = cfg.model
+    check(m.arch == "swinv2" and m.embed_size == 128 and tuple(m.depth) == (2, 2, 18, 2)
+          and tuple(m.heads) == (4, 8, 16, 32) and m.window_size == 16 and m.drop_path == 0.5
+          and m.dct_blocks == SWIN_GRID and cfg.train.amp and m.amp_dtype == "bf16",
+          f"the swinv2b preset changed: {m}")
+    trainer = Trainer(cfg, device="cuda")
+    check(abs(trainer.model.drop_path_rates[-1] - 0.5) < 1e-9, "swinv2b drop path is not 0.5")
+    trainer.create_state(steps_per_epoch=SWINB_TRAIN_STEPS + 1)
+    rng = np.random.default_rng(SEED + 9)
+    y, c = synthetic_planes(rng, SWINB_BATCH, SWIN_GRID)
+    rows = write_rows(y, c, (np.arange(SWINB_BATCH) % 1000).astype(np.int32), K_TRAIN)
+    packed = trainer.put_batch({"packed": rows})["packed"]
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(packed)]  # warm-up
+    torch.cuda.synchronize()
+    want = {"window_attention_tiled": 22, "window_attention_tiled_bwd": 88,
+            "window_attention": 2, "window_attention_bwd": 4}
+    train_s = 0.0
+    for _ in range(SWINB_TRAIN_STEPS):
+        reset_launches()
+        with plain_unpacks() as unpacks:
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(packed))
+            torch.cuda.synchronize()
+            train_s += time.perf_counter() - t0
+        launches = all_launches()
+        check_launches("swinv2b train step", launches, want)
+        check_input_stage(report, "swinv2b_train", launches, len(unpacks), train_steps=1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for name, n in want.items():
+        report[name].setdefault("launches_by_path", {})["swinv2b_train_step"] = n
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"swinv2b losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"swinv2b loss did not fall: {losses}")
+    print(f"swinv2b train: {SWINB_TRAIN_STEPS} steps of {SWINB_BATCH} in {train_s:.3f} s, "
+          f"{SWINB_TRAIN_STEPS * SWINB_BATCH / train_s:.1f} img/s (pipeline + step, one "
+          f"resident batch, bf16, a sync a step) | launches a step {launches} | loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} | peak memory {peak_gib:.2f} GiB", flush=True)
+    print(f"swinv2b train: losses {[round(v, 4) for v in losses]}", flush=True)
+
+    y, c = synthetic_planes(rng, SWINB_BATCH, SWIN_GRID)
+    eval_rows = write_rows(y, c, (np.arange(SWINB_BATCH) % 1000).astype(np.int32), K_EVAL)
+    reset_launches()
+    with plain_unpacks() as unpacks:
+        res = trainer.evaluate([{"packed": eval_rows}])
+    launches = all_launches()
+    check_input_stage(report, "swinv2b_eval", launches, len(unpacks), eval_batches=1)
+    check_launches("swinv2b eval", launches, {"window_attention_tiled": 22,
+                                              "window_attention": 2})
+    check(res["count"] == SWINB_BATCH and math.isfinite(res["loss"]), f"swinv2b eval gave {res}")
+    print(f"swinv2b eval: {res} | launches a batch {launches}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4232,6 +4619,7 @@ def main() -> int:
         phase_rgb_paths(report, tmp, index_train, index_val)
     phase_dct_ops(report)
     phase_harness(report)
+    phase_swinv2b(report)
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

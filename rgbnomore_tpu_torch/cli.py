@@ -49,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     # model config
     p.add_argument("--model_arch", type=str, default="vits",
-                   help="Model architecture (vitti, vits, vitb, vitl, swinv2)")
+                   help="Model architecture (vitti, vits, vitb, vitl, swinv2, swinv2b)")
     p.add_argument("--no_subblock", action="store_true", help="Disable subblock conversion")
     p.add_argument("--embed_type", type=int, default=2,
                    help="Embedding type: 1 grouped, 2 separate, 3 concatenate")

@@ -43,6 +43,8 @@ KERNELS = {
     "linear_tf32x3": "linear_tf32x3.cu",
     "window_attention_fwd": "window_attention_fwd.cu",
     "window_attention_bwd": "window_attention_bwd.cu",
+    "window_attention_tiled_fwd": "window_attention_tiled_fwd.cu",
+    "window_attention_tiled_bwd": "window_attention_tiled_bwd.cu",
 }
 
 NVCC_FLAGS = (

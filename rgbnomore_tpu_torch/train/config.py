@@ -2,7 +2,8 @@
 
 The dataclasses, augmentation lists, ``generate_config`` and
 ``update_runtime`` are a copy of ``rgbnomore_tpu/train/config.py``
-(reproducing ``utils/configs.py:60-178`` of the reference), and so is
+(reproducing ``utils/configs.py:60-178`` of the reference), but for the
+port's own ``swinv2b`` preset (SwinV2-B at window 16), and so is
 ``amp_compute_dtype``, which names torch dtypes.  ``build_model`` and
 ``example_inputs`` are the port's own and return torch modules and
 tensors.  Sentinel convention for CLI overrides: ``None`` means "use preset".
@@ -157,13 +158,21 @@ def generate_config(
         cfg.model.patch_size = 16
         cfg.train.amp = True
         cfg.model.amp_dtype = "bf16"
-    elif modelarch == "swinv2":
-        cfg.model.heads = (3, 6, 12, 24)
-        cfg.model.embed_size = 96
-        cfg.model.depth = (2, 2, 6, 2)
-        cfg.model.window_size = 8
+    elif modelarch in ("swinv2", "swinv2b"):
+        if modelarch == "swinv2":  # SwinV2-T/w8
+            cfg.model.heads = (3, 6, 12, 24)
+            cfg.model.embed_size = 96
+            cfg.model.depth = (2, 2, 6, 2)
+            cfg.model.window_size = 8
+            cfg.model.drop_path = 0.2
+        else:  # SwinV2-B/w16: swinv2_base_patch4_window16_256 (arXiv:2111.09883)
+            cfg.model.arch = "swinv2"
+            cfg.model.heads = (4, 8, 16, 32)
+            cfg.model.embed_size = 128
+            cfg.model.depth = (2, 2, 18, 2)
+            cfg.model.window_size = 16
+            cfg.model.drop_path = 0.5
         cfg.model.mlp_ratio = 4
-        cfg.model.drop_path = 0.2
         cfg.model.qkv_bias = True
         cfg.model.ape = False
         cfg.model.patch_norm = True
@@ -220,7 +229,7 @@ def generate_config(
             cfg.train.augstr = 10
 
     # dataset name + input geometry (reference: pipeline_utils.update_config)
-    swin = modelarch == "swinv2"
+    swin = cfg.model.arch == "swinv2"
     if cfg.model.domain == "DCT":
         cfg.train.dataset = "imagenet_dct_swin" if swin else "imagenet_dct"
         cfg.model.dct_blocks = 32 if swin else 28

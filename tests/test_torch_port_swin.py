@@ -11,7 +11,9 @@
   rtol 1e-3 (``tests/test_swin_import.py:95``).  The JAX init starts norm1
   and norm2 at scale 0, where every block is the identity and no attention
   reaches the logits, so every LayerNorm is perturbed first.  Measured:
-  1.5e-7 abs.
+  1.5e-7 abs.  The same at SwinV2-B/w16's window 16 (depths (2, 2, 2, 2),
+  heads (2, 2, 4, 4), embed 16, a 16x16 block grid): 256-token windows,
+  shifted and unshifted, then one of 256, 64 and 16 tokens.
 - The port's decay set equals JAX's ``kernel_mask`` on the SwinV2 tree.
 - ``Trainer.evaluate`` against the JAX ``Trainer`` (``transfer="cropped"``)
   on ``chip_smoke.write_rows`` rows, ``evaluate_model`` on tiny JPEGs
@@ -124,6 +126,24 @@ def test_logits_match_jax(jax_trainer, rng):
         got = model(torch.from_numpy(y), torch.from_numpy(c)).numpy()
     np.testing.assert_allclose(got, want, **LOGIT_TOL)
     assert np.abs(want).max() > 0.1  # the logits are not all near zero
+
+
+def test_logits_match_jax_at_window16(rng):
+    """The parity case at SwinV2-B/w16's window: 256-token windows, shifted
+    and unshifted, the clamp to one 256-token window, then 64 and 16."""
+    jax_w16 = jax_swin_trainer(window16=True)
+    model = port_swin_trainer(jax_w16, tiny_swin_cfg(generate_config, window16=True)).model
+    model = model.eval()
+    assert [(b.window_size, b.shift_size) for b in model.blocks()] == [
+        (16, 0), (16, 8), (16, 0), (16, 0), (8, 0), (8, 0), (4, 0), (4, 0)]
+    y = rng.uniform(-1, 1, (2, 1, 16, 16, 8, 8)).astype(np.float32)
+    c = rng.uniform(-1, 1, (2, 2, 8, 8, 8, 8)).astype(np.float32)
+    want = np.asarray(jax.jit(jax_w16.model.apply)({"params": jax_w16.state.params},
+                                                   jnp.asarray(y), jnp.asarray(c)))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(y), torch.from_numpy(c)).numpy()
+    np.testing.assert_allclose(got, want, **LOGIT_TOL)
+    assert np.abs(want).max() > 0.1
 
 
 def test_decay_mask_matches_kernel_mask(jax_trainer):

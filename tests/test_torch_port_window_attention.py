@@ -13,7 +13,11 @@ The bias maps between the two layouts: the Pallas kernel takes (NPAT, H,
 on pattern ``w % P``.  JAX's pattern ``(i % NPAT, slot)`` is the port's
 ``2 * (i % NPAT) + slot``, P = 2 * NPAT; the port's bias gradient is the
 diagonal blocks of JAX's.  The CUDA kernels themselves run only on a card:
-the tests marked ``cuda``.
+the tests marked ``cuda``: #3 and #4 (N <= 64) against the plain version at
+the Pallas tests' tolerances, and #3L and #4L (64 < N <= 256, SwinV2 at
+window 16) against float64 at a tolerance that operands rounded once to
+TF32 fail, both bit-identical from run to run, and ``window_attention``'s
+routing by N, read from the launch counters.
 """
 
 import jax
@@ -161,11 +165,40 @@ def test_refuses_bad_inputs(rng, bad, error):
         window_attention(q, *_t(k, v), bias)
 
 
-@pytest.mark.parametrize("n,d", [(65, 8), (16, 65)], ids=["tokens", "head_dim"])
+@pytest.mark.parametrize("n,d", [(257, 8), (16, 65)], ids=["tokens", "head_dim"])
 def test_refuses_beyond_the_kernel_limits(n, d):
     q = torch.zeros((2, 1, n, d))
-    with pytest.raises(ValueError, match="N <= 64 and D <= 64"):
+    with pytest.raises(ValueError, match="N <= 256 and D <= 64"):
         window_attention(q, q, q, torch.zeros((1, 1, n, n)))
+
+
+def test_takes_windows_of_256_tokens(rng):
+    """SwinV2 at window 16: N = 256 passes the check (on the CPU, the plain
+    path), and its gradient is autograd through the plain version."""
+    q, k, v = _t(*(rng.standard_normal((2, 1, 256, 8)).astype(np.float32) for _ in range(3)))
+    bias = torch.from_numpy(rng.standard_normal((2, 1, 256, 256)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 1, 256, 8)).astype(np.float32))
+    leaves = [x.requires_grad_(True) for x in (q, k, v, bias)]
+    window_attention(*leaves).backward(g)
+    for leaf, w in zip(leaves, window_attention_bwd_plain(q, k, v, bias, g)):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_kernel_wrappers_refuse_cpu_tensors(n):
+    """The kernels' wrappers, #3 and #4's and the tiled pair's, take CUDA
+    tensors only."""
+    from rgbnomore_tpu_torch.ops.window_attention import (window_attention_bwd,
+                                                          window_attention_fwd,
+                                                          window_attention_tiled_fwd)
+
+    q = torch.zeros((2, 1, n, 8))
+    bias = torch.zeros((1, 1, n, n))
+    for call in (lambda: window_attention_tiled_fwd(q, q, q, bias),
+                 lambda: window_attention_fwd(q, q, q, bias),
+                 lambda: window_attention_bwd(q, q, q, bias, q)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
 
 
 # ---------------------------------------------------------------- the card
@@ -233,3 +266,125 @@ def test_kernel_gradients_match_plain_on_card(case, chunk):
         assert torch.equal(a, b), f"d{name} differs between two runs"
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), err_msg=f"d{name}",
                                    **GRAD_TOL)
+
+
+# ------------------------------------------------ the card: #3L and #4L (N > 64)
+# (bw, h, n, d, P): SwinV2-B/w16's 256-token windows with one bias pattern
+# (an unshifted block; stage 3's 16 heads too) and with the shift's 4 and 16
+# patterns (stages 2 and 1), the bias carrying the -100 shift mask; then
+# ragged windows (12x12 under a shift mask, 9x9) and head dims
+TILED_CARD_CASES = [(32, 4, 256, 32, 1), (32, 4, 256, 32, 4), (32, 4, 256, 32, 16),
+                    (16, 16, 256, 32, 1), (8, 2, 144, 64, 4), (64, 2, 81, 16, 1),
+                    (6, 3, 100, 40, 3), (4, 2, 65, 8, 2)]
+# Of the float64 reference's largest entry, per output.  3xTF32 leaves an
+# error near float32's own (about 2^-21 of each product, grown over sums of
+# up to 256 terms, and over BW / P windows in the bias gradient): measured
+# at most 4.4e-6.  Operands rounded once to TF32 (2^-11) read 5.7e-4 or more
+# on every output of these cases: the tolerance sits between, 4.5x above
+# the one and 28x below the other, and the test checks that the control
+# fails it.
+TILED_TOL = 2e-5
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tiled_card_inputs(case, seed):
+    """q, k, v, dO (bw, h, n, d) and the bias (P, h, n, n): N(0, 1) each,
+    the bias plus SwinV2's -100 shift mask where P windows of a square
+    n tile a square map."""
+    from rgbnomore_tpu_torch.models.swinv2 import _shift_attn_mask
+
+    q, k, v, g, bias = _card_inputs(case, seed)
+    _, _, n, _, p = case
+    ws, side = round(n ** 0.5), round(p ** 0.5)
+    if p > 1 and ws * ws == n and side * side == p:
+        mask = _shift_attn_mask(ws * side, ws * side, ws, ws // 2)
+        bias = (bias + torch.from_numpy(mask).cuda()[:, None]).contiguous()
+    return q, k, v, g, bias
+
+
+def _float64_attention(q, k, v, bias, g, rounded=False):
+    """The plain version and its gradients in float64, on operands rounded
+    once to TF32 where ``rounded`` (the bias is kept)."""
+    if rounded:
+        q, k, v, g = (_tf32(x) for x in (q, k, v, g))
+    leaves = [x.double().requires_grad_(True) for x in (q, k, v, bias)]
+    with torch.enable_grad():
+        out = window_attention_plain(*leaves)
+        grads = torch.autograd.grad(out, leaves, g.double())
+    return (out.detach(), *grads)
+
+
+def _of_largest(got, want) -> float:
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TILED_CARD_CASES)
+def test_tiled_kernels_match_float64_on_card(case):
+    """#3L's output and #4L's four gradients against float64 at TILED_TOL of
+    the largest entry, which operands rounded once to TF32 fail; two runs of
+    each give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    from rgbnomore_tpu_torch.ops.window_attention import (window_attention_tiled_bwd,
+                                                          window_attention_tiled_fwd)
+
+    q, k, v, g, bias = _tiled_card_inputs(case, 1)
+    before = (launches("window_attention_tiled_fwd"), launches("window_attention_tiled_bwd"))
+    out, lse = window_attention_tiled_fwd(q, k, v, bias, lse=True)
+    got = (out, *window_attention_tiled_bwd(q, k, v, bias, out, lse, g))
+    again = (window_attention_tiled_fwd(q, k, v, bias, lse=True)[0],
+             *window_attention_tiled_bwd(q, k, v, bias, out, lse, g))
+    torch.cuda.synchronize()
+    assert (launches("window_attention_tiled_fwd"),
+            launches("window_attention_tiled_bwd")) == (before[0] + 2, before[1] + 8)
+    want = _float64_attention(q, k, v, bias, g)
+    control = _float64_attention(q, k, v, bias, g, rounded=True)
+    for name, a, b, w, c in zip(("out", "dq", "dk", "dv", "dbias"), got, again, want, control):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+        assert _of_largest(a, w) < TILED_TOL, f"{name}: {_of_largest(a, w):.2e}"
+        assert _of_largest(c, w) > TILED_TOL, f"the TF32 control passes on {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 5])
+def test_tiled_bias_gradient_over_chunks_on_card(chunk):
+    """The bias gradient summed by blocks of ``chunk`` windows of a pattern
+    agrees with the default chunking to float32's round-off; dq, dk, dv do
+    not depend on it."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    from rgbnomore_tpu_torch.ops.window_attention import (window_attention_tiled_bwd,
+                                                          window_attention_tiled_fwd)
+
+    q, k, v, g, bias = _tiled_card_inputs((48, 4, 256, 32, 4), 2)
+    out, lse = window_attention_tiled_fwd(q, k, v, bias, lse=True)
+    base = window_attention_tiled_bwd(q, k, v, bias, out, lse, g)
+    other = window_attention_tiled_bwd(q, k, v, bias, out, lse, g, chunk=chunk)
+    torch.cuda.synchronize()
+    for a, b in zip(base[:3], other[:3]):
+        assert torch.equal(a, b)
+    assert _of_largest(other[3], base[3].double()) < TILED_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, small", [(64, True), (256, False)], ids=["64", "256"])
+def test_window_attention_routes_by_tokens_on_card(n, small):
+    """Through ``window_attention`` with gradients: N = 64 launches #3 once
+    and #4 (two kernels), never the tiled pair; N = 256 launches #3L once
+    and #4L (four kernels), never #3 or #4."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    names = ("window_attention_fwd", "window_attention_bwd", "window_attention_tiled_fwd",
+             "window_attention_tiled_bwd")
+    q, k, v, g, bias = _card_inputs((8, 2, n, 32, 1), 3)
+    leaves = [x.requires_grad_(True) for x in (q, k, v, bias)]
+    before = [launches(name) for name in names]
+    window_attention(*leaves).backward(g)
+    torch.cuda.synchronize()
+    added = [launches(name) - b for name, b in zip(names, before)]
+    assert added == ([1, 2, 0, 0] if small else [0, 0, 1, 4])

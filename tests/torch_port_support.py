@@ -124,19 +124,27 @@ def jax_step_draws(trainer, base_rng, step, batch, grid):
                      float(jnp.maximum(u, 1.0 - u)))
 
 
-def tiny_swin_cfg(gen, batch=4, classes=10, drop_path=0.0, amp_dtype=None):
+def tiny_swin_cfg(gen, batch=4, classes=10, drop_path=0.0, amp_dtype=None, window16=False):
     """A SwinV2 config that reaches every branch at a tiny size, from
     ``gen`` (the JAX package's or the port's ``generate_config``): depths
     (2, 2, 2), heads (2, 4, 8), embed 32, window 4, an 8x8 block grid (16x16
     tokens: 16 windows, then 4, each stage's odd block shifted, stage 3
     clamped to one window), in float32, or with ``amp_dtype`` ("bf16",
-    "fp16") under AMP in it."""
+    "fp16") under AMP in it.  ``window16``: SwinV2-B/w16's window instead,
+    depths (2, 2, 2, 2), heads (2, 2, 4, 4), embed 16, a 16x16 block grid
+    (32x32 tokens: 4 windows of 256 tokens, the odd block shifted by 8, then
+    one of 256, 64 and 16 tokens)."""
     cfg = gen("swinv2", "dct", batchsize=batch, epochs=1, warmup_steps=2, seed=5)
     cfg.model.depth, cfg.model.heads = (2, 2, 2), (2, 4, 8)
     cfg.model.embed_size, cfg.model.window_size = 32, 4
     cfg.model.pretrained_window_sizes = (0, 0, 0)
     cfg.model.drop_path, cfg.model.classes = drop_path, classes
     cfg.model.dct_blocks, cfg.model.input_size = 8, 64
+    if window16:
+        cfg.model.depth, cfg.model.heads = (2, 2, 2, 2), (2, 2, 4, 4)
+        cfg.model.embed_size, cfg.model.window_size = 16, 16
+        cfg.model.pretrained_window_sizes = (0, 0, 0, 0)
+        cfg.model.dct_blocks, cfg.model.input_size = 16, 128
     cfg.train.amp = amp_dtype is not None
     if amp_dtype is not None:
         cfg.model.amp_dtype = amp_dtype
@@ -162,9 +170,9 @@ def perturb_norms(params, rng):
     return out
 
 
-def jax_swin_trainer(amp_dtype=None):
+def jax_swin_trainer(amp_dtype=None, window16=False):
     """The JAX Trainer (``transfer="cropped"``) at :func:`tiny_swin_cfg`
-    (with ``amp_dtype``), its LayerNorms perturbed.  Its ``model.init`` runs under ``jax.jit`` (10 s
+    (with ``amp_dtype``, ``window16``), its LayerNorms perturbed.  Its ``model.init`` runs under ``jax.jit`` (10 s
     here, 30 s eagerly; the same parameters)."""
     import jax
     import jax.numpy as jnp
@@ -179,7 +187,8 @@ def jax_swin_trainer(amp_dtype=None):
         params = jax.jit(model.init)(rng, *example_batch)["params"]
         return TrainState.create(apply_fn=model.apply, params=params, tx=tx)
 
-    trainer = loop.Trainer(tiny_swin_cfg(generate_config, amp_dtype=amp_dtype),
+    trainer = loop.Trainer(tiny_swin_cfg(generate_config, amp_dtype=amp_dtype,
+                                         window16=window16),
                            devices=jax.devices()[:1], transfer="cropped", fused_aug=False)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(loop, "create_train_state", create_train_state)
