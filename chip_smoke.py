@@ -600,16 +600,16 @@ def device_ms(fn, reps: int = 10) -> float | None:
     return None
 
 
-def product_bounds_ms(flop: float, nbytes: float) -> dict:
+def product_bounds_ms(flop: float, nbytes: float, products: int = 3) -> dict:
     """The least times, in ms, of a kernel that does ``flop`` float32 FLOP
     of matrix products and moves ``nbytes``: ``f32`` with the products on
-    the CUDA cores, ``tc`` with them in 3xTF32 on the tensor cores (three
-    TF32 products per float32 product), each against the bytes; each with
-    what bounds it."""
+    the CUDA cores, ``tc`` with them on the tensor cores in ``products``
+    TF32 products per float32 product (3xTF32; two where one operand is
+    exact in TF32), each against the bytes; each with what bounds it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
     out = {}
     for tag, t_ops in (("f32", flop / PEAK_F32_FLOP_PER_S),
-                       ("tc", 3 * flop / PEAK_TF32_FLOP_PER_S)):
+                       ("tc", products * flop / PEAK_TF32_FLOP_PER_S)):
         out[tag] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
     return out
 
@@ -1860,7 +1860,9 @@ def kernel_attention_vits(report: dict, gen) -> None:
 
 # (tag, rows M, in K, out N) of #6's shapes: ViT-S/16's four block Linears at
 # batches 1,024 and 256 (196 tokens), a SwinV2-T stage-1 block's at batch 128
-# (4,096 tokens) and its first patch merging
+# (4,096 tokens) and its first patch merging; then SwinV2's qkv products,
+# stage by stage, at the benchmark cells' batches (SwinV2-T 512, SwinV2-B/w16
+# 256), whose weight is in bf16 under the presets' AMP
 LINEAR_SHAPES = [
     *((f"vits{b} {name}", b * 196, k, n) for b in (1024, 256)
       for name, k, n in (("qkv", 384, 1152), ("proj", 384, 384), ("mlp1", 384, 1536),
@@ -1869,18 +1871,29 @@ LINEAR_SHAPES = [
       for name, k, n in (("proj", 96, 96), ("mlp1", 96, 384), ("mlp2", 384, 96))),
     ("swin128 reduction", 128 * 1024, 384, 192),
 ]
+SWIN_QKV_SHAPES = [
+    *((f"swinv2t s{i + 1} qkv", 512 * tokens, k, 3 * k)
+      for i, (tokens, k) in enumerate(((4096, 96), (1024, 192), (256, 384), (64, 768)))),
+    *((f"swinv2b s{i + 1} qkv", 256 * tokens, k, 3 * k)
+      for i, (tokens, k) in enumerate(((4096, 128), (1024, 256), (256, 512), (64, 1024)))),
+]
 LINEAR_WRAPPERS = ("linear_tf32x3_fwd", "linear_tf32x3_dgrad", "linear_tf32x3_wgrad")
 
 
 def kernel_linear(gen) -> list[dict]:
     """#6 (``ops/linear.py``): the forward, input gradient and weight
-    gradient at ``LINEAR_SHAPES``, each against its plain version
-    (``mm_tf32x3``) and float64 (max abs errors; the kernel within 2e-5 of
-    the largest float64 entry), the weight gradient and bias gradient
-    repeated bit for bit; each timed beside its 3xTF32 bound, the plain
-    version and cuBLAS float32 (``library_ms``: ``F.linear``, ``dy @ w``,
-    ``dy.T @ x`` with ``dy.sum(0)``).  One entry per product, its shapes
-    under ``shapes``."""
+    gradient at ``LINEAR_SHAPES`` and ``SWIN_QKV_SHAPES``, each against its
+    plain version (``mm_tf32x3``) and float64 (max abs errors; the kernel
+    within 2e-5 of the largest float64 entry of each), the weight gradient
+    and bias gradient repeated bit for bit; each timed beside its 3xTF32
+    bound, the plain version and cuBLAS float32 (``library_ms``:
+    ``F.linear``, ``dy @ w``, ``dy.T @ x`` with ``dy.sum(0)``).  At
+    SwinV2's qkv shapes the weight is rounded to bf16, and the forward and
+    input gradient run again with the weight in bf16 (``weight`` "bf16":
+    its zero lo half left out, two products a k step): checked as above and
+    equal to the float32 weight's three-product launch bit for bit, timed
+    beside the two-product bound.  One entry per product, its shapes under
+    ``shapes``."""
     import torch
     import torch.nn.functional as F
 
@@ -1891,39 +1904,58 @@ def kernel_linear(gen) -> list[dict]:
                       "replaces": "none (the JAX package's Dense products run in XLA)",
                       "launches": None, "max_abs_err": 0.0, "shapes": []}
                for name in LINEAR_WRAPPERS}
-    for tag, m, k, n in LINEAR_SHAPES:
+    for tag, m, k, n in LINEAR_SHAPES + SWIN_QKV_SHAPES:
+        qkv = (tag, m, k, n) in SWIN_QKV_SHAPES
         x = torch.randn(m, k, generator=gen, device="cuda")
         w = torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5
+        if qkv:  # the presets' qkv weight, rounded to bf16 before the product
+            w = w.bfloat16().float()
         b = torch.randn(n, generator=gen, device="cuda")
         dy = torch.randn(m, n, generator=gen, device="cuda")
         wt = w.T.contiguous()
-        runs = {
-            "linear_tf32x3_fwd": (lambda: L.linear_fwd(x, w, b), lambda: L.linear_plain(x, w, b),
-                                  lambda: F.linear(x, w, b),
-                                  lambda: F.linear(x.double(), w.double(), b.double())),
-            "linear_tf32x3_dgrad": (lambda: L.linear_dgrad(dy, w), lambda: L.mm_tf32x3(dy, wt),
-                                    lambda: dy @ w, lambda: dy.double() @ w.double()),
-            "linear_tf32x3_wgrad": (lambda: L.linear_wgrad(dy, x),
-                                    lambda: (L.mm_tf32x3(dy.T.contiguous(), x.T.contiguous()),
-                                             dy.sum(0)),
-                                    lambda: (dy.T @ x, dy.sum(0)),
-                                    lambda: (dy.double().T @ x.double(), dy.double().sum(0))),
-        }
+        # (wrapper, weight, kernel, plain, library, float64)
+        runs = [
+            ("linear_tf32x3_fwd", "float32", lambda: L.linear_fwd(x, w, b),
+             lambda: L.linear_plain(x, w, b), lambda: F.linear(x, w, b),
+             lambda: F.linear(x.double(), w.double(), b.double())),
+            ("linear_tf32x3_dgrad", "float32", lambda: L.linear_dgrad(dy, w),
+             lambda: L.mm_tf32x3(dy, wt), lambda: dy @ w, lambda: dy.double() @ w.double()),
+            ("linear_tf32x3_wgrad", "float32", lambda: L.linear_wgrad(dy, x),
+             lambda: (L.mm_tf32x3(dy.T.contiguous(), x.T.contiguous()), dy.sum(0)),
+             lambda: (dy.T @ x, dy.sum(0)),
+             lambda: (dy.double().T @ x.double(), dy.double().sum(0))),
+        ]
+        if qkv:
+            wh = w.bfloat16()
+            runs += [(name, "bf16", kernel, plain, library, exact)
+                     for (name, _, _, plain, library, exact), kernel in zip(
+                         runs[:2], (lambda: L.linear_fwd(x, wh, b),
+                                    lambda: L.linear_dgrad(dy, wh)))]
         flop = 2 * m * n * k
-        for name, (kernel, plain, library, exact) in runs.items():
+        three = {}  # the float32 weight's forward and input gradient
+        for name, weight, kernel, plain, library, exact in runs:
             got, want, ref = kernel(), plain(), exact()
             torch.cuda.synchronize()
             got, want, ref = ((t,) if torch.is_tensor(t) else t for t in (got, want, ref))
             err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+            gap = max(float((g - p).abs().max() / r.abs().max())
+                      for g, p, r in zip(got, want, ref))
             rel = max(float((g.double() - r).abs().max() / r.abs().max())
                       for g, r in zip(got, ref))
             plain_rel = max(float((p.double() - r).abs().max() / r.abs().max())
                             for p, r in zip(want, ref))
-            check(rel < 2e-5, f"{name} {tag}: {rel:.3e} of the largest float64 entry")
+            label = f"{name} {tag} ({weight} weight)"
+            check(rel < 2e-5, f"{label}: {rel:.3e} of the largest float64 entry")
+            check(gap < 2e-5, f"{label}: {gap:.3e} of the largest float64 entry from plain")
             if name == "linear_tf32x3_wgrad":
                 again = kernel()
                 check(all(torch.equal(g, a) for g, a in zip(got, again)),
-                      f"{name} {tag}: the weight gradient differs between two runs")
+                      f"{label}: the weight gradient differs between two runs")
+            elif weight == "bf16":
+                check(torch.equal(got[0], three.pop(name)),
+                      f"{label}: differs from the float32 weight's three products")
+            elif qkv:
+                three[name] = got[0]
             del got, want, ref
             reps = 10 if m > 100_000 else 30
             ms = time_ms(kernel, reps=reps)
@@ -1931,18 +1963,22 @@ def kernel_linear(gen) -> list[dict]:
             library_ms = time_ms(library, reps=reps)
             # X or dY read and the output written once (the weight is small)
             nbytes = 4 * (m * k + m * n + n * k)
-            bounds = product_kernel_entry(ms, product_bounds_ms(flop, nbytes))
-            row = {"tag": tag, "m": m, "k": k, "n": n, "max_abs_err": err, "rel_err": rel,
-                   "plain_rel_err": plain_rel, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, **bounds}
+            products = 2 if weight == "bf16" else 3
+            bounds = product_kernel_entry(ms, product_bounds_ms(flop, nbytes, products))
+            row = {"tag": tag, "m": m, "k": k, "n": n, "weight": weight, "max_abs_err": err,
+                   "plain_gap": gap, "rel_err": rel, "plain_rel_err": plain_rel, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms, **bounds}
             entries[name]["shapes"].append(row)
             entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
-            print(f"kernels: {name} {tag} (M {m}, K {k}, N {n}) {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, cuBLAS float32 {library_ms:.4f} ms; bound 3xTF32 "
-                  f"{bounds['bound_tc_ms']:.4f} ms ({bounds['bound_by']}, "
+            print(f"kernels: {name} {tag} (M {m}, K {k}, N {n}, {weight} weight) {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, cuBLAS float32 {library_ms:.4f} ms; bound "
+                  f"{products}xTF32 {bounds['bound_tc_ms']:.4f} ms ({bounds['bound_by']}, "
                   f"{100 * bounds['bound_share']:.1f}%); max abs err against plain {err:.3e}, "
-                  f"of the largest float64 entry {rel:.3e} (plain {plain_rel:.3e})", flush=True)
+                  f"of the largest float64 entry {rel:.3e} (plain {plain_rel:.3e})"
+                  + ("; equal to the float32 weight's bit for bit" if weight == "bf16" else ""),
+                  flush=True)
         del x, w, b, dy, wt
+        torch.cuda.empty_cache()
     for entry in entries.values():  # the headline: ViT-S at batch 1,024, mlp1
         head = next(r for r in entry["shapes"] if r["tag"] == "vits1024 mlp1")
         entry.update({key: head[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2589,6 +2625,20 @@ def check_launches(tag: str, got: dict, want: dict) -> None:
     check(seen == full, f"{tag}: launches {seen}, want {full}")
 
 
+def check_swin_linear(tag: str, launches: dict, qkv: tuple, library: int) -> None:
+    """SwinV2 under bf16 AMP: its float32 qkv products (every block's but the
+    first) on #6, ``qkv`` = (forward, input-gradient, weight-gradient)
+    launches; ``library`` bf16 products on ``F.linear`` (every bf16
+    ``Linear`` and the first block's qkv), counted in
+    ``rgbnm.linear.library``."""
+    from rgbnomore_tpu_torch.utils import profiling
+
+    got = {w: launches[w] for w in LINEAR_WRAPPERS}
+    got["library"] = profiling.totals()["counters"].get("rgbnm.linear.library", 0)
+    want = {**dict(zip(LINEAR_WRAPPERS, qkv)), "library": library}
+    check(got == want, f"{tag}: #6 and library products {got}, want {want}")
+
+
 def vitb_config(**kw):
     """ViT-B/16 as the repo presets it (``generate_config("vitb", "dct")``:
     bf16 AMP, 12 x 768, 12 heads of 64, patch 16 over 28x28 blocks = 196
@@ -2682,8 +2732,10 @@ def phase_swin_amp(report: dict):
     steps with drop path, 12 window forward and 24 window backward launches
     per step (the window kernels stay float32 under AMP, as the JAX
     package's call site casts around them) and no ViT attention launch,
-    finite falling losses, the peak memory; 512 images through
-    ``Trainer.evaluate`` in batches of 256 (12 window launches each)."""
+    the 11 float32 qkv products a step on #6 (forward, input and weight
+    gradients) and 41 bf16 products a forward on ``F.linear``, finite
+    falling losses, the peak memory; 512 images through ``Trainer.evaluate``
+    in batches of 256 (12 window launches and 11 #6 forwards each)."""
     import torch
 
     from rgbnomore_tpu_torch.train.config import generate_config
@@ -2716,6 +2768,9 @@ def phase_swin_amp(report: dict):
                       train_steps=SWIN_TRAIN_STEPS)
     check_launches("swin amp train", launches, {"window_attention": 12 * SWIN_TRAIN_STEPS,
                                                 "window_attention_bwd": 24 * SWIN_TRAIN_STEPS})
+    # 11 float32 qkv products a step; 40 bf16 Linears and the first qkv a forward
+    check_swin_linear("swin amp train", launches, (11 * SWIN_TRAIN_STEPS,) * 3,
+                      41 * SWIN_TRAIN_STEPS)
     losses = [float(v) for v in losses]
     check(all(math.isfinite(v) for v in losses), f"swin amp losses not finite: {losses}")
     check(losses[-1] < losses[0], f"swin amp loss did not fall: {losses}")
@@ -2738,6 +2793,7 @@ def phase_swin_amp(report: dict):
     launches = all_launches()
     check_input_stage(report, "swin_amp_eval", launches, len(unpacks), eval_batches=len(batches))
     check_launches("swin amp eval", launches, {"window_attention": 12 * len(batches)})
+    check_swin_linear("swin amp eval", launches, (11 * len(batches), 0, 0), 41 * len(batches))
     check(res["count"] == N_IMAGES and math.isfinite(res["loss"]), f"swin amp eval gave {res}")
     print(f"swin amp eval: {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + forward, "
           f"rows premade, batches of {SWIN_EVAL_BATCH}) | window launches "
@@ -4492,8 +4548,9 @@ def phase_swinv2b(report: dict) -> None:
     wire: 1 + 10 train steps on one repeated batch (warmup 1, lr 1e-3), the
     counters reset just before each counted step and read after it: #3L 22
     and #4L 88 (22 calls x 4 kernels), #3 2 and #4 4 (stage 4's blocks),
-    one wire launch, no ViT attention; finite falling losses; the peak
-    memory; then one eval batch of 256 (#3L 22, #3 2)."""
+    #6 23 / 23 / 23 (the float32 qkv products), 77 bf16 products on
+    ``F.linear``, one wire launch, no ViT attention; finite falling losses;
+    the peak memory; then one eval batch of 256 (#3L 22, #3 2, #6 23)."""
     import torch
 
     from rgbnomore_tpu_torch.train.config import generate_config
@@ -4530,6 +4587,8 @@ def phase_swinv2b(report: dict) -> None:
             train_s += time.perf_counter() - t0
         launches = all_launches()
         check_launches("swinv2b train step", launches, want)
+        # 23 float32 qkv products; 76 bf16 Linears and the first qkv a forward
+        check_swin_linear("swinv2b train step", launches, (23, 23, 23), 77)
         check_input_stage(report, "swinv2b_train", launches, len(unpacks), train_steps=1)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name, n in want.items():
@@ -4552,6 +4611,7 @@ def phase_swinv2b(report: dict) -> None:
     check_input_stage(report, "swinv2b_eval", launches, len(unpacks), eval_batches=1)
     check_launches("swinv2b eval", launches, {"window_attention_tiled": 22,
                                               "window_attention": 2})
+    check_swin_linear("swinv2b eval", launches, (23, 0, 0), 77)
     check(res["count"] == SWINB_BATCH and math.isfinite(res["loss"]), f"swinv2b eval gave {res}")
     print(f"swinv2b eval: {res} | launches a batch {launches}", flush=True)
 

@@ -48,6 +48,11 @@
 //     stage's A fragments; then it adds the chain into a float32 sum of its
 //     own (retire: the tensor cores' accumulator rounds toward zero, which
 //     over a long chain is a drift, not a rounding).
+//   - A weight rounded to bf16 or fp16 before the product (SwinV2's qkv
+//     under AMP) is exact in TF32: its lo half is zero.  With b_exact the
+//     forward and input gradient load only the hi half and leave a_hi b_lo
+//     out of the chain: 8 products, the same sums bit for bit, and stages of
+//     two thirds the size, so more of them.
 //   - wgrad_kernel: dW = dY^T X contracts over M, so both operands run along
 //     M.  A = dY^T comes from registers, read transposed out of the dY
 //     stage; B = X^T is converted by the consumers from the X stage into
@@ -239,8 +244,11 @@ __device__ __forceinline__ void fence_frags(Frags& a) {
 
 // Issue a stage's 12 products as one chain: for each 8-deep k step s,
 // a_hi b_lo, a_lo b_hi, a_hi b_hi, with B's hi and lo tiles at bhi, blo (BN
-// rows of 128 bytes), into d from zero.
-template <int BN>
+// rows of 128 bytes), into d from zero.  kExactB: B is exact in TF32 (a
+// weight rounded to bf16 or fp16 first), so its lo half is zero and a_hi b_lo
+// adds only zeros; the chain leaves it out (8 products, the same sums) and
+// blo is not read.
+template <int BN, bool kExactB>
 __device__ __forceinline__ void issue(float (&d)[BN / 2], Frags& ahi, Frags& alo,
                                       const unsigned char* bhi, const unsigned char* blo) {
   h16::fence_operand(d);
@@ -250,9 +258,8 @@ __device__ __forceinline__ void issue(float (&d)[BN / 2], Frags& ahi, Frags& alo
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const uint64_t dhi = h16::desc(bhi + 32 * s, 16, 1024);
-    const uint64_t dlo = h16::desc(blo + 32 * s, 16, 1024);
-    mma_rs<BN>(d, ahi[s], dlo, s > 0);
-    mma_rs<BN>(d, alo[s], dhi, true);
+    if constexpr (!kExactB) mma_rs<BN>(d, ahi[s], h16::desc(blo + 32 * s, 16, 1024), s > 0);
+    mma_rs<BN>(d, alo[s], dhi, !kExactB || s > 0);
     mma_rs<BN>(d, ahi[s], dhi, true);
   }
   h16::commit();
@@ -303,11 +310,12 @@ struct MmArgs {
   int pairs;
 };
 
-template <int BN>
+template <int BN, bool kExactB>
 struct MmShape {
   static constexpr int kA = kBM * 128;  // A: 128 rows x 32 floats
   static constexpr int kB = BN * 128;   // each of B's hi and lo: BN rows x 32 floats
-  static constexpr int kStage = kA + 2 * kB;
+  static constexpr int kHalves = kExactB ? 1 : 2;  // B's halves loaded: hi only when exact
+  static constexpr int kStage = kA + kHalves * kB;
   static constexpr int kStages =
       (kSmemMax - kSmemSpare) / kStage < kMaxStages ? (kSmemMax - kSmemSpare) / kStage
                                                      : kMaxStages;
@@ -347,14 +355,14 @@ __device__ __forceinline__ void mm_store(const MmState<BN>& c, const MmArgs& p, 
 // fragments are ahi, alo run while the next unit's, if `more`, load into
 // nhi, nlo and, at a tile's first unit, the tile before it is stored; then
 // their sum.
-template <int BN>
+template <int BN, bool kExactB>
 __device__ __forceinline__ void mm_unit(MmState<BN>& c, const MmArgs& p, bool more, Frags& ahi,
                                         Frags& alo, Frags& nhi, Frags& nlo, unsigned char* smem,
                                         uint64_t* full, uint64_t* empty, int& stage,
                                         uint32_t& phase, long long n_tiles, int k_steps, int wg) {
-  using S = MmShape<BN>;
+  using S = MmShape<BN, kExactB>;
   const unsigned char* sb = smem + stage * S::kStage + S::kA;
-  issue<BN>(c.d, ahi, alo, sb, sb + S::kB);
+  issue<BN, kExactB>(c.d, ahi, alo, sb, sb + S::kB);
   const int done = stage;
   if (++stage == S::kStages) {
     stage = 0;
@@ -378,12 +386,12 @@ __device__ __forceinline__ void mm_unit(MmState<BN>& c, const MmArgs& p, bool mo
 }
 
 // map_a: A as a 2-D map (k, m), box 32 x 128; map_b: B's hi and lo as a 3-D
-// map (k padded, n, 2), box 32 x BN x 1
-template <int BN>
+// map (k padded, n, 2), box 32 x BN x 1 (the hi half alone when kExactB)
+template <int BN, bool kExactB>
 __global__ void __launch_bounds__(kThreads, 1)
     mm_kernel(const __grid_constant__ CUtensorMap map_a,
               const __grid_constant__ CUtensorMap map_b, const MmArgs p) {
-  using S = MmShape<BN>;
+  using S = MmShape<BN, kExactB>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = h16::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kStages * S::kStage);
@@ -419,10 +427,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int k0 = ks * kBK;
         if (!p.a_tma) copy_box(sa, p.a, p.lda, m0, k0, kBM, p.m, p.k, lane);
         if (lane == 0) {
-          bar_arrive_tx(&full[stage], (p.a_tma ? S::kA : 0) + 2 * S::kB);
+          bar_arrive_tx(&full[stage], (p.a_tma ? S::kA : 0) + S::kHalves * S::kB);
           if (p.a_tma) tma_2d(sa, &map_a, &full[stage], k0, static_cast<int>(m0));
           tma_3d(sb, &map_b, &full[stage], k0, n0, 0);
-          tma_3d(sb + S::kB, &map_b, &full[stage], k0, n0, 1);
+          if constexpr (!kExactB) tma_3d(sb + S::kB, &map_b, &full[stage], k0, n0, 1);
         } else if (!p.a_tma) {
           bar_arrive(&full[stage]);
         }
@@ -457,11 +465,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     load_a(a0hi, a0lo, smem + stage * S::kStage + c.a_off, c.r0, tq);
   }
   for (long long u = 0; u < units; u += 2) {
-    mm_unit<BN>(c, p, u + 1 < units, a0hi, a0lo, a1hi, a1lo, smem, full, empty, stage, phase,
-                n_tiles, k_steps, wg);
+    mm_unit<BN, kExactB>(c, p, u + 1 < units, a0hi, a0lo, a1hi, a1lo, smem, full, empty, stage,
+                         phase, n_tiles, k_steps, wg);
     if (u + 1 < units)
-      mm_unit<BN>(c, p, u + 2 < units, a1hi, a1lo, a0hi, a0lo, smem, full, empty, stage, phase,
-                  n_tiles, k_steps, wg);
+      mm_unit<BN, kExactB>(c, p, u + 2 < units, a1hi, a1lo, a0hi, a0lo, smem, full, empty, stage,
+                           phase, n_tiles, k_steps, wg);
   }
   if (units > 0) mm_store<BN>(c, p, c.tile - gridDim.x, n_tiles, wg);
 }
@@ -562,7 +570,7 @@ __device__ __forceinline__ void wgrad_unit(WgradState<BN>& c, const WgradArgs& p
                                            uint64_t* full, uint64_t* empty, int& stage,
                                            uint32_t& phase, int k_tiles) {
   using S = WgradShape<BN>;
-  issue<BN>(c.d, ahi, alo, tcur, tcur + S::kT);
+  issue<BN, false>(c.d, ahi, alo, tcur, tcur + S::kT);
   if (more) {
     bar_wait(&full[stage], phase);
     wgrad_in<BN>(smem + stage * S::kStage, tnext, c.nr, c.tq, nhi, nlo, ns);
@@ -824,16 +832,16 @@ int sm_count() {
   return sms;
 }
 
-template <int BN>
+template <int BN, bool kExactB>
 int launch_mm(const CUtensorMap& map_a, const CUtensorMap& map_b, const MmArgs& p, int sms,
               cudaStream_t stream) {
-  using S = MmShape<BN>;
-  cudaError_t err = cudaFuncSetAttribute(mm_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         S::kSmem);
+  using S = MmShape<BN, kExactB>;
+  cudaError_t err = cudaFuncSetAttribute(mm_kernel<BN, kExactB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
   if (err != cudaSuccess) return err;
   const long long tiles = (p.m + kBM - 1) / kBM * ((p.n + BN - 1) / BN);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  mm_kernel<BN><<<grid, kThreads, S::kSmem, stream>>>(map_a, map_b, p);
+  mm_kernel<BN, kExactB><<<grid, kThreads, S::kSmem, stream>>>(map_a, map_b, p);
   return cudaGetLastError();
 }
 
@@ -886,10 +894,12 @@ extern "C" int linear_tf32x3_split(const void* w, int n, int k, int transpose, v
 
 // C (m, n) = A (m, k) B^T (+ bias), B given as linear_tf32x3_split's (2, n,
 // ldb): the forward (A = X, B = W) and the input gradient (A = dY, n = K,
-// B = W^T).  A's rows have stride lda; C is contiguous.
+// B = W^T).  A's rows have stride lda; C is contiguous.  b_exact: B is exact
+// in TF32 (its lo half zero), and the products with its lo half are left
+// out (ops/linear.py sets it for a bf16 or fp16 weight, exact by its type).
 extern "C" int linear_tf32x3_mm(const void* a, long long m, int k, long long lda,
                                 const void* bsplit, int n, int ldb, const void* bias, void* c,
-                                void* stream) {
+                                int b_exact, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || lda < k || ldb < k || ldb % 4 != 0 ||
       m > (1LL << 31) - kBM || reinterpret_cast<uintptr_t>(bsplit) % 16 != 0)
     return cudaErrorInvalidValue;
@@ -907,8 +917,11 @@ extern "C" int linear_tf32x3_mm(const void* a, long long m, int k, long long lda
   if (err == 0) err = make_map(&map_b, bsplit, 3, dims, strides, bn);
   if (err != 0) return err;
   auto s = static_cast<cudaStream_t>(stream);
-  if (bn == 128) return launch_mm<128>(map_a, map_b, p, sms, s);
-  return launch_mm<64>(map_a, map_b, p, sms, s);
+  if (bn == 128)
+    return b_exact ? launch_mm<128, true>(map_a, map_b, p, sms, s)
+                   : launch_mm<128, false>(map_a, map_b, p, sms, s);
+  return b_exact ? launch_mm<64, true>(map_a, map_b, p, sms, s)
+                 : launch_mm<64, false>(map_a, map_b, p, sms, s);
 }
 
 // Floats of scratch linear_tf32x3_wgrad takes for dY (m, n), X (m, k) and a

@@ -20,7 +20,12 @@ each block's post-norm returns float32 and ``shortcut + drop_path(x)``
 promotes, so the residual stream is float32 from the first block's output
 on (``swinv2.py:259-296``); the qkv product promotes likewise (``x @
 kernel.astype(dtype)``, ``:118-124``), so only the first block's q, k, v are
-in ``dtype``; q and k are normalised in float32 and cast to ``dtype``
+in ``dtype``.  A float32 qkv product (every block at float32; every block
+but the first under AMP) runs through ``ops/linear.py:linear_tf32x3``
+(kernel #6 on the card), the q/v bias, rounded to ``dtype``, added in its
+epilogue; under AMP it takes the weight in ``dtype``, exact in TF32.  A
+half-precision one keeps ``F.linear``, counted in
+``rgbnm.linear.library``.  q and k are normalised in float32 and cast to ``dtype``
 (``:137-140``); the window kernel takes float32 q times the logit scale, k
 and v, and its output is cast back to ``dtype`` (the Pallas call site,
 ``:175-179``); the CPB-MLP and the head compute in float32.  Module and parameter names follow the
@@ -49,7 +54,9 @@ from rgbnomore_tpu_torch.models.layers import (
     LayerNorm,
     Linear,
 )
+from rgbnomore_tpu_torch.ops.linear import linear_tf32x3
 from rgbnomore_tpu_torch.ops.window_attention import window_attention
+from rgbnomore_tpu_torch.utils import profiling
 
 __all__ = ["DropPath", "PatchMerging", "SwinBlock", "SwinTransformerV2", "WindowAttention",
            "window_partition", "window_reverse"]
@@ -158,10 +165,17 @@ class WindowAttention(nn.Module):
         # x @ kernel.astype(dtype) promotes: a float32 x keeps float32 (with
         # the kernel rounded to dtype), and so does the bias add
         out_dt = torch.promote_types(x.dtype, dt)
-        qkv = F.linear(x.to(out_dt), self.qkv.weight.to(dt).to(out_dt))
+        weight = self.qkv.weight.to(dt)
+        bias = None
         if self.q_bias is not None:
-            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
-            qkv = qkv + bias.to(dt)
+            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias]).to(dt)
+        if out_dt == torch.float32:  # the product, then the bias, in float32 (#6's epilogue)
+            qkv = linear_tf32x3(x.to(out_dt), weight, None if bias is None else bias.float())
+        else:  # rounded to dtype after the product and again after the bias, as flax
+            profiling.count("rgbnm.linear.library")
+            qkv = F.linear(x.to(out_dt), weight)
+            if bias is not None:
+                qkv = qkv + bias
         qkv = qkv.reshape(bw, n, 3, self.num_heads, c // self.num_heads).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0].float(), qkv[1].float(), qkv[2].float()  # (bw, h, n, d)
         # cosine attention in float32: x / (|x| + 1e-12), not F.normalize's

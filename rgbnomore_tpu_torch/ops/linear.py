@@ -13,8 +13,12 @@ keeps float32's accuracy at up to 165 (``csrc/linear_tf32x3.cu``).
   epilogue; the backward launches it again for dX = dY W (the weight's
   halves transposed) and ``linear_tf32x3_wgrad`` for dW = dYᵀ X and db,
   which repeat bit for bit.  A launch the kernel refuses raises; nothing
-  falls back to another route.  Launches count in ``rgbnm.launch.
-  linear_tf32x3_fwd``, ``_dgrad`` and ``_wgrad``.
+  falls back to another route.  A bf16 or fp16 weight (SwinV2's qkv,
+  rounded to the compute dtype before the product promotes) is promoted
+  here; it is exact in TF32, so its lo half is zero and the forward and
+  input gradient leave the products with that half out (they add only
+  zeros: the same result bit for bit, a third fewer products).  Launches
+  count in ``rgbnm.launch.linear_tf32x3_fwd``, ``_dgrad`` and ``_wgrad``.
 - On CPU tensors every product is :func:`mm_tf32x3`, the kernel's arithmetic
   in plain PyTorch: each operand split as x = hi + lo (hi = x rounded to
   TF32, ties away from zero; lo read as TF32 by truncation), the cross terms
@@ -22,7 +26,8 @@ keeps float32's accuracy at up to 165 (``csrc/linear_tf32x3.cu``).
   count is its 2·M·N·K, so ``utils/profiling.model_flops`` counts a Linear
   as before.
 
-Autograd saves x and the weight, as ``F.linear`` does.
+Autograd saves x and the weight, as ``F.linear`` does; a half weight's
+gradient is rounded to its dtype, as its promotion's backward rounds it.
 """
 
 from __future__ import annotations
@@ -82,9 +87,9 @@ def mm_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def linear_plain(x: torch.Tensor, weight: torch.Tensor,
                  bias: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ weight.T + bias`` over x's last dim, the product in 3xTF32
-    (:func:`mm_tf32x3`), the bias added after it as the kernel's epilogue
-    adds it."""
-    out = mm_tf32x3(x.reshape(-1, x.shape[-1]), weight)
+    (:func:`mm_tf32x3`; a half weight promoted), the bias added after it as
+    the kernel's epilogue adds it."""
+    out = mm_tf32x3(x.reshape(-1, x.shape[-1]), weight.float())
     if bias is not None:
         out = out + bias
     return out.reshape(*x.shape[:-1], weight.shape[0])
@@ -100,10 +105,16 @@ def check_shape(m: int, n: int, k: int) -> None:
         raise ValueError(f"a Linear over {m} rows: the kernel takes at most {_MAX_ROWS}")
 
 
+# the weight's dtypes: float32, or a half dtype, exact in TF32
+_WEIGHT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 def _check_inputs(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> None:
     tensors = [x, weight] + ([] if bias is None else [bias])
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"linear_tf32x3 takes float32, got {[t.dtype for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors if t is not weight) or (
+            weight.dtype not in _WEIGHT_DTYPES):
+        raise TypeError("linear_tf32x3 takes float32 (the weight float32, bf16 or fp16), "
+                        f"got {[t.dtype for t in tensors]}")
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"x, weight, bias on different devices: {[t.device for t in tensors]}")
     if x.device.type not in ("cpu", "cuda"):
@@ -120,7 +131,7 @@ def _library() -> ctypes.CDLL:
     if lib.linear_tf32x3_mm.argtypes is None:  # first use: declare the C signatures
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.linear_tf32x3_split.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr]
-        lib.linear_tf32x3_mm.argtypes = [ptr, i64, i32, i64, ptr, i32, i32, ptr, ptr, ptr]
+        lib.linear_tf32x3_mm.argtypes = [ptr, i64, i32, i64, ptr, i32, i32, ptr, ptr, i32, ptr]
         lib.linear_tf32x3_wgrad_scratch.argtypes = [i64, i32, i32, i32]
         lib.linear_tf32x3_wgrad_scratch.restype = i64
         lib.linear_tf32x3_wgrad.argtypes = [ptr, i64, ptr, i64, i64, i32, i32, ptr, ptr, ptr,
@@ -166,7 +177,8 @@ def _split_weight(lib, weight: torch.Tensor, transpose: bool, stream: int) -> tu
 def _mm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
         transpose: bool) -> torch.Tensor:
     """``a @ weight.T + bias`` (forward) or ``a @ weight`` (transpose: the
-    input gradient) for a contiguous (M, ·) float32 matrix on the card."""
+    input gradient) for a contiguous (M, ·) float32 matrix on the card; a
+    half weight promoted, the products with its zero lo half left out."""
     m = a.shape[0]
     n = weight.shape[1] if transpose else weight.shape[0]
     check_shape(m, n, a.shape[1])
@@ -174,18 +186,19 @@ def _mm(a: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        halves, ld = _split_weight(lib, weight, transpose, stream)
+        halves, ld = _split_weight(lib, weight.float(), transpose, stream)
         err = lib.linear_tf32x3_mm(a.data_ptr(), m, a.shape[1], a.stride(0), halves.data_ptr(),
                                    n, ld, None if bias is None else bias.data_ptr(),
-                                   out.data_ptr(), stream)
+                                   out.data_ptr(), int(weight.dtype != torch.float32), stream)
     _raise_on(lib, "dgrad" if transpose else "forward", err)
     return out
 
 
 def linear_fwd(x: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the forward on CUDA float32 tensors: ``x @ weight.T + bias``
-    over x's last dim.  Adds one to ``rgbnm.launch.linear_tf32x3_fwd``."""
+    """Launch the forward on CUDA float32 tensors (the weight float32, bf16
+    or fp16): ``x @ weight.T + bias`` over x's last dim.  Adds one to
+    ``rgbnm.launch.linear_tf32x3_fwd``."""
     _check_inputs(x, weight, bias)
     _on_cuda(x)
     b = None if bias is None else bias.contiguous()
@@ -195,10 +208,12 @@ def linear_fwd(x: torch.Tensor, weight: torch.Tensor,
 
 
 def linear_dgrad(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Launch the input gradient on CUDA float32 tensors: ``dy @ weight``
-    over dy's last dim.  Adds one to ``rgbnm.launch.linear_tf32x3_dgrad``."""
+    """Launch the input gradient on CUDA float32 tensors (the weight
+    float32, bf16 or fp16): ``dy @ weight`` over dy's last dim.  Adds one to
+    ``rgbnm.launch.linear_tf32x3_dgrad``."""
     _on_cuda(dy, weight)
-    if dy.dtype != torch.float32 or weight.dtype != torch.float32 or dy.device != weight.device:
+    if (dy.dtype != torch.float32 or weight.dtype not in _WEIGHT_DTYPES
+            or dy.device != weight.device):
         raise TypeError(f"linear_dgrad takes float32 on one device, got {dy.dtype} on "
                         f"{dy.device}, {weight.dtype} on {weight.device}")
     if weight.dim() != 2 or dy.shape[-1] != weight.shape[0]:
@@ -259,7 +274,7 @@ class _LinearTF32x3(torch.autograd.Function):
         if dy.device.type == "cpu":
             dy2 = _rows(dy)
             if need_x:
-                dx = mm_tf32x3(dy2, weight.T.contiguous()).reshape(x.shape)
+                dx = mm_tf32x3(dy2, weight.float().T.contiguous()).reshape(x.shape)
             if need_w:
                 dw = mm_tf32x3(dy2.T.contiguous(), _rows(x).T.contiguous())
             if need_b:
@@ -271,14 +286,15 @@ class _LinearTF32x3(torch.autograd.Function):
                 dw, db = linear_wgrad(dy, x, bias=ctx.has_bias)
                 dw = dw if need_w else None
                 db = db if need_b else None
-        return dx, dw, db
+        return dx, None if dw is None else dw.to(weight.dtype), db
 
 
 def linear_tf32x3(x: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor | None = None) -> torch.Tensor:
-    """``F.linear(x, weight, bias)`` for float32 tensors, differentiable in
-    all three: the 3xTF32 kernels on CUDA tensors (a shape or layout they
-    refuse raises), :func:`mm_tf32x3` on CPU tensors."""
+    """``F.linear(x, weight.float(), bias)`` for float32 x and bias and a
+    float32, bf16 or fp16 weight, differentiable in all three: the 3xTF32
+    kernels on CUDA tensors (a shape or layout they refuse raises; a half
+    weight's zero lo half left out), :func:`mm_tf32x3` on CPU tensors."""
     _check_inputs(x, weight, bias)
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, weight, bias))

@@ -283,11 +283,20 @@ def test_vit_logits_match_flax(tag, rng):
 def test_window_attention_matches_jax_fused_path(tag, in_dtype, rng):
     """SwinV2's window attention (dim 32, window 4, 2 heads, q and v biases
     non-zero) on the first block's half input and on a later block's
-    float32 one (the qkv product promotes): equal to JAX's Pallas path to
-    a few roundings of the dtype (bf16 bit for bit here; in fp16 two or
-    three of 4,096 entries one or two units apart, where float32 sums in
-    another order flip a rounding of q or k); within MODULE_TOL of JAX's
-    einsum path."""
+    float32 one (the qkv product promotes): equal to JAX's Pallas path to a
+    few roundings of the dtype (bf16 bit for bit here; in fp16 two or three
+    of 4,096 entries one or two units apart, where float32 sums in another
+    order flip a rounding of q or k); within MODULE_TOL of JAX's einsum path.
+
+    [float32-fp16]: the port's float32 qkv product (``linear_tf32x3``,
+    3xTF32) sums in another order than JAX's float32 one, and flips the fp16
+    rounding of six entries of k; through the softmax that flips the fp16
+    rounding of the attention output, the proj's input, in two entries, and
+    one output entry near zero (-9.1e-4) then misses 4 units of its own by
+    1.2e-5.  There the module with JAX's float32 product (``F.linear``, then
+    the bias) is held to the Pallas path at 4 units, and the port's module
+    to 4 units plus one flipped rounding of one proj input in its row: the
+    largest |W_proj[r, c]| times the fp16 unit of input c."""
     tdt, jdt = DTYPES[tag]
     x = rng.standard_normal((8, 16, 32)).astype(np.float32)
     params = _jax_init(jax_swinv2.WindowAttention(32, 4, 2), x, None)
@@ -302,11 +311,27 @@ def test_window_attention_matches_jax_fused_path(tag, in_dtype, rng):
     einsum = jmod.apply({"params": params}, jx, None)
     tmod = swinv2.WindowAttention(32, 4, 2, dtype=tdt)
     tmod.load_state_dict(flax_to_state_dict(params))
+    proj_in = []
+    hook = tmod.proj.register_forward_pre_hook(lambda mod, args: proj_in.append(args[0]))
     with torch.no_grad():
         got = tmod(tx, None)
+    hook.remove()
     assert torch_dtype_name(got) == str(fused.dtype) == str(einsum.dtype)
     ulp = 2.0**-7 if tag == "bf16" else 2.0**-10  # relative spacing of the dtype
-    np.testing.assert_allclose(to_np(got), to_np(fused), rtol=4 * ulp, atol=0)
+    if (tag, in_dtype) != ("fp16", "float32"):
+        np.testing.assert_allclose(to_np(got), to_np(fused), rtol=4 * ulp, atol=0)
+    else:
+        with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+            mp.setattr(swinv2, "linear_tf32x3",
+                       lambda a, w, b: torch.nn.functional.linear(a, w.float()) + b)
+            as_jax = tmod(tx, None)
+        np.testing.assert_allclose(to_np(as_jax), to_np(fused), rtol=4 * ulp, atol=0)
+        unit = np.spacing(np.abs(proj_in[0].numpy())).astype(np.float32)  # (bw, n, c)
+        weight = np.abs(tmod.proj.weight.detach().float().numpy())  # (c out, c in)
+        one_flip = (unit[..., None, :] * weight).max(-1)  # (bw, n, c out)
+        g, f = to_np(got), to_np(fused)
+        assert np.all(np.abs(g - f) <= 4 * ulp * np.abs(f) + one_flip), (
+            float((np.abs(g - f) - 4 * ulp * np.abs(f) - one_flip).max()))
     check_parity(got, einsum, ref, MODULE_TOL[tag])
 
 

@@ -11,17 +11,29 @@ On the CPU:
   ``rgbnm.linear.library``), no kernel launch counted on the CPU;
 - ``model_flops`` counts a Linear as one product of 2 M N K, as before;
 - every float32 Linear of every preset, embed type and domain is one the
-  kernel takes (``check_shape``).
+  kernel takes (``check_shape``), and so is every float32 qkv product of
+  the SwinV2 presets at the benchmark cells' batches;
+- a bf16 or fp16 weight (exact in TF32) gives what its float32 promotion
+  gives, its gradient rounded to its dtype;
+- SwinV2's window attention: a float32 qkv product goes through
+  ``linear_tf32x3`` with the q/v bias in its epilogue, its product and
+  gradients against float64 and its parameters' gradients through the
+  same casts; a half-precision one keeps ``F.linear``.
 On the card (marker ``cuda``): the kernels against the plain version at
-ragged shapes, the weight gradient repeated bit for bit.
+ragged shapes and SwinV2's qkv widths, the weight gradient repeated bit for
+bit, and a half weight (its lo half left out) bit for bit against its
+float32 promotion (the three-product path).
 """
+
+import collections
 
 import pytest
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from torch_port_support import mm_1xtf32, settle_inspect_module_walk
-from rgbnomore_tpu_torch.models import SwinTransformerV2, ViT
+from rgbnomore_tpu_torch.models import SwinTransformerV2, ViT, swinv2
 from rgbnomore_tpu_torch.models.layers import Linear
 from rgbnomore_tpu_torch.ops import linear as L
 from rgbnomore_tpu_torch.train.config import amp_compute_dtype, generate_config
@@ -186,19 +198,173 @@ def test_every_float32_preset_linear_is_taken():
         L.check_shape(0, 8, 8)
 
 
+# (rows, K, N) of SwinV2's float32 qkv products -> blocks, at the benchmark
+# cells' batches (SwinV2-T 512, SwinV2-B/w16 256): every block but the first,
+# whose input is still in the compute dtype
+SWIN_QKV = {
+    "swinv2": (512, {(2097152, 96, 288): 1, (524288, 192, 576): 2, (131072, 384, 1152): 6,
+                     (32768, 768, 2304): 2}),
+    "swinv2b": (256, {(1048576, 128, 384): 1, (262144, 256, 768): 2, (65536, 512, 1536): 18,
+                      (16384, 1024, 3072): 2}),
+}
+
+
+@pytest.mark.parametrize("preset", list(SWIN_QKV))
+def test_swin_float32_qkv_shapes_are_taken(preset):
+    """Every float32 qkv product of the SwinV2 presets (bf16 AMP: 11 a
+    SwinV2-T forward, 23 a SwinV2-B/w16 one) is one the kernel takes at the
+    benchmark cell's batch (``check_shape``)."""
+    batch, want = SWIN_QKV[preset]
+    m = generate_config(preset, "dct").model
+    with torch.device("meta"):
+        model = SwinTransformerV2(
+            img_size=m.input_size, num_classes=m.classes, embed_dim=m.embed_size,
+            depths=tuple(m.depth), num_heads=tuple(m.heads), window_size=m.window_size,
+            mlp_ratio=float(m.mlp_ratio), qkv_bias=m.qkv_bias, ape=m.ape,
+            patch_norm=m.patch_norm, pretrained_window_sizes=tuple(m.pretrained_window_sizes),
+            pixel_space=m.domain, dtype=torch.bfloat16, patch_size=m.patch_size)
+    blocks = [mod for mod in model.modules() if isinstance(mod, swinv2.SwinBlock)][1:]
+    got = collections.Counter()
+    for blk in blocks:
+        h, w = blk.input_resolution
+        dim = blk.attn.dim
+        L.check_shape(batch * h * w, 3 * dim, dim)
+        got[(batch * h * w, dim, 3 * dim)] += 1
+    assert got == want
+
+
+def test_half_weight_is_promoted_on_cpu():
+    """A bf16 or fp16 weight is exact in TF32: the output and the gradients
+    of x and the bias equal its float32 promotion's bit for bit, and its own
+    gradient is the promotion's rounded to its dtype (as the promotion's
+    backward rounds it); a float64 weight is refused."""
+    x, w, b = _data(24, 40, 56, seed=4)
+    for dt in (torch.bfloat16, torch.float16):
+        outs = []
+        for weight in (w.to(dt), w.to(dt).float()):
+            leaves = [t.clone().requires_grad_(True) for t in (x, weight, b)]
+            out = L.linear_tf32x3(*leaves)
+            outs.append([out, *torch.autograd.grad(out, leaves, torch.ones_like(out))])
+        (out, gx, gw, gb), (out32, gx32, gw32, gb32) = outs
+        assert gw.dtype == dt and torch.equal(gw, gw32.to(dt))
+        assert torch.equal(out, out32) and torch.equal(gx, gx32) and torch.equal(gb, gb32)
+    with pytest.raises(TypeError, match="float32"):
+        L.linear_tf32x3(x, w.double(), b)
+
+
+class _Ops(TorchDispatchMode):
+    """Counts the operators a block of code dispatches, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names[str(func.overloadpacket)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _spy_qkv(monkeypatch) -> list[dict]:
+    """Each call of ``linear_tf32x3`` from ``models/swinv2.py``: its
+    inputs and its output."""
+    calls = []
+
+    def spy(x, weight, bias=None):
+        out = L.linear_tf32x3(x, weight, bias)
+        calls.append({"x": x, "weight": weight, "bias": bias, "out": out})
+        return out
+
+    monkeypatch.setattr(swinv2, "linear_tf32x3", spy)
+    return calls
+
+
+def _window_attention(dtype) -> swinv2.WindowAttention:
+    torch.manual_seed(5)
+    mod = swinv2.WindowAttention(32, 4, 2, dtype=dtype)
+    with torch.no_grad():  # the q and v biases start at zero
+        mod.q_bias.normal_(0.0, 0.5)
+        mod.v_bias.normal_(0.0, 0.5)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_swin_float32_qkv_takes_the_kernel(dtype, monkeypatch):
+    """A window attention whose qkv product is float32 (a later block's
+    float32 input under AMP; every block of a float32 model) computes it by
+    ``linear_tf32x3`` (on the CPU the ``rgbnm::mm_tf32x3`` operator): the
+    weight in the compute dtype (which ``linear_tf32x3`` promotes), the q/v
+    bias rounded to it in the epilogue.  The product, and the gradients of
+    x, of the promoted weight and of the float32 bias, within 4e-6 of
+    float64 on the same casts; the gradient of the weight it took is the
+    promoted one's rounded to the compute dtype, and the parameters'
+    gradients are those, rounded back through the casts (``.to(dtype)``)."""
+    mod = _window_attention(dtype)
+    x = torch.randn(8, 16, 32, generator=torch.Generator().manual_seed(6), requires_grad=True)
+    calls = _spy_qkv(monkeypatch)
+    profiling.reset()
+    with _Ops() as ops:
+        mod(x, None)
+    assert len(calls) == 1 and ops.names["rgbnm.mm_tf32x3"] >= 1
+    # the proj Linear computes in dtype: F.linear, counted, for a half dtype
+    assert profiling.totals()["counters"].get("rgbnm.linear.library", 0) == (
+        0 if dtype == torch.float32 else 1)
+    call = calls[0]
+    w, b, qkv = call["weight"], call["bias"], call["out"]
+    assert call["x"] is x and w.dtype == dtype
+    assert torch.equal(w, mod.qkv.weight.to(dtype))
+    zeros = torch.zeros_like(mod.q_bias)
+    assert torch.equal(b, torch.cat([mod.q_bias, zeros, mod.v_bias]).to(dtype).float())
+    assert _err(qkv.detach(), F.linear(x.double(), w.double(), b.double())) < 4e-6
+
+    dqkv = torch.randn(qkv.shape, generator=torch.Generator().manual_seed(7))
+    params = [mod.qkv.weight, mod.q_bias, mod.v_bias]
+    gx, gw, gb, g_weight, g_q, g_v = torch.autograd.grad(qkv, [x, w, b, *params], dqkv)
+    d2, x2 = dqkv.double().reshape(-1, 96), x.detach().double().reshape(-1, 32)
+    assert _err(gx, dqkv.double() @ w.double()) < 4e-6
+    gw32 = L.mm_tf32x3(d2.float().T.contiguous(), x2.float().T.contiguous())
+    assert _err(gw32, d2.T @ x2) < 4e-6 and torch.equal(gw, gw32.to(dtype))
+    assert _err(gb, d2.sum(0)) < 4e-6
+    assert torch.equal(g_weight, gw.float())
+    assert torch.equal(g_q, gb[:32].to(dtype).float())
+    assert torch.equal(g_v, gb[64:].to(dtype).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_swin_half_qkv_stays_on_the_library(dtype, monkeypatch):
+    """The first block's half-precision input keeps ``F.linear`` for its
+    qkv product (rounded after the product and again after the bias, as
+    flax), counted once in ``rgbnm.linear.library`` beside the proj's; no
+    ``linear_tf32x3`` call."""
+    mod = _window_attention(dtype)
+    x = torch.randn(8, 16, 32, generator=torch.Generator().manual_seed(6)).to(dtype)
+    calls = _spy_qkv(monkeypatch)
+    profiling.reset()
+    with torch.no_grad():
+        out = mod(x, None)
+    counters = profiling.totals()["counters"]
+    assert out.dtype == dtype and not calls
+    assert counters["rgbnm.linear.library"] == 2  # the qkv product and the proj
+    assert not any(name.startswith("rgbnm.launch.linear") for name in counters)
+
+
 # ------------------------------------------------------------ on the card
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernels run only on the card")
 
 
+# (rows, K, N) on the card: ragged shapes, ViT's, and SwinV2's qkv in stages 1
+# and 3 (SwinV2-T K 96 and 384, SwinV2-B/w16 K 128 and 512)
+CARD_SHAPES = [(1000, 384, 1152), (300, 64, 170), (513, 1536, 384), (40, 7, 3),
+               (4096, 96, 288), (3000, 128, 384), (2048, 384, 1152), (2500, 512, 1536)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1000, 384, 1152), (300, 64, 170), (513, 1536, 384),
-                                   (40, 7, 3)])
+@pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_kernels_match_plain_on_card(shape):
-    """Forward, input and weight gradients against the plain version on the
-    card (both within 4e-6 of the largest float64 entry at ViT widths), the
-    weight gradient repeated bit for bit."""
+    """Forward, input and weight gradients (with the bias gradient) against
+    the plain version on the card (both within 2e-5 of the largest float64
+    entry), the weight gradient repeated bit for bit."""
     _card()
     m, k, n = shape
     x, w, b = (t.cuda() for t in _data(m, k, n))
@@ -212,3 +378,18 @@ def test_kernels_match_plain_on_card(shape):
     for g, p, r in zip(got, plain, want):
         assert _err(g, r) < 2e-5 and _err(p, r) < 2e-5
     assert torch.equal(again[0], got[2]) and torch.equal(again[1], got[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES[4:])
+def test_half_weight_is_bit_identical_on_card(shape):
+    """A bf16 or fp16 weight (SwinV2's qkv under AMP): the forward and the
+    input gradient that leave the products with its zero lo half out equal
+    its float32 promotion's three-product path bit for bit."""
+    _card()
+    m, k, n = shape
+    x, w, b = (t.cuda() for t in _data(m, k, n, seed=8))
+    dy = torch.randn(m, n, device="cuda", generator=torch.Generator("cuda").manual_seed(9))
+    for half in (w.bfloat16(), w.half()):
+        assert torch.equal(L.linear_fwd(x, half, b), L.linear_fwd(x, half.float(), b))
+        assert torch.equal(L.linear_dgrad(dy, half), L.linear_dgrad(dy, half.float()))
