@@ -68,8 +68,7 @@ Phases, each raising on failure (the script then exits non-zero):
      wire launch of the input stage, 12 attention forward and 12 attention
      backward launches per step), finite losses and a last loss below the
      first; one step's loss and gradients on the card against the CPU at 8
-     images; the time of each stage of a step and of each kernel of one
-     step;
+     images; the time of each kernel of one step;
   7. swin eval: 512 images of 32x32 blocks through the SwinV2-T
      ``Trainer.evaluate`` (1 wire launch and 12 window-attention launches
      per batch); logits of the kernel path against the plain path and the
@@ -81,16 +80,15 @@ Phases, each raising on failure (the script then exits non-zero):
      batch 128 with drop path (1 wire launch, 12 window forward and 24
      window backward launches per step: each backward is a per-chunk pass
      and the reduction of the bias gradient), finite falling losses, the
-     card against the CPU at 4 images, the stages, the kernels and the peak
-     memory;
+     card against the CPU at 4 images, the kernels and the peak memory;
  10. vitb: ViT-B/16 as its preset gives it (bf16), 1 + 10 train steps at
      batch 512 (12 bf16 attention forward and 12 backward launches per
      step, none of the float32 kernels), the peak memory, 512 images
-     through the eval, one step card vs CPU at 2 images, the stages and
-     kernels of a step;
+     through the eval, one step card vs CPU at 2 images, the kernels of a
+     step;
  11. swin amp: SwinV2-T under its bf16 preset, 1 + 10 train steps (the
      window kernels stay float32, 12 + 24 launches per step) and 512
-     images through the eval, the stages and kernels of a step;
+     images through the eval, the kernels of a step;
  12. fp16: ViT-Ti with ``ampdtype fp16`` and the loss scaler, 1 + 10 steps
      with fp16 attention launches, and a step made non-finite on purpose
      that must skip
@@ -125,7 +123,7 @@ Phases, each raising on failure (the script then exits non-zero):
      wire, 12 #1 and 12 #2 launches a step, and #6's 52 forward, 50 input
      gradient and 52 weight gradient launches (52 an eval batch), finite
      falling losses, the peak memory; one step card vs CPU at 2 images; the
-     stages and kernels of a step; 512 images through the eval;
+     kernels of a step; 512 images through the eval;
  18. embed: ViT-S's width at batch 256, 1 + 3 train steps and 512 eval
      images each for embed_type 2 without sub-blocks, embed_type 3 (294
      tokens: #1 and #2 at N = 294) and embed_type 3 under bf16 (#1h's tiled
@@ -146,8 +144,8 @@ Phases, each raising on failure (the script then exits non-zero):
      does not fit) with 12 #1, 12 #2 and no #5 launch a step, finite losses,
      the step's and the input stage's peak memory; one step card vs CPU at
      2 images; the input stage split (decode, residual resample, flip +
-     RandAugment, range) and each part card vs CPU at 4 images; the stages
-     and kernels of a step; 512 images through the eval; the host decode
+     RandAugment, range) and each part card vs CPU at 4 images; the
+     kernels of a step; 512 images through the eval; the host decode
      img/s at 1 and 8 threads;
  23. rgb paths: SwinV2-T ``--domain rgb`` under its bf16 preset (12 #3 and
      24 #4 launches a step), ViT-Ti through the dense (``RgbCanvasLoader``)
@@ -189,12 +187,17 @@ launch of either.
 Every comparison of a SwinV2 first sets the scales of its blocks'
 res-post norms, which start at 0 (each block then is the identity and no
 attention reaches the logits), to random values.  The model paths are fed
-rows that this script writes itself in the ``mask16`` layout of
-``DctCroppedLoader`` from seeded synthetic coefficient planes
-(``write_rows``; ``tests/test_torch_port_eval.py`` holds it against the
-port's pipeline); the codec phase reads real JPEG files.  The last two lines
-of standard output are the kernel report and ``{"ok": true, "device":
-{...}}``.
+rows written in the ``mask16`` layout of ``DctCroppedLoader`` from seeded
+synthetic coefficient planes (``write_rows``, which this script shares with
+the tests in ``tests/torch_port_support.py``; ``tests/test_torch_port_eval.py``
+holds it against the port's pipeline); the codec phase reads real JPEG
+files.  Each model's train steps and evaluation run through one loop each
+(``train_path``, ``eval_path``), which read the port's launch counters after
+every step.  A step's split by stage is the port's own spans': ``python3
+tools/port_span_gaps.py --workload <cell> --seed <n> --out chiprun_out/gaps``
+names each gap in a benchmark cell's device work by its span.  The last two
+lines of standard output are the kernel report and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -214,6 +217,27 @@ import threading
 import time
 
 import numpy as np
+
+# the rows, weights, tars and trace readers this script shares with the tests
+sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from torch_port_support import (  # noqa: E402
+    SWIN_REFERENCE_NAMES,
+    VIT_EMBED_REFERENCE_NAMES,
+    VIT_REFERENCE_NAMES,
+    kernel_instance,
+    launches as counted_launches,
+    pack_mask16,  # noqa: F401  (portbench/tests read it here)
+    port_spans,
+    random_wire_rows,
+    reference_state_dict,
+    row_fields,
+    spans_per_step,
+    synthetic_planes,
+    tf32_rna,
+    val_names,
+    write_imagenet_tars,
+    write_rows,
+)
 
 SEED = 0
 BATCH = 256
@@ -359,7 +383,6 @@ RGB_AUG_SHARE = 1e-3  # pixels allowed beyond RGB_LEVEL_ATOL after RandAugment
 # products sum in another order), 1e-5 on the [-1, 1] output
 DCT_OPS = ["Rotate", "ShearX", "ShearY", "Equalize", "Solarize", "Invert", "FreqEnhance"]
 DCT_OPS_ATOL = 1e-2
-# (tag, generate_config arguments, embedding, tokens) of the embed phase
 # the harness phase (module 7): train steps of the imported ViT-S at the
 # preset's batch and of the traced ViT-Ti, images of the card-vs-CPU logits,
 # and the ILSVRC-shaped tars it stages: classes, JPEGs a class (320x240),
@@ -368,42 +391,6 @@ HARNESS_STEPS = 3
 HARNESS_CPU_IMAGES = 4
 STAGE_CLASSES, STAGE_PER_CLASS, STAGE_VAL = ("n01440764", "n01443537"), 16, 4
 STAGE_BATCH = 8
-# port name -> the reference's (models/plainvit.py, models/swinv2.py) for
-# ViT-S/16 embed_type 2 with sub-blocks and SwinV2-T in the DCT domain;
-# first match
-# port name -> reference name (models/plainvit.py), first match; the
-# embeddings whose names depend on embed_type and sub-blocks apart
-VIT_REFERENCE_NAMES = [
-    (r"encoder_(\d+)\.ln1\.", r"encoder.\1.0.fn.eb_lrnorm1."),
-    (r"encoder_(\d+)\.mha\.", r"encoder.\1.0.fn.eb_mha."),
-    (r"encoder_(\d+)\.ln2\.", r"encoder.\1.1.fn.eb_lrnorm2."),
-    (r"encoder_(\d+)\.mlp1\.", r"encoder.\1.1.fn.eb_ffb.0."),
-    (r"encoder_(\d+)\.mlp2\.", r"encoder.\1.1.fn.eb_ffb.3."),
-    (r"head\.ln\.", "classhead.ch_lrnorm."),
-    (r"head\.linear(\d)\.", r"classhead.ch_linear\1."),
-    (r"patchembed\.projection\.", "patchembed.projection.0."),
-    (r"patchembed\.linear_y(\d+)\.", r"patchembed.LinearY.\1."),
-    (r"patchembed\.linear_c(\d+)\.", r"patchembed.LinearC.\1."),
-]
-VIT_EMBED_REFERENCE_NAMES = {  # (embed_type, sub-blocks) -> rules
-    (2, True): [(r"patchembed\.projection_y\.", "patchembed.projection_Y.1."),
-                (r"patchembed\.projection_c\.", "patchembed.projection_C.1."),
-                (r"patchembed\.linear_mix\.", "patchembed.linearMix.")],
-    (2, False): [(r"patchembed\.linear_mix\.", "patchembed.LinearMix.")],
-    (3, True): [(r"patchembed\.projection_y\.", "patchembed.projectionY.1."),
-                (r"patchembed\.projection_c\.", "patchembed.projectionC.1.")],
-}
-# port name -> reference name (models/swinv2.py)
-SWIN_REFERENCE_NAMES = [
-    (r"layer(\d+)_block(\d+)\.attn\.cpb_mlp1\.", r"layers.\1.blocks.\2.attn.cpb_mlp.0."),
-    (r"layer(\d+)_block(\d+)\.attn\.cpb_mlp2\.", r"layers.\1.blocks.\2.attn.cpb_mlp.2."),
-    (r"layer(\d+)_block(\d+)\.mlp(\d)\.", r"layers.\1.blocks.\2.mlp.fc\3."),
-    (r"layer(\d+)_block(\d+)\.", r"layers.\1.blocks.\2."),
-    (r"layer(\d+)_downsample\.", r"layers.\1.downsample."),
-    (r"patch_embed\.projection\.", "patch_embed.projection.0."),
-    (r"patch_embed\.(weight|bias)$", r"patch_embed.proj.\1"),
-    (r"patch_norm\.", "patch_embed.norm."),
-]
 # the kernels' names in a torch.profiler trace, by launch counter
 TRACE_KERNELS = {"attention_fwd_kernel": "fused_attention", "delta_kernel": "fused_attention_bwd",
                  "dkdv_kernel": "fused_attention_bwd", "dq_kernel": "fused_attention_bwd",
@@ -415,6 +402,7 @@ VIT_STEP_SPANS = {"rgbnm.draw": 1, "rgbnm.pipeline": 1, "rgbnm.pipeline.policy":
                   "rgbnm.mixup": 1, "rgbnm.forward": 1, "rgbnm.backward": 1,
                   "rgbnm.optimizer": 1, "rgbnm.attn.fwd": 12, "rgbnm.attn.bwd": 12}
 
+# (tag, generate_config arguments, embedding, tokens) of the embed phase
 EMBED_PATHS = [
     ("embed2 no_subblock", dict(modelver=2, subblock=False), "PatchEmbeddingDCTSeparate", 196),
     ("embed3", dict(modelver=3), "PatchEmbeddingDCTConcat", 294),
@@ -438,116 +426,6 @@ WGMMA_NOTES: dict[str, list[str]] = {}
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
-
-
-# --------------------------------------------------------------- the rows
-def synthetic_planes(rng: np.random.Generator, n: int, grid: int):
-    """Seeded dequantized coefficient planes: y (n, 1, grid, grid, 8, 8) and
-    c (n, 2, grid/2, grid/2, 8, 8) float32, in [-1024, 1016], with a JPEG-like
-    fall-off of magnitude with frequency and about one AC in five zero."""
-    freq = np.add.outer(np.arange(8), np.arange(8)).astype(np.float32)
-    amp = 300.0 / (1.0 + 2.0 * freq)
-
-    def plane(shape):
-        x = rng.standard_normal(shape + (8, 8)).astype(np.float32) * amp
-        x *= rng.random(shape + (8, 8)) < 0.8
-        x[..., 0, 0] = rng.uniform(-1000.0, 1000.0, shape)
-        return np.clip(x, -1024.0, 1016.0).astype(np.float32)
-
-    return plane((n, 1, grid, grid)), plane((n, 2, grid // 2, grid // 2))
-
-
-def pack_mask16(blocks: np.ndarray, k: int):
-    """The mask16 wire of ``native/dctcodec.cpp`` (pack_block_topk_mask16_f32)
-    for blocks (n, 64) float32: exact int16 DC; the K largest ACs by int8
-    magnitude (ties to the lower position) as int8 values in ascending
-    position order over a uint8 scale ceil(max|AC|/127); an 8-byte
-    little-endian occupancy mask.  Returns (values, mask, scale, dc)."""
-    n = blocks.shape[0]
-    dc = np.clip(np.rint(blocks[:, 0]), -32768, 32767).astype(np.int16)
-    ac = blocks[:, 1:]
-    mag = np.abs(ac)
-    scale = np.clip(np.ceil(mag.max(axis=1) / np.float32(127)), 1, 255).astype(np.float32)
-    inv = (np.float32(1) / scale).astype(np.float32)
-    q = np.minimum((mag * inv[:, None] + np.float32(0.5)).astype(np.int32), 127)
-    keep = np.zeros(q.shape, bool)
-    top = np.argsort(-q, axis=1, kind="stable")[:, :k]
-    np.put_along_axis(keep, top, True, axis=1)
-    keep &= q > 0
-    slot = np.cumsum(keep, axis=1) - 1
-    rows, cols = np.nonzero(keep)
-    values = np.zeros((n, k), np.int8)
-    values[rows, slot[rows, cols]] = np.where(ac[rows, cols] < 0, -q[rows, cols],
-                                              q[rows, cols])
-    bits = np.zeros((n, 64), bool)
-    bits[:, 1:] = keep
-    mask = np.packbits(bits.reshape(n, 8, 8), axis=-1, bitorder="little").reshape(n, 8)
-    return values, mask, scale.astype(np.uint8), dc
-
-
-def row_fields(rows: np.ndarray, layout: dict) -> dict[str, np.ndarray]:
-    """Writable views of every field of (n, row) uint8 rows in ``layout``
-    (``packed_layout``), each (n,) + its per-sample shape, of its dtype."""
-    out = {}
-    for name, spec in layout.items():
-        if name == "row":
-            continue
-        off, shape, dtype = spec
-        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-        out[name] = rows[:, off:off + nbytes].view(dtype).reshape((rows.shape[0],) + shape)
-    return out
-
-
-def write_rows(y: np.ndarray, c: np.ndarray, labels: np.ndarray, k: int) -> np.ndarray:
-    """Consolidated (n, row) uint8 rows in ``packed_layout(grid, k,
-    "mask16")``, as ``DctCroppedLoader`` writes them, for planes y, c."""
-    from rgbnomore_tpu_torch.data.loader import packed_layout
-
-    n, grid = y.shape[0], y.shape[2]
-    layout = packed_layout(grid, k, "mask16")
-    rows = np.zeros((n, layout["row"]), np.uint8)
-    f = row_fields(rows, layout)
-    for tag, planes in (("y", y), ("c", c)):
-        vals, mask, scale, dc = pack_mask16(planes.reshape(-1, 64), k)
-        lead = planes.shape[:4]
-        f[f"v{tag}"][...] = vals.reshape(lead + (k,))
-        f[f"i{tag}"][...] = mask.reshape(lead + (8,))
-        f[f"s{tag}"][...] = scale.reshape(lead)
-        f[f"d{tag}"][...] = dc.reshape(lead)
-    f["quant"][...] = 1
-    f["labels"][...] = labels
-    f["weights"][...] = 1.0
-    return rows
-
-
-def random_wire_rows(rng: np.random.Generator, n: int, grid: int, k: int,
-                     fmt: str = "mask16") -> np.ndarray:
-    """(n, row) uint8 rows in ``packed_layout(grid, k, fmt)`` with every
-    field drawn at random, beyond what the host packer writes: each block's
-    mask sets each of the 64 positions (0 included) with its own
-    probability in [0, 0.5), so many blocks hold more set bits than K; the
-    values span their type (int8, int16 for mask16w), scales [0, 255], DCs
-    [-1500, 1500), mask16q's quant tables [0, 255]."""
-    from rgbnomore_tpu_torch.data.loader import packed_layout
-
-    layout = packed_layout(grid, k, fmt)
-    rows = np.zeros((n, layout["row"]), np.uint8)
-    f = row_fields(rows, layout)
-    for tag in ("y", "c"):
-        vals = f[f"v{tag}"]
-        info = np.iinfo(vals.dtype)
-        vals[...] = rng.integers(info.min, info.max + 1, vals.shape)
-        mask = f[f"i{tag}"]
-        density = rng.uniform(0.0, 0.5, mask.shape[:-1] + (1,))
-        bits = rng.random(mask.shape[:-1] + (64,)) < density
-        mask[...] = np.packbits(bits.reshape(bits.shape[:-1] + (8, 8)), axis=-1,
-                                bitorder="little")[..., 0]
-        f[f"s{tag}"][...] = rng.integers(0, 256, f[f"s{tag}"].shape)
-        f[f"d{tag}"][...] = rng.integers(-1500, 1500, f[f"d{tag}"].shape)
-    f["quant"][...] = rng.integers(0, 256, f["quant"].shape) if fmt == "mask16q" else 1
-    f["labels"][...] = rng.integers(0, 1000, n)
-    f["weights"][...] = 1.0
-    return rows
 
 
 # ---------------------------------------------------------------- timing
@@ -639,31 +517,6 @@ def phase_card() -> str:
     ).stdout.strip().splitlines()
     check(bool(out), "nvidia-smi listed no card")
     return out[0]
-
-
-def mangled_kernel(line: str) -> str | None:
-    """The name of the ``*_kernel`` function in a ptxas line's mangled
-    symbol, read by the symbol's length prefixes (``_ZN<len><name>...``)."""
-    for m in re.finditer(r"_ZN?(?=\d)", line):
-        pos = m.end()
-        while True:
-            digits = re.match(r"\d+", line[pos:])
-            if digits is None:
-                break
-            start = pos + len(digits.group())
-            name = line[start:start + int(digits.group())]
-            if name.endswith("_kernel"):
-                return name
-            pos = start + len(name)
-    return None
-
-
-def kernel_instance(symbol: str) -> str:
-    """``kernel<dtype,ints>`` of a mangled kernel symbol: the element type of a
-    half-precision kernel, then its integer template arguments."""
-    dtype = re.findall(r"I(?:6__half|13__nv_bfloat16)", symbol)
-    targs = [t.split("_")[-1] for t in dtype] + re.findall(r"Li(\d+)E", symbol)
-    return (mangled_kernel(symbol) or symbol) + "<" + ",".join(targs) + ">"
 
 
 def phase_build() -> None:
@@ -1205,8 +1058,7 @@ def kernel_augpipe_wire() -> dict:
               "swin_eval": (SWIN_EVAL_BATCH, SWIN_GRID, K_EVAL, None)}
     per_shape = {}
     for tag, (batch, grid, k, presets) in shapes.items():
-        y, c = synthetic_planes(rng, batch, grid)
-        rows = write_rows(y, c, (np.arange(batch) % 1000).astype(np.int32), k)
+        rows = vit_rows(rng, batch, k, grid=grid)
         packed = torch.from_numpy(rows).cuda()
         kw = dict(target=grid, k=k, fmt="mask16")
         if presets is None:
@@ -1504,14 +1356,6 @@ def tiled_inputs(gen, case):
     return q.contiguous(), k.contiguous(), v, g, bias.contiguous()
 
 
-def to_tf32(x):
-    """``x`` rounded once to TF32 (10 mantissa bits, to nearest)."""
-    import torch
-
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
 TILED_OUTPUTS = ("out", "dq", "dk", "dv", "db")
 
 
@@ -1544,7 +1388,7 @@ def tiled_errors(got, q, k, v, bias, g) -> dict:
         part = [x[s:s + step] for x in (q, k, v, g)]
         ref = grads(*part, torch.float64)
         plain = grads(*part, torch.float32)
-        control = grads(*(to_tf32(x) for x in part), torch.float64)
+        control = grads(*(tf32_rna(x) for x in part), torch.float64)
         mine = [x[s:s + step] for x in got[:4]]
         for i in range(4):
             top[i] = max(top[i], float(ref[i].abs().max()))
@@ -2096,41 +1940,21 @@ def phase_slice(report: dict):
     trainer = Trainer(cfg, device="cuda")  # full-width ViT-Ti, seeded init
     check(trainer.packed_k_eval == K_EVAL and trainer.eval_fmt == "mask16",
           f"eval wire is K={trainer.packed_k_eval} {trainer.eval_fmt}")
-    rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    y, c = synthetic_planes(rng, N_IMAGES, GRID)
-    labels = (np.arange(N_IMAGES) % cfg.model.classes).astype(np.int32)
-    rows = write_rows(y, c, labels, K_EVAL)
-    batches = [{"packed": rows[i:i + BATCH]} for i in range(0, N_IMAGES, BATCH)]
+    rows = vit_rows(np.random.default_rng(SEED), N_IMAGES, K_EVAL)
     print(f"slice: wrote {N_IMAGES} rows of {rows.shape[1]} B in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-
-    trainer.evaluate(batches)  # warm-up: cuBLAS handles, allocator, pinned buffers
-    reset_launches()
-    with plain_unpacks() as unpacks:
-        t0 = time.perf_counter()
-        res = trainer.evaluate(batches)  # ends in a host read of every sum
-        eval_s = time.perf_counter() - t0
-    launches = all_launches()
-    report["fused_attention"]["launches"] = launches["fused_attention"]
-    check_input_stage(report, "vit_eval", launches, len(unpacks), eval_batches=len(batches))
-    per_batch = cfg.model.depth  # one attention launch per encoder block
-    check(res["count"] == N_IMAGES, f"eval counted {res['count']} images, want {N_IMAGES}")
-    check(math.isfinite(res["loss"]) and math.isfinite(res["accuracy"]),
-          f"eval sums not finite: {res}")
-    check(launches["fused_attention"] == per_batch * len(batches),
-          f"fused_attention launched {launches['fused_attention']} times, want "
-          f"{per_batch * len(batches)}")
-    print(f"slice: eval {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + "
-          f"forward, rows premade) | launches {launches}", flush=True)
+    # one attention launch per encoder block
+    eval_path(report, "vit eval", trainer, {"fused_attention": cfg.model.depth}, rows)
 
     model = trainer.model
     cpu_model = copy.deepcopy(model).cpu()
-    packed = trainer.put_batch(batches[0])["packed"]
+    batch = {"packed": rows[:BATCH]}
+    packed = trainer.put_batch(batch)["packed"]
     with torch.inference_mode():
         yd, cd, _, _ = trainer.eval_pipe(packed)
         # the pipeline on the card is bit-exact against the CPU
-        yc, cc, _, _ = trainer.eval_pipe(torch.from_numpy(batches[0]["packed"]))
+        yc, cc, _, _ = trainer.eval_pipe(torch.from_numpy(batch["packed"]))
         check(torch.equal(yd.cpu(), yc) and torch.equal(cd.cpu(), cc),
               "pipeline on the card differs from the CPU")
         got = model(yd, cd)
@@ -2158,7 +1982,7 @@ def phase_slice(report: dict):
           f"logits {tuple(got.shape)} not finite or not (batch, classes)")
     print(f"slice: logits kernel vs plain max abs err {err:.3e} "
           f"({len(rows_off)} argmax ties), card vs CPU {cpu_err:.3e}", flush=True)
-    return trainer, batches[0]
+    return trainer, batch
 
 
 def phase_breakdown(trainer, batch: dict, tag: str = "breakdown") -> None:
@@ -2174,18 +1998,15 @@ def phase_breakdown(trainer, batch: dict, tag: str = "breakdown") -> None:
     n = batch["packed"].shape[0]
     with torch.inference_mode():
         upload_ms = time_ms(lambda: trainer.put_batch(batch), reps=10, warmup=2)
-        # the upload before the reused pinned ring, on the same batch
-        pin_ms = time_ms(lambda: torch.from_numpy(batch["packed"]).pin_memory().to(
-            trainer.device, non_blocking=True), reps=10, warmup=2)
         packed = trainer.put_batch(batch)["packed"]
         pipe_ms = time_ms(lambda: trainer.eval_pipe(packed), reps=10, warmup=2)
         y, c, labels, weights = trainer.eval_pipe(packed)
         fwd_ms = time_ms(lambda: model(y, c), reps=20, warmup=3)
         logits = model(y, c)
         sums_ms = time_ms(lambda: eval_sums(logits, labels, weights), reps=10, warmup=2)
-        print(f"{tag}: per batch of {n}: upload {upload_ms:.3f} ms (pin_memory() + copy "
-              f"{pin_ms:.3f} ms), pipeline {pipe_ms:.3f} ms, forward {fwd_ms:.3f} ms "
-              f"({n / fwd_ms * 1e3:.1f} img/s), sums {sums_ms:.3f} ms", flush=True)
+        print(f"{tag}: per batch of {n}: upload {upload_ms:.3f} ms, pipeline {pipe_ms:.3f} ms, "
+              f"forward {fwd_ms:.3f} ms ({n / fwd_ms * 1e3:.1f} img/s), sums {sums_ms:.3f} ms",
+              flush=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             model(y, c)
             torch.cuda.synchronize()
@@ -2205,8 +2026,6 @@ def phase_train(report: dict):
     loss falling over 20 steps on one repeated batch (warmup 1, lr 3e-3).
     256 images with labels ``arange % 1000`` leave 744 classes unused, whose
     logits alone make the loss fall from ln 1000."""
-    import torch
-
     from rgbnomore_tpu_torch.train.config import generate_config
     from rgbnomore_tpu_torch.train.loop import Trainer
 
@@ -2218,34 +2037,12 @@ def phase_train(report: dict):
           and pipe.magnitude == 3 and pipe.ops_list == list(cfg.train.auglist),
           f"train wire K={pipe.k} {pipe.fmt}, {pipe.num_ops} ops at {pipe.magnitude}")
     trainer.create_state(steps_per_epoch=TRAIN_STEPS + 1)
-    rng = np.random.default_rng(SEED + 1)
-    y, c = synthetic_planes(rng, BATCH, GRID)
-    labels = (np.arange(BATCH) % cfg.model.classes).astype(np.int32)
-    rows = write_rows(y, c, labels, K_TRAIN)
+    rows = vit_rows(np.random.default_rng(SEED + 1), BATCH, K_TRAIN)
     packed = trainer.put_batch({"packed": rows})["packed"]
-
-    losses = [trainer.train_step(packed)]  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
-    reset_launches()
-    with plain_unpacks() as unpacks:
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
-            losses.append(trainer.train_step(packed))
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-    launches = all_launches()
-    check_input_stage(report, "vit_train", launches, len(unpacks), train_steps=TRAIN_STEPS)
-    want = {"fused_attention": 12 * TRAIN_STEPS, "fused_attention_bwd": 12 * TRAIN_STEPS}
-    for name in want:
+    launches = train_path(report, "vit train", trainer, packed, TRAIN_STEPS,
+                          {"fused_attention": 12, "fused_attention_bwd": 12})
+    for name in ("fused_attention", "fused_attention_bwd"):
         report[name]["launches"] = launches[name]
-    check(all(launches[n] == want[n] for n in want), f"train launches {launches}, want {want}")
-    losses = [float(v) for v in losses]
-    check(all(math.isfinite(v) for v in losses), f"train losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    print(f"train: {TRAIN_STEPS} steps of {BATCH} in {train_s:.3f} s, "
-          f"{TRAIN_STEPS * BATCH / train_s:.1f} img/s (pipeline + step, one resident batch) | "
-          f"launches {launches} | loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
-    print(f"train: losses {[round(v, 4) for v in losses]}", flush=True)
     return trainer, packed, rows
 
 
@@ -2315,44 +2112,12 @@ def step_card_vs_cpu(tag: str, cfg, rows: np.ndarray, prepare=None, loss_rtol=LO
 
 
 def phase_train_breakdown(trainer, packed, tag: str = "breakdown") -> None:
-    """Where one train step's time goes on the card: CUDA-event medians of
-    its stages (as ``Trainer.train_step`` runs them), and the device time of
-    one step by kernel from ``torch.profiler``."""
+    """The device time of one ``Trainer.train_step`` by kernel, from
+    ``torch.profiler``.  The step's split by stage is the port's own spans'
+    (``python3 tools/port_span_gaps.py``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from rgbnomore_tpu_torch.train.steps import mixup_batch, softmax_cross_entropy
-
-    stages = ("pipeline", "forward", "backward", "optimizer")
-    times = {s: [] for s in stages}
-    classes = trainer.cfg.model.classes
-    batch = packed.shape[0]
-    trainer.model.train()
-    for _ in range(10):
-        draws = trainer.draw(batch)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        *inputs, labels, _ = trainer.train_pipe(packed, draws.flip, draws.policy, draws.crop)
-        extra = {} if draws.drop_keep is None else {"drop_keep": draws.drop_keep.cuda()}
-        if draws.dropout is not None:
-            extra["dropout"] = draws.dropout
-        ev[1].record()
-        inputs, targets = mixup_batch(tuple(inputs), labels, classes, draws.lam)
-        loss = softmax_cross_entropy(trainer.model(*inputs, **extra), targets)
-        ev[2].record()
-        trainer.model.zero_grad(set_to_none=True)
-        loss.backward()
-        ev[3].record()
-        trainer.optimizer.step()
-        ev[4].record()
-        torch.cuda.synchronize()
-        for i, s in enumerate(stages):
-            times[s].append(ev[i].elapsed_time(ev[i + 1]))
-    med = {s: statistics.median(v) for s, v in times.items()}
-    total = sum(med.values())
-    print(f"{tag}: train step of {batch}: " + ", ".join(
-        f"{s} {med[s]:.3f} ms" for s in stages) + f"; sum {total:.3f} ms "
-        f"({batch / total * 1e3:.1f} img/s)", flush=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.train_step(packed)
         torch.cuda.synchronize()
@@ -2414,36 +2179,15 @@ def phase_swin_eval(report: dict):
     perturb_norms(trainer.model)
     check(trainer.packed_k_eval == K_EVAL and trainer.eval_fmt == "mask16",
           f"swin eval wire is K={trainer.packed_k_eval} {trainer.eval_fmt}")
-    rng = np.random.default_rng(SEED + 2)
-    y, c = synthetic_planes(rng, N_IMAGES, SWIN_GRID)
-    labels = (np.arange(N_IMAGES) % cfg.model.classes).astype(np.int32)
-    rows = write_rows(y, c, labels, K_EVAL)
-    batches = [{"packed": rows[i:i + SWIN_EVAL_BATCH]}
-               for i in range(0, N_IMAGES, SWIN_EVAL_BATCH)]
-
-    trainer.evaluate(batches)  # warm-up
-    reset_launches()
-    with plain_unpacks() as unpacks:
-        t0 = time.perf_counter()
-        res = trainer.evaluate(batches)
-        eval_s = time.perf_counter() - t0
-    check_input_stage(report, "swin_eval", all_launches(), len(unpacks),
-                      eval_batches=len(batches))
-    launches = all_launches()["window_attention"]
-    report["window_attention"]["launches"] = launches
-    check(res["count"] == N_IMAGES, f"swin eval counted {res['count']} images")
-    check(math.isfinite(res["loss"]) and math.isfinite(res["accuracy"]),
-          f"swin eval sums not finite: {res}")
-    check(launches == 12 * len(batches),
-          f"window_attention launched {launches} times, want {12 * len(batches)}")
-    print(f"swin eval: {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + forward, "
-          f"rows premade) | window_attention launches {launches}", flush=True)
+    rows = vit_rows(np.random.default_rng(SEED + 2), N_IMAGES, K_EVAL, grid=SWIN_GRID)
+    eval_path(report, "swin eval", trainer, {"window_attention": 12}, rows)
 
     model = trainer.model
     cpu_model = copy.deepcopy(model).cpu()
     attns = [b.attn for b in model.blocks()]
+    batch = {"packed": rows[:SWIN_EVAL_BATCH]}
     with torch.inference_mode():
-        yd, cd, _, _ = trainer.eval_pipe(trainer.put_batch(batches[0])["packed"])
+        yd, cd, _, _ = trainer.eval_pipe(trainer.put_batch(batch)["packed"])
         got = model(yd, cd)
         for a in attns:
             a.attention = window_attention_plain
@@ -2462,7 +2206,7 @@ def phase_swin_eval(report: dict):
           f"swin logits {tuple(got.shape)} not finite or not (batch, classes)")
     print(f"swin eval: logits kernel vs plain max abs err {err:.3e} (logits up to "
           f"{float(want.abs().max()):.3f}), card vs CPU {cpu_err:.3e}", flush=True)
-    return trainer, batches[0]
+    return trainer, batch
 
 
 def cell_image(rng: np.random.Generator, size: int = 256):
@@ -2552,8 +2296,6 @@ def phase_swin_train(report: dict):
     (1 augmentation, 12 window forward, 24 window backward: 12 per-chunk
     passes and 12 reductions), finite losses falling over 1 + 10 steps on one
     repeated batch (warmup 1, lr 3e-3), and the peak device memory."""
-    import torch
-
     from rgbnomore_tpu_torch.train.config import AUGLIST_DCT
     from rgbnomore_tpu_torch.train.loop import Trainer
 
@@ -2566,37 +2308,12 @@ def phase_swin_train(report: dict):
           f"swin train wire K={pipe.k} {pipe.fmt}, {pipe.num_ops} ops at {pipe.magnitude}")
     check(abs(trainer.model.drop_path_rates[-1] - 0.2) < 1e-9, "swin drop path is not 0.2")
     trainer.create_state(steps_per_epoch=SWIN_TRAIN_STEPS + 1)
-    rng = np.random.default_rng(SEED + 4)
-    y, c = synthetic_planes(rng, SWIN_TRAIN_BATCH, SWIN_GRID)
-    labels = (np.arange(SWIN_TRAIN_BATCH) % cfg.model.classes).astype(np.int32)
-    rows = write_rows(y, c, labels, K_TRAIN)
+    rows = vit_rows(np.random.default_rng(SEED + 4), SWIN_TRAIN_BATCH, K_TRAIN, grid=SWIN_GRID)
     packed = trainer.put_batch({"packed": rows})["packed"]
-
-    torch.cuda.reset_peak_memory_stats()
-    losses = [trainer.train_step(packed)]  # warm-up
-    torch.cuda.synchronize()
-    reset_launches()
-    with plain_unpacks() as unpacks:
-        t0 = time.perf_counter()
-        for _ in range(SWIN_TRAIN_STEPS):
-            losses.append(trainer.train_step(packed))
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launches = all_launches()
-    check_input_stage(report, "swin_train", launches, len(unpacks), train_steps=SWIN_TRAIN_STEPS)
-    want = {"window_attention": 12 * SWIN_TRAIN_STEPS, "window_attention_bwd": 24 * SWIN_TRAIN_STEPS}
-    for name in want:
+    launches = train_path(report, "swin train", trainer, packed, SWIN_TRAIN_STEPS,
+                          {"window_attention": 12, "window_attention_bwd": 24})
+    for name in ("window_attention", "window_attention_bwd"):
         report[name]["launches"] = launches[name]
-    check(all(launches[n] == want[n] for n in want), f"swin train launches {launches}, want {want}")
-    losses = [float(v) for v in losses]
-    check(all(math.isfinite(v) for v in losses), f"swin train losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"swin loss did not fall over {SWIN_TRAIN_STEPS} steps: {losses}")
-    print(f"swin train: {SWIN_TRAIN_STEPS} steps of {SWIN_TRAIN_BATCH} in {train_s:.3f} s, "
-          f"{SWIN_TRAIN_STEPS * SWIN_TRAIN_BATCH / train_s:.1f} img/s (pipeline + step, one "
-          f"resident batch) | launches {launches} | loss {losses[0]:.4f} -> {losses[-1]:.4f} | "
-          f"peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
-    print(f"swin train: losses {[round(v, 4) for v in losses]}", flush=True)
     return trainer, packed, rows
 
 
@@ -2609,10 +2326,7 @@ def reset_launches() -> None:
 
 def all_launches() -> dict:
     """Every kernel wrapper's launch count (``LAUNCH_COUNTERS``)."""
-    from rgbnomore_tpu_torch.utils import profiling
-
-    counters = profiling.totals()["counters"]
-    return {name: counters.get(f"rgbnm.launch.{c}", 0) for name, c in LAUNCH_COUNTERS.items()}
+    return {name: counted_launches(c) for name, c in LAUNCH_COUNTERS.items()}
 
 
 def check_launches(tag: str, got: dict, want: dict) -> None:
@@ -2625,18 +2339,17 @@ def check_launches(tag: str, got: dict, want: dict) -> None:
     check(seen == full, f"{tag}: launches {seen}, want {full}")
 
 
-def check_swin_linear(tag: str, launches: dict, qkv: tuple, library: int) -> None:
+def check_swin_linear(tag: str, launches: dict, want: tuple) -> None:
     """SwinV2 under bf16 AMP: its float32 qkv products (every block's but the
-    first) on #6, ``qkv`` = (forward, input-gradient, weight-gradient)
-    launches; ``library`` bf16 products on ``F.linear`` (every bf16
-    ``Linear`` and the first block's qkv), counted in
-    ``rgbnm.linear.library``."""
+    first) on #6, ``want`` = (forward, input-gradient, weight-gradient)
+    launches and the bf16 products on ``F.linear`` (every bf16 ``Linear``
+    and the first block's qkv), counted in ``rgbnm.linear.library``."""
     from rgbnomore_tpu_torch.utils import profiling
 
     got = {w: launches[w] for w in LINEAR_WRAPPERS}
     got["library"] = profiling.totals()["counters"].get("rgbnm.linear.library", 0)
-    want = {**dict(zip(LINEAR_WRAPPERS, qkv)), "library": library}
-    check(got == want, f"{tag}: #6 and library products {got}, want {want}")
+    check(got == dict(zip((*LINEAR_WRAPPERS, "library"), want)),
+          f"{tag}: #6 and library products {got}, want {want}")
 
 
 def vitb_config(**kw):
@@ -2677,53 +2390,14 @@ def phase_vitb(report: dict):
     trainer.create_state(steps_per_epoch=VITB_TRAIN_STEPS + 1)
     check(trainer.loss_scale is None, "bf16 made loss scaler state")
     rng = np.random.default_rng(SEED + 6)
-    y, c = synthetic_planes(rng, batch, GRID)
-    rows = write_rows(y, c, (np.arange(batch) % cfg.model.classes).astype(np.int32), K_TRAIN)
+    rows = vit_rows(rng, batch, K_TRAIN, classes=cfg.model.classes)
     packed = trainer.put_batch({"packed": rows})["packed"]
-
-    torch.cuda.reset_peak_memory_stats()
-    losses = [trainer.train_step(packed)]  # warm-up
-    torch.cuda.synchronize()
-    reset_launches()
-    with plain_unpacks() as unpacks:
-        t0 = time.perf_counter()
-        for _ in range(VITB_TRAIN_STEPS):
-            losses.append(trainer.train_step(packed))
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launches = all_launches()
-    check_input_stage(report, "vitb_train", launches, len(unpacks), train_steps=VITB_TRAIN_STEPS)
-    check_launches("vitb train", launches, {"fused_attention_h16": 12 * VITB_TRAIN_STEPS,
-                                            "fused_attention_h16_bwd": 12 * VITB_TRAIN_STEPS})
+    launches = train_path(report, "vitb train", trainer, packed, VITB_TRAIN_STEPS,
+                          {"fused_attention_h16": 12, "fused_attention_h16_bwd": 12})
     report["fused_attention_bf16"]["launches"] = launches["fused_attention_h16"]
     report["fused_attention_bwd_bf16"]["launches"] = launches["fused_attention_h16_bwd"]
-    losses = [float(v) for v in losses]
-    check(all(math.isfinite(v) for v in losses), f"vitb train losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"vitb loss did not fall over {VITB_TRAIN_STEPS} steps: {losses}")
-    print(f"vitb train: {VITB_TRAIN_STEPS} steps of {batch} in {train_s:.3f} s, "
-          f"{VITB_TRAIN_STEPS * batch / train_s:.1f} img/s (pipeline + step, one resident "
-          f"batch, bf16) | launches {launches} | loss {losses[0]:.4f} -> {losses[-1]:.4f} | "
-          f"peak memory {peak_gib:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
-    print(f"vitb train: losses {[round(v, 4) for v in losses]}", flush=True)
-
-    y, c = synthetic_planes(rng, N_IMAGES, GRID)
-    eval_rows = write_rows(y, c, (np.arange(N_IMAGES) % 1000).astype(np.int32), K_EVAL)
-    batches = [{"packed": eval_rows[i:i + BATCH]} for i in range(0, N_IMAGES, BATCH)]
-    trainer.evaluate(batches)  # warm-up
-    reset_launches()
-    with plain_unpacks() as unpacks:
-        t0 = time.perf_counter()
-        res = trainer.evaluate(batches)
-        eval_s = time.perf_counter() - t0
-    launches = all_launches()
-    check_input_stage(report, "vitb_eval", launches, len(unpacks), eval_batches=len(batches))
-    check_launches("vitb eval", launches, {"fused_attention_h16": 12 * len(batches)})
-    check(res["count"] == N_IMAGES and math.isfinite(res["loss"])
-          and math.isfinite(res["accuracy"]), f"vitb eval gave {res}")
-    print(f"vitb eval: {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + forward, "
-          f"rows premade, batches of {BATCH}) | bf16 forward launches "
-          f"{launches['fused_attention_h16']}", flush=True)
+    eval_path(report, "vitb eval", trainer, {"fused_attention_h16": 12},
+              vit_rows(rng, N_IMAGES, K_EVAL))
     return trainer, packed, rows
 
 
@@ -2748,56 +2422,13 @@ def phase_swin_amp(report: dict):
     check(trainer.compute_dtype == torch.bfloat16, f"swinv2 computes in {trainer.compute_dtype}")
     trainer.create_state(steps_per_epoch=SWIN_TRAIN_STEPS + 1)
     rng = np.random.default_rng(SEED + 7)
-    y, c = synthetic_planes(rng, SWIN_TRAIN_BATCH, SWIN_GRID)
-    rows = write_rows(y, c, (np.arange(SWIN_TRAIN_BATCH) % 1000).astype(np.int32), K_TRAIN)
-    packed = trainer.put_batch({"packed": rows})["packed"]
-
-    torch.cuda.reset_peak_memory_stats()
-    losses = [trainer.train_step(packed)]  # warm-up
-    torch.cuda.synchronize()
-    reset_launches()
-    with plain_unpacks() as unpacks:
-        t0 = time.perf_counter()
-        for _ in range(SWIN_TRAIN_STEPS):
-            losses.append(trainer.train_step(packed))
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launches = all_launches()
-    check_input_stage(report, "swin_amp_train", launches, len(unpacks),
-                      train_steps=SWIN_TRAIN_STEPS)
-    check_launches("swin amp train", launches, {"window_attention": 12 * SWIN_TRAIN_STEPS,
-                                                "window_attention_bwd": 24 * SWIN_TRAIN_STEPS})
+    packed = trainer.put_batch({"packed": vit_rows(rng, SWIN_TRAIN_BATCH, K_TRAIN,
+                                                   grid=SWIN_GRID)})["packed"]
     # 11 float32 qkv products a step; 40 bf16 Linears and the first qkv a forward
-    check_swin_linear("swin amp train", launches, (11 * SWIN_TRAIN_STEPS,) * 3,
-                      41 * SWIN_TRAIN_STEPS)
-    losses = [float(v) for v in losses]
-    check(all(math.isfinite(v) for v in losses), f"swin amp losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"swin amp loss did not fall: {losses}")
-    print(f"swin amp train: {SWIN_TRAIN_STEPS} steps of {SWIN_TRAIN_BATCH} in {train_s:.3f} s, "
-          f"{SWIN_TRAIN_STEPS * SWIN_TRAIN_BATCH / train_s:.1f} img/s (pipeline + step, one "
-          f"resident batch, bf16) | launches {launches} | loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f} | peak memory {peak_gib:.2f} GiB", flush=True)
-    print(f"swin amp train: losses {[round(v, 4) for v in losses]}", flush=True)
-
-    y, c = synthetic_planes(rng, N_IMAGES, SWIN_GRID)
-    eval_rows = write_rows(y, c, (np.arange(N_IMAGES) % 1000).astype(np.int32), K_EVAL)
-    batches = [{"packed": eval_rows[i:i + SWIN_EVAL_BATCH]}
-               for i in range(0, N_IMAGES, SWIN_EVAL_BATCH)]
-    trainer.evaluate(batches)  # warm-up
-    reset_launches()
-    with plain_unpacks() as unpacks:
-        t0 = time.perf_counter()
-        res = trainer.evaluate(batches)
-        eval_s = time.perf_counter() - t0
-    launches = all_launches()
-    check_input_stage(report, "swin_amp_eval", launches, len(unpacks), eval_batches=len(batches))
-    check_launches("swin amp eval", launches, {"window_attention": 12 * len(batches)})
-    check_swin_linear("swin amp eval", launches, (11 * len(batches), 0, 0), 41 * len(batches))
-    check(res["count"] == N_IMAGES and math.isfinite(res["loss"]), f"swin amp eval gave {res}")
-    print(f"swin amp eval: {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + forward, "
-          f"rows premade, batches of {SWIN_EVAL_BATCH}) | window launches "
-          f"{launches['window_attention']}", flush=True)
+    train_path(report, "swin amp train", trainer, packed, SWIN_TRAIN_STEPS,
+               {"window_attention": 12, "window_attention_bwd": 24}, linear=(11, 11, 11, 41))
+    eval_path(report, "swin amp eval", trainer, {"window_attention": 12},
+              vit_rows(rng, N_IMAGES, K_EVAL, grid=SWIN_GRID), linear=(11, 0, 0, 41))
     return trainer, packed
 
 
@@ -2826,8 +2457,7 @@ def phase_fp16(report: dict) -> None:
     check(scaler is not None and float(scaler.scale) == INIT_SCALE
           and int(scaler.good_steps) == 0, "fp16 loss scaler not at 2^15")
     rng = np.random.default_rng(SEED + 8)
-    y, c = synthetic_planes(rng, BATCH, GRID)
-    rows = write_rows(y, c, (np.arange(BATCH) % 1000).astype(np.int32), K_TRAIN)
+    rows = vit_rows(rng, BATCH, K_TRAIN)
     packed = trainer.put_batch({"packed": rows})["packed"]
 
     losses = [trainer.train_step(packed)]  # warm-up
@@ -2914,8 +2544,7 @@ def swin_steps_from_one_state(cfg) -> tuple[list[float], bool]:
     from rgbnomore_tpu_torch.train.loop import Trainer
 
     rng = np.random.default_rng(SEED + 4)
-    y, c = synthetic_planes(rng, SWIN_TRAIN_BATCH, SWIN_GRID)
-    rows = write_rows(y, c, (np.arange(SWIN_TRAIN_BATCH) % 1000).astype(np.int32), K_TRAIN)
+    rows = vit_rows(rng, SWIN_TRAIN_BATCH, K_TRAIN, grid=SWIN_GRID)
     losses, params, draws = [], [], None
     for _ in range(2):
         trainer = Trainer(cfg, device="cuda")
@@ -2993,8 +2622,8 @@ def phase_dropout_cost(rows: np.ndarray) -> None:
     """Dropout's cost: the ViT-Ti train step at batch 256 on one resident
     batch at drop 0 (the step without dropout) and at drop 0.1, in turns (0,
     0.1, 0.1, 0), each 1 + 10 steps: ms a step (CUDA-synchronised host
-    clock) and the peak device memory after the warm-up; then the stages
-    and kernels of a step at drop 0.1."""
+    clock) and the peak device memory after the warm-up; then the kernels
+    of a step at drop 0.1."""
     import torch
 
     from rgbnomore_tpu_torch.train.config import generate_config
@@ -3223,11 +2852,8 @@ def ddp_child() -> int:
 
     cfg = trainer_config(epochs=1)
     rng = np.random.default_rng(SEED + 6)
-    labels = (np.arange(BATCH) % 1000).astype(np.int32)
-    train_rows = [write_rows(*synthetic_planes(rng, BATCH, GRID), labels, K_TRAIN)
-                  for _ in range(3)]
-    eval_rows = [{"packed": write_rows(*synthetic_planes(rng, BATCH, GRID), labels, K_EVAL)}
-                 for _ in range(2)]
+    train_rows = [vit_rows(rng, BATCH, K_TRAIN) for _ in range(3)]
+    eval_rows = [{"packed": vit_rows(rng, BATCH, K_EVAL)} for _ in range(2)]
 
     def run():
         trainer = Trainer(cfg, device="cuda")
@@ -3353,10 +2979,11 @@ def record_launches(report: dict, path: str, launches: dict) -> None:
             report[entry].setdefault("launches_by_path", {})[path] = launches[wrapper]
 
 
-def vit_rows(rng: np.random.Generator, n: int, k: int, classes: int = 1000) -> np.ndarray:
-    """``n`` rows of the ViT's 28x28 grid on the K-``k`` wire, labels
-    ``arange % classes``."""
-    y, c = synthetic_planes(rng, n, GRID)
+def vit_rows(rng: np.random.Generator, n: int, k: int, classes: int = 1000,
+             grid: int = GRID) -> np.ndarray:
+    """``n`` rows of the ViT's 28x28 grid (or SwinV2's ``grid``) on the
+    K-``k`` wire, labels ``arange % classes``."""
+    y, c = synthetic_planes(rng, n, grid)
     return write_rows(y, c, (np.arange(n) % classes).astype(np.int32), k)
 
 
@@ -3377,61 +3004,76 @@ def used_class_loss(trainer, packed, draws) -> float:
 
 
 def train_path(report: dict, tag: str, trainer, packed, steps: int, want: dict,
-               tensor_stage: bool = False) -> list[float]:
-    """1 + ``steps`` train steps on one resident batch: the launches of the
-    counted steps (1 wire launch a step, ``want`` of the attention kernels,
-    no other), finite losses, the last below the first; returns the
-    losses.  ``tensor_stage``: an input stage in tensor code (the RGB
-    domain, a DCT op list outside the kernel's set), which launches no #5
-    entry and unpacks its rows itself, and no check of the falling loss
+               tensor_stage: bool = False, linear: tuple | None = None) -> dict:
+    """1 + ``steps`` train steps on one resident batch, the counters read
+    after each counted step: 1 wire launch a step, ``want`` launches a step
+    of the attention and window kernels and none of the others, ``linear``
+    (``check_swin_linear``) where given; finite losses, the last below the
+    first; the peak memory from the warm-up on.  Returns the launches of
+    the counted steps.  ``tensor_stage``: an input stage in tensor code (the
+    RGB domain, a DCT op list outside the kernel's set), which launches no
+    #5 entry and unpacks its rows itself, and no check of the falling loss
     (the RGB rows are photographs of the trainer corpus, and RandAugment at
-    magnitude 10 moves each step's batch far).  With few steps and rows that leave classes unused, the falling
-    loss is a check of the head and of the gradient path only: the head's
-    bias lowers it by pushing the unused classes' logits down, and
-    ``step_card_vs_cpu`` holds the backbone's gradients.  The loss over
-    the used classes (``used_class_loss``) before and after the steps is
-    printed beside it, and not checked."""
+    magnitude 10 moves each step's batch far).  With few steps and rows
+    that leave classes unused, the falling loss is a check of the head and
+    of the gradient path only: the head's bias lowers it by pushing the
+    unused classes' logits down, and ``step_card_vs_cpu`` holds the
+    backbone's gradients.  The loss over the used classes
+    (``used_class_loss``) before and after the steps is printed beside it,
+    and not checked."""
     import torch
 
     batch = (packed["labels"] if isinstance(packed, dict) else packed).shape[0]
     fixed = trainer.draw(batch)
     used_before = used_class_loss(trainer, packed, fixed)
+    torch.cuda.reset_peak_memory_stats()
     losses = [trainer.train_step(packed)]  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    reset_launches()
+    total = collections.Counter()
     with plain_unpacks() as unpacks:
         t0 = time.perf_counter()
         for _ in range(steps):
+            reset_launches()  # the counters are the host's: no synchronise
             losses.append(trainer.train_step(packed))
+            step = all_launches()
+            check_launches(tag, step, want)
+            if linear is not None:
+                check_swin_linear(tag, step, linear)
+            total.update(step)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-    launches = all_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: total[name] for name in LAUNCH_COUNTERS}
     if tensor_stage:
         check_no_input_kernel(report, tag.replace(" ", "_"), launches)
     else:
         check_input_stage(report, tag.replace(" ", "_"), launches, len(unpacks),
                           train_steps=steps)
-    check_launches(tag, launches, want)
     record_launches(report, tag.replace(" ", "_"), launches)
     losses = [float(v) for v in losses]
     used_after = used_class_loss(trainer, packed, fixed)
     print(f"{tag}: {steps} steps of {batch} in {train_s:.3f} s, {steps * batch / train_s:.1f} "
           f"img/s (pipeline + step, one resident batch) | launches {launches} | losses "
           f"{[round(v, 4) for v in losses]} | loss over the used classes, eval mode, one "
-          f"fixed draw: {used_before:.5f} -> {used_after:.5f}", flush=True)
+          f"fixed draw: {used_before:.5f} -> {used_after:.5f} | peak memory {peak_gib:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
     check(all(math.isfinite(v) for v in losses), f"{tag}: losses not finite: {losses}")
     check(tensor_stage or losses[-1] < losses[0],
           f"{tag}: loss did not fall over {steps} steps: {losses}")
-    return losses
+    return launches
 
 
-def eval_path(report: dict, tag: str, trainer, want_per_batch: dict) -> None:
-    """``N_IMAGES`` on the K=48 wire through ``Trainer.evaluate`` in batches
-    of ``BATCH``: one wire launch and ``want_per_batch`` attention launches
-    per batch, finite sums over every image."""
-    rng = np.random.default_rng(SEED + 11)
-    rows = vit_rows(rng, N_IMAGES, K_EVAL)
-    batches = [{"packed": rows[i:i + BATCH]} for i in range(0, N_IMAGES, BATCH)]
+def eval_path(report: dict, tag: str, trainer, want_per_batch: dict,
+              rows: np.ndarray | None = None, linear: tuple | None = None) -> None:
+    """``rows`` (``N_IMAGES`` ViT rows on the K=48 wire where None) through
+    ``Trainer.evaluate`` in batches of ``BATCH``: one wire launch,
+    ``want_per_batch`` attention or window launches and none of the others
+    and ``linear`` (``check_swin_linear``) where given a batch, finite sums
+    over every image."""
+    if rows is None:
+        rows = vit_rows(np.random.default_rng(SEED + 11), N_IMAGES, K_EVAL)
+    n = rows.shape[0]
+    batches = [{"packed": rows[i:i + BATCH]} for i in range(0, n, BATCH)]
     trainer.evaluate(batches[:1])  # warm-up
     reset_launches()
     with plain_unpacks() as unpacks:
@@ -3442,10 +3084,12 @@ def eval_path(report: dict, tag: str, trainer, want_per_batch: dict) -> None:
     check_input_stage(report, tag.replace(" ", "_"), launches, len(unpacks),
                       eval_batches=len(batches))
     check_launches(tag, launches, {k: v * len(batches) for k, v in want_per_batch.items()})
+    if linear is not None:
+        check_swin_linear(tag, launches, tuple(v * len(batches) for v in linear))
     record_launches(report, tag.replace(" ", "_"), launches)
-    check(res["count"] == N_IMAGES and math.isfinite(res["loss"])
+    check(res["count"] == n and math.isfinite(res["loss"])
           and math.isfinite(res["accuracy"]), f"{tag}: eval gave {res}")
-    print(f"{tag}: {res} | {N_IMAGES / eval_s:.1f} img/s (upload + pipeline + forward, rows "
+    print(f"{tag}: {res} | {n / eval_s:.1f} img/s (upload + pipeline + forward, rows "
           f"premade, batches of {BATCH}) | launches {launches}", flush=True)
 
 
@@ -3479,8 +3123,7 @@ def phase_vits(report: dict):
         torch.cuda.reset_peak_memory_stats()
         try:
             train_path(report, "vits train", trainer, packed, VITS_TRAIN_STEPS,
-                       {"fused_attention": 12 * VITS_TRAIN_STEPS,
-                        "fused_attention_bwd": 12 * VITS_TRAIN_STEPS})
+                       {"fused_attention": 12, "fused_attention_bwd": 12})
         except torch.cuda.OutOfMemoryError as exc:
             peak = torch.cuda.max_memory_allocated() / 2**30
             print(f"vits train: batch {batch} does not fit one card (peak {peak:.2f} GiB "
@@ -3489,9 +3132,6 @@ def phase_vits(report: dict):
             gc.collect()
             torch.cuda.empty_cache()
             continue
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"vits train: batch {batch}, peak memory {peak:.2f} GiB "
-              f"(torch.cuda.max_memory_allocated)", flush=True)
         break
     else:
         check(False, f"vits train: no batch of {VITS_BATCHES} fits one card")
@@ -3543,8 +3183,7 @@ def phase_embed(report: dict) -> None:
         trainer.create_state(steps_per_epoch=EMBED_STEPS + 1)
         packed = trainer.put_batch({"packed": vit_rows(rng, BATCH, K_TRAIN)})["packed"]
         print(f"{tag}: {got}, {n} tokens, {trainer.compute_dtype}", flush=True)
-        train_path(report, f"{tag} train", trainer, packed, EMBED_STEPS,
-                   {fwd: 12 * EMBED_STEPS, bwd: 12 * EMBED_STEPS})
+        train_path(report, f"{tag} train", trainer, packed, EMBED_STEPS, {fwd: 12, bwd: 12})
         eval_path(report, f"{tag} eval", trainer, {fwd: 12})
         del trainer, packed
         gc.collect()
@@ -3575,8 +3214,7 @@ def phase_ape(report: dict) -> None:
     cpu_model = copy.deepcopy(trainer.model).cpu().eval()
     trainer.create_state(steps_per_epoch=2)
     rng = np.random.default_rng(SEED + 13)
-    y, c = synthetic_planes(rng, SWIN_TRAIN_BATCH, SWIN_GRID)
-    rows = write_rows(y, c, (np.arange(SWIN_TRAIN_BATCH) % 1000).astype(np.int32), K_TRAIN)
+    rows = vit_rows(rng, SWIN_TRAIN_BATCH, K_TRAIN, grid=SWIN_GRID)
     packed = trainer.put_batch({"packed": rows})["packed"]
     reset_launches()
     with plain_unpacks() as unpacks:
@@ -3588,8 +3226,7 @@ def phase_ape(report: dict) -> None:
     record_launches(report, "ape_train", launches)
     check(math.isfinite(loss) and ape.grad is not None and bool(ape.grad.abs().max() > 0),
           f"ape train: loss {loss}, the embedding got no gradient")
-    y, c = synthetic_planes(rng, SWIN_EVAL_BATCH, SWIN_GRID)
-    rows = write_rows(y, c, (np.arange(SWIN_EVAL_BATCH) % 1000).astype(np.int32), K_EVAL)
+    rows = vit_rows(rng, SWIN_EVAL_BATCH, K_EVAL, grid=SWIN_GRID)
     trainer.model.load_state_dict(cpu_model.state_dict())  # the weights before the step
     reset_launches()
     with plain_unpacks() as unpacks:
@@ -3883,7 +3520,7 @@ def phase_rgb(report: dict, index_train: str, index_val: str) -> None:
     batch of 1,024 (512 where that does not fit) with 12 #1, 12 #2 and no #5
     launch a step, finite losses, the step's peak memory and the input
     stage's own; one step card vs CPU at 2 images; the input stage split and
-    card vs CPU; the stages and kernels of a step; 512 images through the
+    card vs CPU; the kernels of a step; 512 images through the
     eval (12 #1 launches a batch); the host decode img/s at 1 and 8
     threads."""
     import gc
@@ -3915,8 +3552,7 @@ def phase_rgb(report: dict, index_train: str, index_val: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         try:
             train_path(report, "rgb vits train", trainer, packed, RGB_TRAIN_STEPS,
-                       {"fused_attention": 12 * RGB_TRAIN_STEPS,
-                        "fused_attention_bwd": 12 * RGB_TRAIN_STEPS}, tensor_stage=True)
+                       {"fused_attention": 12, "fused_attention_bwd": 12}, tensor_stage=True)
         except torch.cuda.OutOfMemoryError as exc:
             print(f"rgb vits train: batch {batch} does not fit one card: "
                   f"{str(exc).splitlines()[0]}", flush=True)
@@ -3994,8 +3630,8 @@ def phase_rgb_paths(report: dict, tmp: str, index_train: str, index_val: str) ->
         embed = getattr(trainer.model, "patch_embed", None) or trainer.model.patchembed
         print(f"{tag}: {type(embed).__name__}, transfer {transfer}, {trainer.compute_dtype}",
               flush=True)
-        train_path(report, f"{tag} train", trainer, inputs, RGB_PATH_STEPS,
-                   {k: v * RGB_PATH_STEPS for k, v in per_step.items()}, tensor_stage=True)
+        train_path(report, f"{tag} train", trainer, inputs, RGB_PATH_STEPS, per_step,
+                   tensor_stage=True)
         rgb_eval(report, f"{tag} eval", trainer, [next(iter(loaders["test"]))], per_batch)
         del trainer, inputs, batch
         gc.collect()
@@ -4097,31 +3733,6 @@ def phase_dct_ops(report: dict) -> None:
 
 
 # ------------------------------------------------------- harness (module 7)
-def reference_state_dict(model, rules, rng, std: float) -> dict:
-    """A state dict under the reference's module names (``rules``, the first
-    match renames) with ``model``'s shapes, drawn from ``rng``: weights and
-    biases N(0, std^2), LayerNorm scales 1 + N(0, 0.1^2), SwinV2's logit
-    scales log 10 + N(0, 0.1^2); the ViT's fused qkv rows are so random,
-    not symmetric under the reference's (h, d, qkv) interleave."""
-    import torch
-
-    out = {}
-    for key, value in model.state_dict().items():
-        arr = rng.standard_normal(tuple(value.shape)).astype(np.float32)
-        if key.endswith("logit_scale"):
-            arr = np.float32(math.log(10)) + np.float32(0.1) * arr
-        elif re.search(r"(ln\d?|norm\d?)\.weight$", key):
-            arr = 1 + np.float32(0.1) * arr
-        else:
-            arr *= np.float32(std)
-        for pattern, repl in rules:
-            key, n = re.subn(pattern, repl, key)
-            if n:
-                break
-        out[key] = torch.from_numpy(arr)
-    return out
-
-
 def logits_card_vs_cpu(tag: str, trainer, cpu_model, rows: np.ndarray) -> float:
     """The eval pipeline on the card, then the logits of ``trainer.model``
     on the card against ``cpu_model`` on the CPU on the same planes; returns
@@ -4244,8 +3855,7 @@ def harness_import(report: dict, tmp: str, card: str) -> str:
     cpu_model.load_state_dict(sd, strict=True)
     trainer = Trainer(cfg, device="cuda")
     trainer.model.load_state_dict(sd, strict=True)
-    y, c = synthetic_planes(rng, SWIN_EVAL_BATCH, SWIN_GRID)
-    rows = write_rows(y, c, (np.arange(SWIN_EVAL_BATCH) % 1000).astype(np.int32), K_EVAL)
+    rows = vit_rows(rng, SWIN_EVAL_BATCH, K_EVAL, grid=SWIN_GRID)
     trainer.evaluate([{"packed": rows}])  # warm-up
     reset_launches()
     with plain_unpacks() as unpacks:
@@ -4305,42 +3915,6 @@ def read_trace(logdir: str) -> dict:
                         if e["args"].get("correlation") not in started],
             "lags": [started[e["args"]["correlation"]] - e["ts"] for e in launched
                      if e["args"].get("correlation") in started]}
-
-
-def port_spans(events: list) -> list[dict]:
-    """The port's spans (``rgbnm.*`` host events; the profiler repeats each
-    span that launched device work on the device's timeline as a
-    ``gpu_user_annotation``, left out here) among a Chrome trace's events:
-    name, host thread, start and end (µs) and index (the span's one input,
-    None without one)."""
-    out = []
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") != "user_annotation" \
-                or not str(e.get("name", "")).startswith("rgbnm."):
-            continue
-        inputs = e.get("args", {}).get("Concrete Inputs") or [""]
-        out.append({"name": e["name"], "tid": e.get("tid"), "ts": float(e["ts"]),
-                    "end": float(e["ts"]) + float(e["dur"]),
-                    "index": int(inputs[0]) if inputs[0] != "" else None})
-    return out
-
-
-def spans_per_step(spans: list) -> tuple[list[dict], list[str]]:
-    """For each ``rgbnm.step`` span, in order: its index and how many of
-    each other port span lie inside it in time (on any thread); and the
-    names of the spans that lie in no step."""
-    steps = sorted((s for s in spans if s["name"] == "rgbnm.step"), key=lambda s: s["ts"])
-    rows = [{"index": st["index"], "spans": collections.Counter()} for st in steps]
-    outside = []
-    for s in spans:
-        if s["name"] == "rgbnm.step":
-            continue
-        home = [r for r, st in zip(rows, steps) if st["ts"] <= s["ts"] and s["end"] <= st["end"]]
-        if home:
-            home[0]["spans"][s["name"]] += 1
-        else:
-            outside.append(s["name"])
-    return [{"index": r["index"], "spans": dict(r["spans"])} for r in rows], outside
 
 
 def harness_trace(report: dict, tmp: str, card: str) -> None:
@@ -4407,52 +3981,6 @@ def harness_trace(report: dict, tmp: str, card: str) -> None:
     print(f"profiling: ViT-Ti {flops / 1e9:.6f} GFLOP an image (forward); train step at batch "
           f"{BATCH}: {step_s * 1e3:.3f} ms, {3 * flops * BATCH / step_s / 1e12:.2f} TFLOP/s "
           f"achieved (3 x forward); {card}", flush=True)
-
-
-def val_names(n: int) -> list[str]:
-    """The file names of the first ``n`` images of ImageNet's val set."""
-    return [f"ILSVRC2012_val_{i:08d}.JPEG" for i in range(1, n + 1)]
-
-
-def write_imagenet_tars(root, rng, classes=("n01440764", "n01443537"), per_class=2, n_val=2,
-                        size=(32, 32)):
-    """ILSVRC-shaped tars of random ``size`` (width, height) JPEGs in
-    ``root/src``: the train tar an outer tar of ``per_class`` images in a
-    tar for each of ``classes``, the val tar ``n_val`` flat images named as
-    the real val set's (:func:`val_names`); returns ``root/src``."""
-    import tarfile
-    from pathlib import Path
-
-    from PIL import Image
-
-    src, scratch = Path(root) / "src", Path(root) / "scratch"
-    src.mkdir()
-    scratch.mkdir()
-
-    def jpg(path):
-        arr = rng.integers(0, 256, (size[1], size[0], 3), dtype=np.uint8)
-        Image.fromarray(arr, "RGB").save(path, "JPEG")
-
-    class_tars = []
-    for cls in classes:
-        cdir = scratch / cls
-        cdir.mkdir()
-        for i in range(per_class):
-            jpg(cdir / f"{cls}_{i}.JPEG")
-        ct = scratch / f"{cls}.tar"
-        with tarfile.open(ct, "w") as t:
-            for p in sorted(cdir.iterdir()):
-                t.add(p, arcname=p.name)
-        class_tars.append(ct)
-    with tarfile.open(src / "ILSVRC2012_img_train.tar", "w") as t:
-        for ct in class_tars:
-            t.add(ct, arcname=ct.name)
-    for name in val_names(n_val):
-        jpg(scratch / name)
-    with tarfile.open(src / "ILSVRC2012_img_val.tar", "w") as t:
-        for name in val_names(n_val):
-            t.add(scratch / name, arcname=name)
-    return src
 
 
 def run_cli(tag: str, args: list[str]) -> tuple[dict, str]:
@@ -4546,11 +4074,11 @@ def phase_swinv2b(report: dict) -> None:
     "swinv2b", "dct")``: bf16 AMP, embed 128, depths (2, 2, 18, 2), heads
     (4, 8, 16, 32), window 16, drop path 0.5) at batch 256 on the K=16
     wire: 1 + 10 train steps on one repeated batch (warmup 1, lr 1e-3), the
-    counters reset just before each counted step and read after it: #3L 22
-    and #4L 88 (22 calls x 4 kernels), #3 2 and #4 4 (stage 4's blocks),
-    #6 23 / 23 / 23 (the float32 qkv products), 77 bf16 products on
-    ``F.linear``, one wire launch, no ViT attention; finite falling losses;
-    the peak memory; then one eval batch of 256 (#3L 22, #3 2, #6 23)."""
+    counters read after each counted step: #3L 22 and #4L 88 (22 calls x 4
+    kernels), #3 2 and #4 4 (stage 4's blocks), #6 23 / 23 / 23 (the float32
+    qkv products), 77 bf16 products on ``F.linear``, one wire launch, no ViT
+    attention; finite falling losses; the peak memory; then one eval batch
+    of 256 (#3L 22, #3 2, #6 23)."""
     import torch
 
     from rgbnomore_tpu_torch.train.config import generate_config
@@ -4568,52 +4096,18 @@ def phase_swinv2b(report: dict) -> None:
     check(abs(trainer.model.drop_path_rates[-1] - 0.5) < 1e-9, "swinv2b drop path is not 0.5")
     trainer.create_state(steps_per_epoch=SWINB_TRAIN_STEPS + 1)
     rng = np.random.default_rng(SEED + 9)
-    y, c = synthetic_planes(rng, SWINB_BATCH, SWIN_GRID)
-    rows = write_rows(y, c, (np.arange(SWINB_BATCH) % 1000).astype(np.int32), K_TRAIN)
-    packed = trainer.put_batch({"packed": rows})["packed"]
-
-    torch.cuda.reset_peak_memory_stats()
-    losses = [trainer.train_step(packed)]  # warm-up
-    torch.cuda.synchronize()
+    packed = trainer.put_batch({"packed": vit_rows(rng, SWINB_BATCH, K_TRAIN,
+                                                   grid=SWIN_GRID)})["packed"]
     want = {"window_attention_tiled": 22, "window_attention_tiled_bwd": 88,
             "window_attention": 2, "window_attention_bwd": 4}
-    train_s = 0.0
-    for _ in range(SWINB_TRAIN_STEPS):
-        reset_launches()
-        with plain_unpacks() as unpacks:
-            t0 = time.perf_counter()
-            losses.append(trainer.train_step(packed))
-            torch.cuda.synchronize()
-            train_s += time.perf_counter() - t0
-        launches = all_launches()
-        check_launches("swinv2b train step", launches, want)
-        # 23 float32 qkv products; 76 bf16 Linears and the first qkv a forward
-        check_swin_linear("swinv2b train step", launches, (23, 23, 23), 77)
-        check_input_stage(report, "swinv2b_train", launches, len(unpacks), train_steps=1)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # 23 float32 qkv products; 76 bf16 Linears and the first qkv a forward
+    train_path(report, "swinv2b train", trainer, packed, SWINB_TRAIN_STEPS, want,
+               linear=(23, 23, 23, 77))
     for name, n in want.items():
         report[name].setdefault("launches_by_path", {})["swinv2b_train_step"] = n
-    losses = [float(v) for v in losses]
-    check(all(math.isfinite(v) for v in losses), f"swinv2b losses not finite: {losses}")
-    check(losses[-1] < losses[0], f"swinv2b loss did not fall: {losses}")
-    print(f"swinv2b train: {SWINB_TRAIN_STEPS} steps of {SWINB_BATCH} in {train_s:.3f} s, "
-          f"{SWINB_TRAIN_STEPS * SWINB_BATCH / train_s:.1f} img/s (pipeline + step, one "
-          f"resident batch, bf16, a sync a step) | launches a step {launches} | loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f} | peak memory {peak_gib:.2f} GiB", flush=True)
-    print(f"swinv2b train: losses {[round(v, 4) for v in losses]}", flush=True)
-
-    y, c = synthetic_planes(rng, SWINB_BATCH, SWIN_GRID)
-    eval_rows = write_rows(y, c, (np.arange(SWINB_BATCH) % 1000).astype(np.int32), K_EVAL)
-    reset_launches()
-    with plain_unpacks() as unpacks:
-        res = trainer.evaluate([{"packed": eval_rows}])
-    launches = all_launches()
-    check_input_stage(report, "swinv2b_eval", launches, len(unpacks), eval_batches=1)
-    check_launches("swinv2b eval", launches, {"window_attention_tiled": 22,
-                                              "window_attention": 2})
-    check_swin_linear("swinv2b eval", launches, (23, 0, 0), 77)
-    check(res["count"] == SWINB_BATCH and math.isfinite(res["loss"]), f"swinv2b eval gave {res}")
-    print(f"swinv2b eval: {res} | launches a batch {launches}", flush=True)
+    eval_path(report, "swinv2b eval", trainer, {"window_attention_tiled": 22,
+                                                "window_attention": 2},
+              vit_rows(rng, SWINB_BATCH, K_EVAL, grid=SWIN_GRID), linear=(23, 0, 0, 77))
 
 
 def main() -> int:

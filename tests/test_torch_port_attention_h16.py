@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from rgbnomore_tpu.ops.pallas.attention import fused_attention as pallas_attention
-from torch_port_support import launches
+from torch_port_support import kernel_instance, launches, mangled_kernel
 from rgbnomore_tpu_torch.ops.attention import (
     attention_bwd_plain,
     attention_plain,
@@ -323,11 +323,9 @@ def test_build_log_names_kernel_instances(symbol, want):
     arguments from ptxas's mangled symbol by its length prefixes (the
     digits in ``h16`` are not one), which picks the main-path instance's
     registers and spills for the report."""
-    import chip_smoke
-
-    assert chip_smoke.kernel_instance(symbol) == want
+    assert kernel_instance(symbol) == want
     line = f"ptxas info    : Compiling entry function '{symbol}' for 'sm_90a'"
-    assert chip_smoke.mangled_kernel(line) == want.split("<")[0]
+    assert mangled_kernel(line) == want.split("<")[0]
 
 
 def test_cpu_path_launches_no_kernel():

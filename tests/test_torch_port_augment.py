@@ -26,7 +26,7 @@ from rgbnomore_tpu.augment.randaugment import RandAugmentDCT as JaxRandAugmentDC
 from rgbnomore_tpu.ops.pallas.augpipe import SUPPORTED_OPS as JAX_SUPPORTED_OPS
 from rgbnomore_tpu.ops.pallas.augpipe import fused_flip_aug_range as jax_fused
 from rgbnomore_tpu.train.config import AUGLIST_DCT, AUGLIST_DCT_VITTI
-from torch_port_support import launches
+from torch_port_support import launches, synthetic_planes, write_rows
 from rgbnomore_tpu_torch.augment.pipeline import make_cropped_train_pipeline
 from rgbnomore_tpu_torch.augment.randaugment import CHROMA_OPS, RandAugmentDCT
 from rgbnomore_tpu_torch.ops import augpipe
@@ -37,7 +37,6 @@ from rgbnomore_tpu_torch.ops.augpipe import (
 )
 from test_pallas_augpipe import _ref_apply
 
-import chip_smoke
 
 TOL = dict(atol=2e-6, rtol=0)  # the Pallas test's, on the [-1, 1] output
 
@@ -110,9 +109,9 @@ def test_train_pipeline_matches_jax(rng):
     and policy, re-derived from the key the JAX pipeline splits) handed to
     the port."""
     grid, b = 8, 4
-    y, c = chip_smoke.synthetic_planes(rng, b, grid)
+    y, c = synthetic_planes(rng, b, grid)
     labels = np.arange(b, dtype=np.int32) * 3
-    rows = chip_smoke.write_rows(y, c, labels, 16)
+    rows = write_rows(y, c, labels, 16)
     kw = dict(target=grid, auglist=list(AUGLIST_DCT_VITTI), num_ops=2, magnitude=3, k=16,
               fmt="mask16")
     key = jax.random.PRNGKey(3)

@@ -16,8 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-from torch_port_support import settle_inspect_module_walk, torch_threads, write_corpus
+from torch_port_support import (
+    settle_inspect_module_walk,
+    synthetic_planes,
+    torch_threads,
+    write_corpus,
+    write_rows,
+)
 from rgbnomore_tpu_torch.train import checkpoint as ckpt
 from rgbnomore_tpu_torch.train import loop
 from rgbnomore_tpu_torch.train.config import generate_config
@@ -45,8 +50,8 @@ def _cfg(epochs=2, drop=0.1, amp=False):
 
 
 def _rows(rng, n=4):
-    y, c = chip_smoke.synthetic_planes(rng, n, 8)
-    return chip_smoke.write_rows(y, c, (np.arange(n) % 4).astype(np.int32), 16)
+    y, c = synthetic_planes(rng, n, 8)
+    return write_rows(y, c, (np.arange(n) % 4).astype(np.int32), 16)
 
 
 def _opt_state_equal(a: dict, b: dict) -> bool:

@@ -28,8 +28,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_imagenet_tars
-from torch_port_support import settle_inspect_module_walk, torch_threads, write_corpus
+from torch_port_support import (
+    settle_inspect_module_walk,
+    torch_threads,
+    write_corpus,
+    write_imagenet_tars,
+)
 from rgbnomore_tpu_torch import cli
 from rgbnomore_tpu_torch import eval as port_eval
 from rgbnomore_tpu_torch.data.staging import build_index_csv

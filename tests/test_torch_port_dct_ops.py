@@ -30,7 +30,7 @@ from rgbnomore_tpu_torch.augment import pipeline
 from rgbnomore_tpu_torch.augment.randaugment import RandAugmentDCT
 from rgbnomore_tpu_torch.ops import photometric as ph
 
-import chip_smoke
+from torch_port_support import write_rows
 
 SEVEN = ["Rotate", "ShearX", "ShearY", "Equalize", "Solarize", "Invert", "FreqEnhance"]
 TABLE = sorted(jax_table(11, 8, 8))
@@ -122,7 +122,7 @@ def test_routing_from_the_op_list(monkeypatch, ops, fused):
     monkeypatch.setattr(pipeline, "wire_flip_aug_range_plain", plain)
     pipe = pipeline.make_cropped_train_pipeline(target=grid, auglist=list(ops), k=k)
     assert pipe.fused is fused
-    rows = chip_smoke.write_rows(*_coeffs(1, b, grid, grid), np.arange(b, dtype=np.int32), k)
+    rows = write_rows(*_coeffs(1, b, grid, grid), np.arange(b, dtype=np.int32), k)
     gen = torch.Generator().manual_seed(0)
     for _ in range(3):
         y, c, labels, _ = pipe(torch.from_numpy(rows), *pipe.draw(gen, b))
@@ -147,7 +147,7 @@ def test_cropped_pipeline_on_the_seven_ops_matches_jax():
     pipeline, JAX's flip and policy handed over (``pipeline.py:384-389``)."""
     grid, b, k = 8, 6, 16
     y, c = _coeffs(5, b, grid, grid)
-    rows = chip_smoke.write_rows(y, c, np.arange(b, dtype=np.int32), k)
+    rows = write_rows(y, c, np.arange(b, dtype=np.int32), k)
     key = jax.random.PRNGKey(9)
     jpipe = jax_train_pipeline(target=grid, auglist=SEVEN, num_ops=2, magnitude=7, k=k,
                                fused=False)

@@ -9,7 +9,7 @@
   rtol 1e-5.
 - ``make_loaders``'s train loader (K=16 mask16, random-resized-crop boxes,
   shuffled, the last partial batch dropped) writes the JAX one's rows.
-- ``chip_smoke.write_rows``, which feeds the slice on the card, writes rows
+- ``torch_port_support.write_rows``, which feeds the card check's slice, writes rows
   the port's pipeline unpacks to the planes it was given.
 - ``codec.read_crop_resize_pack`` (the fields' own arrays) writes the JAX
   wrapper's bytes and returns its box, in each crop mode and wire format.
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+from torch_port_support import pack_mask16, write_rows
 from rgbnomore_tpu import codec as jax_codec
 from rgbnomore_tpu.augment.pipeline import make_cropped_eval_pipeline as jax_eval_pipeline
 from rgbnomore_tpu.data import croppack as jax_croppack
@@ -222,7 +222,7 @@ def test_smoke_rows_round_trip_exactly(rng):
             blk[pos] = rng.integers(-127, 128, size=len(pos))
             blk[0] = rng.integers(-1024, 1017)
     labels = np.array([3, 1, 2], np.int32)
-    rows = chip_smoke.write_rows(y, c, labels, k)
+    rows = write_rows(y, c, labels, k)
     gy, gc, gl, gw = make_cropped_eval_pipeline(target=grid, k=k)(torch.from_numpy(rows))
     to_range = lambda x: (x + 1024.0) / 2040.0 * 2.0 - 1.0  # noqa: E731
     np.testing.assert_allclose(gy.numpy(), to_range(y), atol=1e-6, rtol=0)
@@ -236,7 +236,7 @@ def test_smoke_pack_keeps_the_largest_acs(rng):
     magnitudes, ties going to the lower position, as the C++ packer does."""
     k = 8
     blocks = (rng.standard_normal((200, 64)) * 300).astype(np.float32)
-    vals, mask, scale, dc = chip_smoke.pack_mask16(blocks, k)
+    vals, mask, scale, dc = pack_mask16(blocks, k)
     bits = np.unpackbits(mask, axis=-1, bitorder="little").astype(bool)
     for b in range(len(blocks)):
         s = scale[b]

@@ -6,7 +6,7 @@ There are no released weights here, so each test writes a state dict under
 the reference's module names (``models/plainvit.py``, ``models/swinv2.py``)
 from a numpy seed: every tensor of the port's model under its reference
 name, the ViT's fused qkv rows random and so not symmetric under the
-reference's (h, d, qkv) interleave (``chip_smoke.reference_state_dict``,
+reference's (h, d, qkv) interleave (``torch_port_support.reference_state_dict``,
 whose name maps the card's import phase uses too).  Sizes as ``test_torch_port_embeddings
 .py`` cuts them: depth 2, emb 48, 2 heads of 24, an 8-block grid, 5
 classes; SwinV2 at ``tiny_swin_cfg``.
@@ -28,13 +28,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (
+from torch_port_support import (
     SWIN_REFERENCE_NAMES,
     VIT_EMBED_REFERENCE_NAMES,
     VIT_REFERENCE_NAMES,
     reference_state_dict,
+    tiny_swin_cfg,
+    torch_threads,
 )
-from torch_port_support import tiny_swin_cfg, torch_threads
 from rgbnomore_tpu.train import torch_import as jax_import
 from rgbnomore_tpu.train.config import build_model as jax_build_model
 from rgbnomore_tpu.train.config import generate_config as jax_generate_config

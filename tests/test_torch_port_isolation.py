@@ -28,7 +28,8 @@ names = [m.name for m in pkgutil.walk_packages(rgbnomore_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-chip_smoke.synthetic_planes, chip_smoke.pack_mask16, chip_smoke.write_rows
+import torch_port_support
+torch_port_support.synthetic_planes, torch_port_support.pack_mask16, torch_port_support.write_rows
 banned = sorted(m for m in set(sys.modules) - preloaded
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "rgbnomore_tpu"))
 print(len(names), banned)
@@ -274,15 +275,14 @@ def test_cpu_trains_when_asked(no_cuda, rng):
     """One full-width train step of a one-block ViT-Ti on the CPU: the
     pipeline takes its plain path on the CPU buffer, the loss is finite and
     the parameters move."""
-    import chip_smoke
-    from torch_port_support import settle_inspect_module_walk
+    from torch_port_support import settle_inspect_module_walk, synthetic_planes, write_rows
 
     settle_inspect_module_walk()
     cfg = _cfg()
     trainer = Trainer(cfg, device="cpu")
     trainer.create_state(steps_per_epoch=10)
-    y, c = chip_smoke.synthetic_planes(rng, 2, cfg.model.dct_blocks)
-    rows = chip_smoke.write_rows(y, c, np.array([3, 999], np.int32), 16)
+    y, c = synthetic_planes(rng, 2, cfg.model.dct_blocks)
+    rows = write_rows(y, c, np.array([3, 999], np.int32), 16)
     before = [p.detach().clone() for p in trainer.model.parameters()]
     loss = trainer.train_step(trainer.put_batch({"packed": rows})["packed"])
     assert loss.device.type == "cpu" and np.isfinite(float(loss)) and trainer.step == 1

@@ -24,13 +24,14 @@ import optax
 import pytest
 import torch
 
-import chip_smoke
 from torch_port_support import (
     jax_step_draws,
     jax_swin_trainer,
     port_swin_trainer,
     settle_inspect_module_walk,
+    synthetic_planes,
     tiny_swin_cfg,
+    write_rows,
 )
 from rgbnomore_tpu.train import scaler as jax_ls
 from rgbnomore_tpu_torch.convert import flax_to_state_dict
@@ -137,9 +138,9 @@ def _tiny_fp16_trainer(batch=4):
 
 
 def _rows(cfg, batch):
-    y, c = chip_smoke.synthetic_planes(np.random.default_rng(0), batch, cfg.model.dct_blocks)
+    y, c = synthetic_planes(np.random.default_rng(0), batch, cfg.model.dct_blocks)
     labels = (np.arange(batch) % cfg.model.classes).astype(np.int32)
-    return torch.from_numpy(chip_smoke.write_rows(y, c, labels, 16))
+    return torch.from_numpy(write_rows(y, c, labels, 16))
 
 
 def test_fp16_step_trains_and_carries_scaler_state():
@@ -258,8 +259,8 @@ def test_fp16_lockstep_with_jax_through_an_overflow():
     jt = jax_swin_trainer(amp_dtype="fp16")
     cfg = tiny_swin_cfg(generate_config, amp_dtype="fp16")
     grid, b = cfg.model.dct_blocks, cfg.train.batch_size
-    y, c = chip_smoke.synthetic_planes(np.random.default_rng(0), b, grid)
-    rows = chip_smoke.write_rows(y, c, np.array([1, 7, 3, 7], np.int32), 16)
+    y, c = synthetic_planes(np.random.default_rng(0), b, grid)
+    rows = write_rows(y, c, np.array([1, 7, 3, 7], np.int32), 16)
 
     trainer = port_swin_trainer(jt, cfg)
     settle_inspect_module_walk()

@@ -23,8 +23,14 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-from torch_port_support import settle_inspect_module_walk, torch_threads, write_corpus
+from torch_port_support import (
+    port_spans,
+    random_wire_rows,
+    settle_inspect_module_walk,
+    spans_per_step,
+    torch_threads,
+    write_corpus,
+)
 from rgbnomore_tpu_torch.data.index import load_index
 from rgbnomore_tpu_torch.data.loader import DctCroppedLoader
 from rgbnomore_tpu_torch.train.config import generate_config
@@ -69,7 +75,7 @@ def _trainer() -> Trainer:
 
 
 def _rows(seed: int, k: int) -> dict:
-    return {"packed": chip_smoke.random_wire_rows(np.random.default_rng(seed), BATCH, GRID, k)}
+    return {"packed": random_wire_rows(np.random.default_rng(seed), BATCH, GRID, k)}
 
 
 def _calls(name: str) -> int:
@@ -104,7 +110,7 @@ def _tree(tmp_path, block) -> list:
         block()
     (path,) = tmp_path.glob("*.pt.trace.json")
     with open(path) as f:
-        return chip_smoke.port_spans(json.load(f)["traceEvents"])
+        return port_spans(json.load(f)["traceEvents"])
 
 
 def test_span_tree_under_the_profiler(tmp_path):
@@ -117,7 +123,7 @@ def test_span_tree_under_the_profiler(tmp_path):
             trainer.train_step(packed)
 
     spans = _tree(tmp_path, block)
-    steps, outside = chip_smoke.spans_per_step(spans)
+    steps, outside = spans_per_step(spans)
     assert outside == []
     assert [s["index"] for s in steps] == [1, 2]
     assert all(s["spans"] == STEP_SPANS for s in steps)

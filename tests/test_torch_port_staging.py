@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from chip_smoke import val_names, write_imagenet_tars
+from torch_port_support import val_names, write_imagenet_tars
 from rgbnomore_tpu.data import staging as jax_staging
 from rgbnomore_tpu_torch import codec
 from rgbnomore_tpu_torch.data import staging

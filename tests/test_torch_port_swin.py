@@ -16,7 +16,7 @@
   shifted and unshifted, then one of 256, 64 and 16 tokens.
 - The port's decay set equals JAX's ``kernel_mask`` on the SwinV2 tree.
 - ``Trainer.evaluate`` against the JAX ``Trainer`` (``transfer="cropped"``)
-  on ``chip_smoke.write_rows`` rows, ``evaluate_model`` on tiny JPEGs
+  on ``torch_port_support.write_rows`` rows, ``evaluate_model`` on tiny JPEGs
   through the whole-image resize, and SwinV2's loaders.  The train step's
   lockstep is in ``test_torch_port_swin_train.py``.
 """
@@ -27,8 +27,14 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-from torch_port_support import jax_swin_trainer, perturb_norms, port_swin_trainer, tiny_swin_cfg
+from torch_port_support import (
+    jax_swin_trainer,
+    perturb_norms,
+    port_swin_trainer,
+    synthetic_planes,
+    tiny_swin_cfg,
+    write_rows,
+)
 from rgbnomore_tpu import codec as jax_codec
 from rgbnomore_tpu.models import swinv2 as jax_swin
 from rgbnomore_tpu.models.embeddings import PatchEmbeddingDCTGroup as JaxPatchEmbed
@@ -174,8 +180,8 @@ def test_trainer_evaluate_matches_jax(jax_trainer):
     """The K=48 eval wire at 8 blocks, from rows the smoke script writes."""
     jt = jax_trainer
     cfg = tiny_swin_cfg(generate_config)
-    y, c = chip_smoke.synthetic_planes(np.random.default_rng(1), 6, cfg.model.dct_blocks)
-    rows = chip_smoke.write_rows(y, c, np.arange(6, dtype=np.int32) % 10, 48)
+    y, c = synthetic_planes(np.random.default_rng(1), 6, cfg.model.dct_blocks)
+    rows = write_rows(y, c, np.arange(6, dtype=np.int32) % 10, 48)
     batches = [{"packed": rows[:4]}, {"packed": rows[4:]}]
     want = jt.evaluate(batches)
     got = port_swin_trainer(jt, cfg).evaluate(batches)

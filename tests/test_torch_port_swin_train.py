@@ -14,13 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from torch_port_support import (
     jax_step_draws,
     jax_swin_trainer,
     port_swin_trainer,
     settle_inspect_module_walk,
+    synthetic_planes,
     tiny_swin_cfg,
+    write_rows,
 )
 from rgbnomore_tpu_torch.convert import flax_to_state_dict
 from rgbnomore_tpu_torch.train.config import generate_config
@@ -52,8 +53,8 @@ def test_train_steps_lockstep_with_jax(jax_trainer):
     jt = jax_trainer
     cfg = tiny_swin_cfg(generate_config)
     grid, b = cfg.model.dct_blocks, cfg.train.batch_size
-    y, c = chip_smoke.synthetic_planes(np.random.default_rng(0), b, grid)
-    rows = chip_smoke.write_rows(y, c, np.array([1, 7, 3, 7], np.int32), 16)
+    y, c = synthetic_planes(np.random.default_rng(0), b, grid)
+    rows = write_rows(y, c, np.array([1, 7, 3, 7], np.int32), 16)
 
     trainer = port_swin_trainer(jt, cfg)
     settle_inspect_module_walk()
@@ -101,8 +102,8 @@ def test_train_step_uses_the_drop_path_masks(rng):
     """A train step with drop path: the draws' keep masks decide the loss,
     and handing the same draws over gives the same loss."""
     cfg = tiny_swin_cfg(generate_config, drop_path=0.5)
-    y, c = chip_smoke.synthetic_planes(rng, 4, cfg.model.dct_blocks)
-    rows = torch.from_numpy(chip_smoke.write_rows(y, c, np.array([1, 2, 3, 4], np.int32), 16))
+    y, c = synthetic_planes(rng, 4, cfg.model.dct_blocks)
+    rows = torch.from_numpy(write_rows(y, c, np.array([1, 2, 3, 4], np.int32), 16))
     trainer = Trainer(cfg, device="cpu")
     with torch.no_grad():  # norm1 and norm2 start at 0: every branch would be 0
         for name, p in trainer.model.named_parameters():

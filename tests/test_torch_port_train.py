@@ -19,8 +19,12 @@ import optax
 import pytest
 import torch
 
-import chip_smoke
-from torch_port_support import jax_step_draws, settle_inspect_module_walk
+from torch_port_support import (
+    jax_step_draws,
+    settle_inspect_module_walk,
+    synthetic_planes,
+    write_rows,
+)
 from rgbnomore_tpu.train.config import generate_config as jax_generate_config
 from rgbnomore_tpu.train.loop import Trainer as JaxTrainer
 from rgbnomore_tpu.train.optim import kernel_mask, warmup_cosine_schedule as jax_schedule
@@ -155,8 +159,8 @@ def test_train_steps_lockstep_with_jax(jax_trainer):
     cfg = _tiny_cfg(generate_config)
     grid, b = cfg.model.dct_blocks, cfg.train.batch_size
     rng = np.random.default_rng(0)
-    y, c = chip_smoke.synthetic_planes(rng, b, grid)
-    rows = chip_smoke.write_rows(y, c, np.array([1, 7, 3, 7], np.int32), 16)
+    y, c = synthetic_planes(rng, b, grid)
+    rows = write_rows(y, c, np.array([1, 7, 3, 7], np.int32), 16)
 
     trainer = Trainer(cfg, device="cpu")
     trainer.model.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, jt.state.params)))
@@ -228,8 +232,8 @@ def test_dropout_refusal_states_the_reference():
     sites = []
     apply = draws.dropout.apply
     draws.dropout.apply = lambda x, rate: sites.append((tuple(x.shape), rate)) or apply(x, rate)
-    y, c = chip_smoke.synthetic_planes(np.random.default_rng(0), 2, 8)
-    rows = chip_smoke.write_rows(y, c, np.array([1, 2], np.int32), 16)
+    y, c = synthetic_planes(np.random.default_rng(0), 2, 8)
+    rows = write_rows(y, c, np.array([1, 2], np.int32), 16)
     trainer.train_step(torch.from_numpy(rows), draws)
     tokens, emb = 16, cfg.model.embed_size
     assert sites == [((2, tokens, emb), 0.1), ((2, tokens, 4 * emb), 0.1),

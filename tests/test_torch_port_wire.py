@@ -17,7 +17,7 @@ their plain versions (split -> unpack -> flip + RandAugment + ToRange, or
   ranks), bit 63, more set bits than K (no slot: 0), scales 0 and 255,
   values -128 and 127, int16 values +-32767.
 - The rows are random beyond what the host packer writes
-  (``chip_smoke.random_wire_rows``).
+  (``torch_port_support.random_wire_rows``).
 - ``Trainer.put_batch`` on the CPU returns the rows themselves.
 - ``cuda``-marked tests of the kernel's wire reader against its plain
   version on the card: each op forced, each format, grids 12 and 28, one
@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from rgbnomore_tpu.augment.pipeline import make_cropped_eval_pipeline as jax_eval_pipeline
 from rgbnomore_tpu.augment.pipeline import make_cropped_train_pipeline as jax_train_pipeline
 from rgbnomore_tpu.augment.pipeline import unpack_coefficients_mask as jax_unpack
@@ -52,7 +51,7 @@ from rgbnomore_tpu_torch.ops.augpipe import (
 )
 from rgbnomore_tpu_torch.train.config import generate_config
 from rgbnomore_tpu_torch.train.loop import Trainer
-from torch_port_support import launches
+from torch_port_support import launches, random_wire_rows
 
 TOL = dict(atol=2e-6, rtol=0)  # the Pallas augmentation test's, on the [-1, 1] output
 FORMATS = ["mask16", "mask16w", "mask16q"]
@@ -75,8 +74,7 @@ def _jax_draws(key, auglist, b, grid):
 def test_train_wire_matches_jax(fmt, preset):
     grid, b, k = 12, 4, 16
     auglist = PRESETS[preset]
-    rows = chip_smoke.random_wire_rows(np.random.default_rng(FORMATS.index(fmt)), b, grid, k,
-                                       fmt)
+    rows = random_wire_rows(np.random.default_rng(FORMATS.index(fmt)), b, grid, k, fmt)
     key = jax.random.PRNGKey(5)
     want = jax_train_pipeline(target=grid, auglist=list(auglist), num_ops=2, magnitude=3, k=k,
                               fmt=fmt, fused=True, fused_interpret=True)(key, jnp.asarray(rows))
@@ -91,7 +89,7 @@ def test_train_wire_matches_jax_at_vit_grid():
     """The ViT-Ti grid (28x28) through the train pipelines, each side's
     pipeline object, labels and weights exactly."""
     grid, b, k = 28, 3, 16
-    rows = chip_smoke.random_wire_rows(np.random.default_rng(9), b, grid, k)
+    rows = random_wire_rows(np.random.default_rng(9), b, grid, k)
     kw = dict(target=grid, auglist=list(AUGLIST_DCT_VITTI), num_ops=2, magnitude=3, k=k,
               fmt="mask16")
     key = jax.random.PRNGKey(8)
@@ -107,7 +105,7 @@ def test_train_wire_matches_jax_at_vit_grid():
 @pytest.mark.parametrize("grid", [12, 28])
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_eval_wire_bit_exact(fmt, grid):
-    rows = chip_smoke.random_wire_rows(np.random.default_rng(grid), 3, grid, 48, fmt)
+    rows = random_wire_rows(np.random.default_rng(grid), 3, grid, 48, fmt)
     want = jax_eval_pipeline(target=grid, k=48, fmt=fmt)(jnp.asarray(rows))
     got = wire_to_range(torch.from_numpy(rows), target=grid, k=48, fmt=fmt)
     for g, w in zip(got, want[:2]):
@@ -166,7 +164,7 @@ def test_more_bits_than_k_reads_zero():
 def _edge_rows(fmt, k=4, grid=4):
     """Rows of a 4x4 grid whose first blocks hold every edge block of the
     format's value type (their K padded to ``k``), random beyond."""
-    rows = chip_smoke.random_wire_rows(np.random.default_rng(2), 2, grid, k, fmt)
+    rows = random_wire_rows(np.random.default_rng(2), 2, grid, k, fmt)
     lay = packed_layout(grid, k, fmt)
     wide = fmt == "mask16w"
     names = [n for n, e in EDGE_BLOCKS.items() if (e[4] == np.int16) == wide and e[0] <= k]
@@ -191,7 +189,7 @@ def test_edge_rows_through_eval_like_jax(fmt):
 
 
 def test_cpu_buffers_launch_no_kernel():
-    rows = torch.from_numpy(chip_smoke.random_wire_rows(np.random.default_rng(3), 2, 8, 16))
+    rows = torch.from_numpy(random_wire_rows(np.random.default_rng(3), 2, 8, 16))
     flip = torch.tensor([True, False])
     policy = (torch.zeros((2, 1), dtype=torch.int32), torch.ones((2, 1)),
               torch.zeros((2, 1), dtype=torch.int32), torch.zeros((2, 1), dtype=torch.int32),
@@ -218,7 +216,7 @@ def test_wire_refuses_bad_rows():
 
 
 def test_put_batch_on_cpu_returns_the_rows():
-    rows = chip_smoke.random_wire_rows(np.random.default_rng(4), 3, 8, 16)
+    rows = random_wire_rows(np.random.default_rng(4), 3, 8, 16)
     cfg = generate_config("vitti", "dct", modelver=1)
     cfg.model.depth = 1
     got = Trainer(cfg, device="cpu").put_batch({"packed": rows})["packed"]
@@ -258,7 +256,7 @@ def _held_on_card(rows, flip, policy, **kw):
 @pytest.mark.parametrize("name", sorted(SUPPORTED_OPS))
 def test_wire_kernel_each_op_on_card(name, fmt, grid):
     _card()
-    rows = chip_smoke.random_wire_rows(np.random.default_rng(grid), 3, grid, 16, fmt)
+    rows = random_wire_rows(np.random.default_rng(grid), 3, grid, 16, fmt)
     policy, flip = _forced_policy()
     _held_on_card(rows, flip, policy, target=grid, k=16, fmt=fmt, ops_list=[name], num_ops=1,
                   magnitude=5)
@@ -273,7 +271,7 @@ def test_wire_kernel_presets_on_card(fmt, preset):
     pipe = make_cropped_train_pipeline(target=28, auglist=list(auglist), num_ops=2,
                                        magnitude=3, k=16, fmt=fmt)
     flip, policy, _ = pipe.draw(torch.Generator().manual_seed(1), 64)
-    rows = chip_smoke.random_wire_rows(np.random.default_rng(5), 64, 28, 16, fmt)
+    rows = random_wire_rows(np.random.default_rng(5), 64, 28, 16, fmt)
     _held_on_card(rows, flip, policy, target=28, k=16, fmt=fmt, ops_list=list(auglist),
                   num_ops=2, magnitude=3)
 
@@ -283,7 +281,7 @@ def test_wire_kernel_presets_on_card(fmt, preset):
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_wire_kernel_eval_bit_exact_on_card(fmt, grid):
     _card()
-    rows = chip_smoke.random_wire_rows(np.random.default_rng(6), 16, grid, 48, fmt)
+    rows = random_wire_rows(np.random.default_rng(6), 16, grid, 48, fmt)
     before = launches("wire_to_range")
     got = wire_to_range(torch.from_numpy(rows).cuda(), target=grid, k=48, fmt=fmt)
     torch.cuda.synchronize()

@@ -1,8 +1,17 @@
-"""Support shared by the port's tests (``tests/test_torch_port_*.py``)."""
+"""Support shared by the port's tests (``tests/test_torch_port_*.py``) and
+the card check ``chip_smoke.py``: the seeded wire rows, the reference-named
+state dicts, ILSVRC-shaped tars, the readers of a trace's port spans and of
+ptxas's kernel names, and the JAX side of the lockstep tests (whose JAX
+imports stay inside the functions)."""
 
+import collections
 import contextlib
 import inspect
+import math
+import re
 import sys
+
+import numpy as np
 
 
 def settle_inspect_module_walk() -> None:
@@ -66,7 +75,6 @@ def jax_rgb_policy(aug, key, batch):
     column keys, ChromaDrop draws its bit from the op's key."""
     import jax
     import jax.numpy as jnp
-    import numpy as np
 
     n = len(aug.ops_list)
     h, w = aug.image_hw
@@ -98,7 +106,6 @@ def jax_step_draws(trainer, base_rng, step, batch, grid):
     :func:`jax_rgb_policy`'s at its input size."""
     import jax
     import jax.numpy as jnp
-    import numpy as np
     import torch
 
     from rgbnomore_tpu.augment.randaugment import RandAugmentDCT
@@ -156,8 +163,6 @@ def perturb_norms(params, rng):
     U(0.5, 1.5) and its bias from N(0, 0.1^2).  SwinV2's init starts norm1
     and norm2 at scale 0, where every block is the identity and no attention
     reaches the logits."""
-    import numpy as np
-
     out = {}
     for name, value in params.items():
         if isinstance(value, dict):
@@ -176,7 +181,6 @@ def jax_swin_trainer(amp_dtype=None, window16=False):
     here, 30 s eagerly; the same parameters)."""
     import jax
     import jax.numpy as jnp
-    import numpy as np
     import pytest
 
     from rgbnomore_tpu.train import loop
@@ -202,7 +206,6 @@ def jax_swin_trainer(amp_dtype=None, window16=False):
 def port_swin_trainer(jax_trainer, cfg):
     """The port's CPU Trainer for ``cfg`` with the JAX trainer's parameters."""
     import jax
-    import numpy as np
 
     from rgbnomore_tpu_torch.convert import flax_to_state_dict
     from rgbnomore_tpu_torch.train.loop import Trainer
@@ -218,8 +221,6 @@ def write_corpus(root, n: int = 16, size: int = 64):
     by the port's codec (``tests/test_distributed.py``'s corpus), and their
     ``index.csv``; returns the index's path."""
     from pathlib import Path
-
-    import numpy as np
 
     from rgbnomore_tpu_torch import codec
 
@@ -263,3 +264,283 @@ def launches(kernel: str) -> int:
     from rgbnomore_tpu_torch.utils import profiling
 
     return profiling.totals()["counters"].get(f"rgbnm.launch.{kernel}", 0)
+
+
+# ------------------------------------------------------- the wire rows
+def synthetic_planes(rng: np.random.Generator, n: int, grid: int):
+    """Seeded dequantized coefficient planes: y (n, 1, grid, grid, 8, 8) and
+    c (n, 2, grid/2, grid/2, 8, 8) float32, in [-1024, 1016], with a JPEG-like
+    fall-off of magnitude with frequency and about one AC in five zero."""
+    freq = np.add.outer(np.arange(8), np.arange(8)).astype(np.float32)
+    amp = 300.0 / (1.0 + 2.0 * freq)
+
+    def plane(shape):
+        x = rng.standard_normal(shape + (8, 8)).astype(np.float32) * amp
+        x *= rng.random(shape + (8, 8)) < 0.8
+        x[..., 0, 0] = rng.uniform(-1000.0, 1000.0, shape)
+        return np.clip(x, -1024.0, 1016.0).astype(np.float32)
+
+    return plane((n, 1, grid, grid)), plane((n, 2, grid // 2, grid // 2))
+
+
+def pack_mask16(blocks: np.ndarray, k: int):
+    """The mask16 wire of ``native/dctcodec.cpp`` (pack_block_topk_mask16_f32)
+    for blocks (n, 64) float32: exact int16 DC; the K largest ACs by int8
+    magnitude (ties to the lower position) as int8 values in ascending
+    position order over a uint8 scale ceil(max|AC|/127); an 8-byte
+    little-endian occupancy mask.  Returns (values, mask, scale, dc)."""
+    n = blocks.shape[0]
+    dc = np.clip(np.rint(blocks[:, 0]), -32768, 32767).astype(np.int16)
+    ac = blocks[:, 1:]
+    mag = np.abs(ac)
+    scale = np.clip(np.ceil(mag.max(axis=1) / np.float32(127)), 1, 255).astype(np.float32)
+    inv = (np.float32(1) / scale).astype(np.float32)
+    q = np.minimum((mag * inv[:, None] + np.float32(0.5)).astype(np.int32), 127)
+    keep = np.zeros(q.shape, bool)
+    top = np.argsort(-q, axis=1, kind="stable")[:, :k]
+    np.put_along_axis(keep, top, True, axis=1)
+    keep &= q > 0
+    slot = np.cumsum(keep, axis=1) - 1
+    rows, cols = np.nonzero(keep)
+    values = np.zeros((n, k), np.int8)
+    values[rows, slot[rows, cols]] = np.where(ac[rows, cols] < 0, -q[rows, cols],
+                                              q[rows, cols])
+    bits = np.zeros((n, 64), bool)
+    bits[:, 1:] = keep
+    mask = np.packbits(bits.reshape(n, 8, 8), axis=-1, bitorder="little").reshape(n, 8)
+    return values, mask, scale.astype(np.uint8), dc
+
+
+def row_fields(rows: np.ndarray, layout: dict) -> dict[str, np.ndarray]:
+    """Writable views of every field of (n, row) uint8 rows in ``layout``
+    (``packed_layout``), each (n,) + its per-sample shape, of its dtype."""
+    out = {}
+    for name, spec in layout.items():
+        if name == "row":
+            continue
+        off, shape, dtype = spec
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        out[name] = rows[:, off:off + nbytes].view(dtype).reshape((rows.shape[0],) + shape)
+    return out
+
+
+def write_rows(y: np.ndarray, c: np.ndarray, labels: np.ndarray, k: int) -> np.ndarray:
+    """Consolidated (n, row) uint8 rows in ``packed_layout(grid, k,
+    "mask16")``, as ``DctCroppedLoader`` writes them, for planes y, c."""
+    from rgbnomore_tpu_torch.data.loader import packed_layout
+
+    n, grid = y.shape[0], y.shape[2]
+    layout = packed_layout(grid, k, "mask16")
+    rows = np.zeros((n, layout["row"]), np.uint8)
+    f = row_fields(rows, layout)
+    for tag, planes in (("y", y), ("c", c)):
+        vals, mask, scale, dc = pack_mask16(planes.reshape(-1, 64), k)
+        lead = planes.shape[:4]
+        f[f"v{tag}"][...] = vals.reshape(lead + (k,))
+        f[f"i{tag}"][...] = mask.reshape(lead + (8,))
+        f[f"s{tag}"][...] = scale.reshape(lead)
+        f[f"d{tag}"][...] = dc.reshape(lead)
+    f["quant"][...] = 1
+    f["labels"][...] = labels
+    f["weights"][...] = 1.0
+    return rows
+
+
+def random_wire_rows(rng: np.random.Generator, n: int, grid: int, k: int,
+                     fmt: str = "mask16") -> np.ndarray:
+    """(n, row) uint8 rows in ``packed_layout(grid, k, fmt)`` with every
+    field drawn at random, beyond what the host packer writes: each block's
+    mask sets each of the 64 positions (0 included) with its own
+    probability in [0, 0.5), so many blocks hold more set bits than K; the
+    values span their type (int8, int16 for mask16w), scales [0, 255], DCs
+    [-1500, 1500), mask16q's quant tables [0, 255]."""
+    from rgbnomore_tpu_torch.data.loader import packed_layout
+
+    layout = packed_layout(grid, k, fmt)
+    rows = np.zeros((n, layout["row"]), np.uint8)
+    f = row_fields(rows, layout)
+    for tag in ("y", "c"):
+        vals = f[f"v{tag}"]
+        info = np.iinfo(vals.dtype)
+        vals[...] = rng.integers(info.min, info.max + 1, vals.shape)
+        mask = f[f"i{tag}"]
+        density = rng.uniform(0.0, 0.5, mask.shape[:-1] + (1,))
+        bits = rng.random(mask.shape[:-1] + (64,)) < density
+        mask[...] = np.packbits(bits.reshape(bits.shape[:-1] + (8, 8)), axis=-1,
+                                bitorder="little")[..., 0]
+        f[f"s{tag}"][...] = rng.integers(0, 256, f[f"s{tag}"].shape)
+        f[f"d{tag}"][...] = rng.integers(-1500, 1500, f[f"d{tag}"].shape)
+    f["quant"][...] = rng.integers(0, 256, f["quant"].shape) if fmt == "mask16q" else 1
+    f["labels"][...] = rng.integers(0, 1000, n)
+    f["weights"][...] = 1.0
+    return rows
+
+
+# ------------------------------------------- the reference-named weights
+# port name -> reference name (models/plainvit.py), first match; the
+# embeddings whose names depend on embed_type and sub-blocks apart
+VIT_REFERENCE_NAMES = [
+    (r"encoder_(\d+)\.ln1\.", r"encoder.\1.0.fn.eb_lrnorm1."),
+    (r"encoder_(\d+)\.mha\.", r"encoder.\1.0.fn.eb_mha."),
+    (r"encoder_(\d+)\.ln2\.", r"encoder.\1.1.fn.eb_lrnorm2."),
+    (r"encoder_(\d+)\.mlp1\.", r"encoder.\1.1.fn.eb_ffb.0."),
+    (r"encoder_(\d+)\.mlp2\.", r"encoder.\1.1.fn.eb_ffb.3."),
+    (r"head\.ln\.", "classhead.ch_lrnorm."),
+    (r"head\.linear(\d)\.", r"classhead.ch_linear\1."),
+    (r"patchembed\.projection\.", "patchembed.projection.0."),
+    (r"patchembed\.linear_y(\d+)\.", r"patchembed.LinearY.\1."),
+    (r"patchembed\.linear_c(\d+)\.", r"patchembed.LinearC.\1."),
+]
+VIT_EMBED_REFERENCE_NAMES = {  # (embed_type, sub-blocks) -> rules
+    (2, True): [(r"patchembed\.projection_y\.", "patchembed.projection_Y.1."),
+                (r"patchembed\.projection_c\.", "patchembed.projection_C.1."),
+                (r"patchembed\.linear_mix\.", "patchembed.linearMix.")],
+    (2, False): [(r"patchembed\.linear_mix\.", "patchembed.LinearMix.")],
+    (3, True): [(r"patchembed\.projection_y\.", "patchembed.projectionY.1."),
+                (r"patchembed\.projection_c\.", "patchembed.projectionC.1.")],
+}
+# port name -> reference name (models/swinv2.py)
+SWIN_REFERENCE_NAMES = [
+    (r"layer(\d+)_block(\d+)\.attn\.cpb_mlp1\.", r"layers.\1.blocks.\2.attn.cpb_mlp.0."),
+    (r"layer(\d+)_block(\d+)\.attn\.cpb_mlp2\.", r"layers.\1.blocks.\2.attn.cpb_mlp.2."),
+    (r"layer(\d+)_block(\d+)\.mlp(\d)\.", r"layers.\1.blocks.\2.mlp.fc\3."),
+    (r"layer(\d+)_block(\d+)\.", r"layers.\1.blocks.\2."),
+    (r"layer(\d+)_downsample\.", r"layers.\1.downsample."),
+    (r"patch_embed\.projection\.", "patch_embed.projection.0."),
+    (r"patch_embed\.(weight|bias)$", r"patch_embed.proj.\1"),
+    (r"patch_norm\.", "patch_embed.norm."),
+]
+
+
+def reference_state_dict(model, rules, rng, std: float) -> dict:
+    """A state dict under the reference's module names (``rules``, the first
+    match renames) with ``model``'s shapes, drawn from ``rng``: weights and
+    biases N(0, std^2), LayerNorm scales 1 + N(0, 0.1^2), SwinV2's logit
+    scales log 10 + N(0, 0.1^2); the ViT's fused qkv rows are so random,
+    not symmetric under the reference's (h, d, qkv) interleave."""
+    import torch
+
+    out = {}
+    for key, value in model.state_dict().items():
+        arr = rng.standard_normal(tuple(value.shape)).astype(np.float32)
+        if key.endswith("logit_scale"):
+            arr = np.float32(math.log(10)) + np.float32(0.1) * arr
+        elif re.search(r"(ln\d?|norm\d?)\.weight$", key):
+            arr = 1 + np.float32(0.1) * arr
+        else:
+            arr *= np.float32(std)
+        for pattern, repl in rules:
+            key, n = re.subn(pattern, repl, key)
+            if n:
+                break
+        out[key] = torch.from_numpy(arr)
+    return out
+
+
+# -------------------------------------------------- ILSVRC-shaped tars
+def val_names(n: int) -> list[str]:
+    """The file names of the first ``n`` images of ImageNet's val set."""
+    return [f"ILSVRC2012_val_{i:08d}.JPEG" for i in range(1, n + 1)]
+
+
+def write_imagenet_tars(root, rng, classes=("n01440764", "n01443537"), per_class=2, n_val=2,
+                        size=(32, 32)):
+    """ILSVRC-shaped tars of random ``size`` (width, height) JPEGs in
+    ``root/src``: the train tar an outer tar of ``per_class`` images in a
+    tar for each of ``classes``, the val tar ``n_val`` flat images named as
+    the real val set's (:func:`val_names`); returns ``root/src``."""
+    import tarfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    src, scratch = Path(root) / "src", Path(root) / "scratch"
+    src.mkdir()
+    scratch.mkdir()
+
+    def jpg(path):
+        arr = rng.integers(0, 256, (size[1], size[0], 3), dtype=np.uint8)
+        Image.fromarray(arr, "RGB").save(path, "JPEG")
+
+    class_tars = []
+    for cls in classes:
+        cdir = scratch / cls
+        cdir.mkdir()
+        for i in range(per_class):
+            jpg(cdir / f"{cls}_{i}.JPEG")
+        ct = scratch / f"{cls}.tar"
+        with tarfile.open(ct, "w") as t:
+            for p in sorted(cdir.iterdir()):
+                t.add(p, arcname=p.name)
+        class_tars.append(ct)
+    with tarfile.open(src / "ILSVRC2012_img_train.tar", "w") as t:
+        for ct in class_tars:
+            t.add(ct, arcname=ct.name)
+    for name in val_names(n_val):
+        jpg(scratch / name)
+    with tarfile.open(src / "ILSVRC2012_img_val.tar", "w") as t:
+        for name in val_names(n_val):
+            t.add(scratch / name, arcname=name)
+    return src
+
+
+# -------------------------------------------------- traces and ptxas
+def port_spans(events: list) -> list[dict]:
+    """The port's spans (``rgbnm.*`` host events; the profiler repeats each
+    span that launched device work on the device's timeline as a
+    ``gpu_user_annotation``, left out here) among a Chrome trace's events:
+    name, host thread, start and end (µs) and index (the span's one input,
+    None without one)."""
+    out = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "user_annotation" \
+                or not str(e.get("name", "")).startswith("rgbnm."):
+            continue
+        inputs = e.get("args", {}).get("Concrete Inputs") or [""]
+        out.append({"name": e["name"], "tid": e.get("tid"), "ts": float(e["ts"]),
+                    "end": float(e["ts"]) + float(e["dur"]),
+                    "index": int(inputs[0]) if inputs[0] != "" else None})
+    return out
+
+
+def spans_per_step(spans: list) -> tuple[list[dict], list[str]]:
+    """For each ``rgbnm.step`` span, in order: its index and how many of
+    each other port span lie inside it in time (on any thread); and the
+    names of the spans that lie in no step."""
+    steps = sorted((s for s in spans if s["name"] == "rgbnm.step"), key=lambda s: s["ts"])
+    rows = [{"index": st["index"], "spans": collections.Counter()} for st in steps]
+    outside = []
+    for s in spans:
+        if s["name"] == "rgbnm.step":
+            continue
+        home = [r for r, st in zip(rows, steps) if st["ts"] <= s["ts"] and s["end"] <= st["end"]]
+        if home:
+            home[0]["spans"][s["name"]] += 1
+        else:
+            outside.append(s["name"])
+    return [{"index": r["index"], "spans": dict(r["spans"])} for r in rows], outside
+
+
+def mangled_kernel(line: str) -> str | None:
+    """The name of the ``*_kernel`` function in a ptxas line's mangled
+    symbol, read by the symbol's length prefixes (``_ZN<len><name>...``)."""
+    for m in re.finditer(r"_ZN?(?=\d)", line):
+        pos = m.end()
+        while True:
+            digits = re.match(r"\d+", line[pos:])
+            if digits is None:
+                break
+            start = pos + len(digits.group())
+            name = line[start:start + int(digits.group())]
+            if name.endswith("_kernel"):
+                return name
+            pos = start + len(name)
+    return None
+
+
+def kernel_instance(symbol: str) -> str:
+    """``kernel<dtype,ints>`` of a mangled kernel symbol: the element type of a
+    half-precision kernel, then its integer template arguments."""
+    dtype = re.findall(r"I(?:6__half|13__nv_bfloat16)", symbol)
+    targs = [t.split("_")[-1] for t in dtype] + re.findall(r"Li(\d+)E", symbol)
+    return (mangled_kernel(symbol) or symbol) + "<" + ",".join(targs) + ">"
