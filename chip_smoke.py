@@ -33,7 +33,8 @@ Phases, each raising on failure (the script then exits non-zero):
   1. card: print ``nvidia-smi --query-gpu=name,power.limit`` for the card;
   2. build: compile the kernels, one ``nvcc`` per source, started together,
      and the host codec beside them; fail where ptxas serialises the
-     ``wgmma`` products of the half-precision attention kernels or of #6;
+     ``wgmma`` products of the half-precision attention kernels, of #6 or
+     of #4L;
   3. kernels: each kernel (attention forward and backward in float32 and
      their bf16 and fp16 variants, the fused flip + RandAugment + ToRange
      stage through its dense entry and through its wire reader, window
@@ -556,7 +557,8 @@ def phase_build() -> None:
         print(f"build: {name}: " + "; ".join(f"{k} {v}" for k, v in entries.items()), flush=True)
         for note in notes:
             print(f"build: {name}: ptxas {note}", flush=True)
-        check(not ((name.startswith("attention_h16") or name == "linear_tf32x3") and notes),
+        check(not ((name.startswith("attention_h16")
+                    or name in ("linear_tf32x3", "window_attention_tiled_bwd")) and notes),
               f"ptxas serialises the wgmma products of {name}: {notes}")
 
 
@@ -1562,8 +1564,7 @@ def kernel_window_attention_tiled(gen) -> tuple[dict, dict]:
           f"device fwd / bwd: " + ", ".join(f"{who} {ms[0]:.4f} / {ms[1]:.4f} ms"
                                             for who, ms in pair_ms.items()), flush=True)
 
-    def entry(name, source, r, lib, part, per_pass):
-        nc = (WIN_D + 15) // 16
+    def entry(name, source, r, lib, part, per_pass, nc):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": "rgbnomore_tpu/ops/pallas/attention.py:156 (fwd), :170 (bwd) past "
                             "64 tokens",
@@ -1579,10 +1580,12 @@ def kernel_window_attention_tiled(gen) -> tuple[dict, dict]:
     main = blocks[0][0]  # stage 1, unshifted
     fwd = entry("window_attention_tiled", "rgbnomore_tpu_torch/csrc/window_attention_tiled_fwd.cu",
                 rows[main][0], "window_attention_tiled_fwd", "fwd",
-                {"train_step": step["fwd"], "swinv2t_train_step_device": pair_ms})
+                {"train_step": step["fwd"], "swinv2t_train_step_device": pair_ms},
+                (WIN_D + 15) // 16)
     bwd = entry("window_attention_tiled_bwd",
                 "rgbnomore_tpu_torch/csrc/window_attention_tiled_bwd.cu", rows[main][1],
-                "window_attention_tiled_bwd", "bwd", {"train_step": step["bwd"]})
+                "window_attention_tiled_bwd", "bwd", {"train_step": step["bwd"]},
+                (WIN_D + 31) // 32)
     return fwd, bwd
 
 

@@ -25,9 +25,10 @@ the same diagonal-block bias gradient.
   ``rowsum(dO * O)``, a key-major pass for dK, dV and the bias gradient's
   per-chunk sums, a query-major pass for dQ, the fixed-order reduction).
   All four compute their products in 3xTF32 on the tensor cores
-  (``csrc/tf32_mma.cuh``).  A refused launch raises; a CUDA tensor never
+  (``csrc/tf32_mma.cuh``; #4L's two passes as Hopper warpgroup products,
+  ``csrc/wgmma.cuh``).  A refused launch raises; a CUDA tensor never
   takes the plain path.  The tiled pair takes any N <= 256, but at N = 64
-  it needs 1.2x #3's and 2.3x #4's device time on an H100 (SwinV2-T's
+  it needs 1.2x #3's and 3.1x #4's device time on an H100 (SwinV2-T's
   stages at batch 128, ``chip_smoke.py``'s kernel phase), so N <= 64 stays
   on #3 and #4.
 - On CPU tensors the forward is :func:`window_attention_plain`, the einsum
@@ -56,6 +57,11 @@ MAX_HEAD_DIM = 64
 _TARGET_BLOCKS = 1024
 _MAX_CHUNK = 32
 _TILED_KEYS = 64  # keys a block of #4L's key-major pass
+# #4L's key-major pass runs one block an SM: about 512 blocks a launch or
+# more, at most 64 windows a block (fewer, longer blocks ran 0.5-1.3% faster
+# on the H100 at SwinV2-B/w16's stages than the #4 rule's)
+_TILED_TARGET_BLOCKS = 512
+_TILED_MAX_CHUNK = 64
 
 
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -222,7 +228,7 @@ def window_attention_tiled_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def _tiled_chunk(bw: int, h: int, n: int, npat: int) -> int:
     """Windows of one pattern that one block of #4L's key-major pass walks."""
     tiles = -(-n // _TILED_KEYS)
-    return max(1, min(_MAX_CHUNK, bw * h * tiles // _TARGET_BLOCKS, bw // npat))
+    return max(1, min(_TILED_MAX_CHUNK, bw * h * tiles // _TILED_TARGET_BLOCKS, bw // npat))
 
 
 def window_attention_tiled_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,7 +237,7 @@ def window_attention_tiled_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Launch #4L on CUDA tensors: (dq, dk, dv, dbias) from the forward's
     inputs, its output ``out`` and row log-sum-exp ``lse``
     (:func:`window_attention_tiled_fwd`), and the output gradient ``dout``.
-    ``chunk`` (default: enough for about 1,000 blocks, at most 32) is the
+    ``chunk`` (default: enough for about 512 blocks, at most 64) is the
     number of windows of one pattern whose bias gradient one block sums.
     Adds four to the counter ``rgbnm.launch.window_attention_tiled_bwd``:
     the rows' ``rowsum(dO * O)``, the key-major pass, the query-major pass

@@ -275,7 +275,10 @@ def test_kernel_gradients_match_plain_on_card(case, chunk):
 # ragged windows (12x12 under a shift mask, 9x9) and head dims
 TILED_CARD_CASES = [(32, 4, 256, 32, 1), (32, 4, 256, 32, 4), (32, 4, 256, 32, 16),
                     (16, 16, 256, 32, 1), (8, 2, 144, 64, 4), (64, 2, 81, 16, 1),
-                    (6, 3, 100, 40, 3), (4, 2, 65, 8, 2)]
+                    (6, 3, 100, 40, 3), (4, 2, 65, 8, 2),
+                    # the most registers (D = 64 at N = 256); 50 windows a pattern
+                    # in the default chunks of 6, the last one of 2
+                    (16, 2, 256, 64, 4), (200, 4, 256, 32, 4)]
 # Of the float64 reference's largest entry, per output.  3xTF32 leaves an
 # error near float32's own (about 2^-21 of each product, grown over sums of
 # up to 256 terms, and over BW / P windows in the bias gradient): measured

@@ -5,6 +5,7 @@ their sources, on one NVIDIA GPU, at the shapes the main paths give them.
 Run from the root of a checkout, on a machine with a card:
 
     python3 tools/kernel_ab.py --family window --other DIR
+    python3 tools/kernel_ab.py --family window_tiled --other DIR
     python3 tools/kernel_ab.py --family attention_h16 --other DIR
     python3 tools/kernel_ab.py --family attention_h16 --probe NAME [NAME ...]
 
@@ -29,6 +30,10 @@ The families:
   (forward and backward of every stage, unshifted and shifted) and of one
   eval batch of 256 (the forward); also the sums over a pass (12 calls,
   each block at its own case).
+- ``window_tiled``: ``window_attention_tiled_bwd.cu`` (#4L) at SwinV2-B/w16's
+  tiled shapes of one train step at batch 256 (stages 1-3, unshifted and
+  shifted), both versions on this checkout's #3L's output and log-sum-exp;
+  also the sum over a step's 22 calls.
 - ``attention_h16``: ``attention_h16_fwd.cu`` and ``attention_h16_bwd.cu``
   (#1 and #2 on half-precision inputs) at ViT-B's (256, 12, 196, 64) and
   ViT-Ti's (256, 3, 196, 64) shapes, in bf16 and fp16, held to
@@ -190,6 +195,76 @@ def window_summary(rows: list[dict]) -> dict:
     for key, vals in sums.items():
         print(f"per pass (12 calls): {key} {' / '.join(cs.ms_text(x) for x in vals)}", flush=True)
     return {"per_pass": sums}
+
+
+# ------------------------------------------------------------ window_tiled
+def tiled_versions(fns: dict, src_dir: Path | None = None) -> dict:
+    """tag -> (None, backward) on CUDA tensors: #4L of each version on this
+    checkout's #3L's output and log-sum-exp, at the wrapper's default
+    chunk."""
+    import torch
+
+    from rgbnomore_tpu_torch.ops import window_attention as W
+
+    def bwd(q, k, v, bias, out, lse, g):
+        bw, h, n, d = q.shape
+        npat = bias.shape[0]
+        chunk = W._tiled_chunk(bw, h, n, npat)
+        chunks = -(-(bw // npat) // chunk)
+        grads = [torch.empty_like(x) for x in (q, k, v, bias)]
+        delta = torch.empty_like(lse)
+        part = torch.empty((npat, chunks, h, n, n), device=q.device)
+        launch(fns["window_attention_tiled_bwd"],
+               *[x.data_ptr() for x in (q, k, v, bias, out, g, lse, delta, part, *grads)],
+               bw, h, n, d, npat, chunk)
+        return grads
+
+    return {"other": (None, bwd), "this": (None, W.window_attention_tiled_bwd)}
+
+
+def tiled_cases(gen, versions: dict, probe: str | None = None):
+    """SwinV2-B/w16's tiled shapes of one train step at batch 256 (stages
+    1-3, unshifted and shifted), each version's four gradients within
+    ``TILED_TOL`` of the largest entry of the float32 plain version's."""
+    import torch
+
+    from rgbnomore_tpu_torch.ops.window_attention import (
+        window_attention_bwd_plain,
+        window_attention_tiled_fwd,
+    )
+
+    for case, _ in tiled_blocks():
+        q, k, v, g, bias = cs.tiled_inputs(gen, case)
+        out, lse = window_attention_tiled_fwd(q, k, v, bias, lse=True)
+        want = window_attention_bwd_plain(q, k, v, bias, g)
+        calls = {}
+        for tag, (_, bwd) in versions.items():
+            for name, a, w in zip(("dq", "dk", "dv", "db"), bwd(q, k, v, bias, out, lse, g), want):
+                err = float((a - w).abs().max() / w.abs().max())
+                cs.check(err < cs.TILED_TOL, f"{tag} {name} {case}: {err:.2e} of the largest "
+                         f"entry, beyond {cs.TILED_TOL}")
+            calls[tag] = {"bwd": lambda bwd=bwd: bwd(q, k, v, bias, out, lse, g)}
+        del want
+        yield {"pass": "train", "case": list(case)}, calls
+
+
+def tiled_blocks() -> list:
+    return [(case, nb) for case, nb in cs.swinb_blocks(cs.SWINB_BATCH) if case[2] > cs.WIN_N]
+
+
+def tiled_summary(rows: list[dict]) -> dict:
+    """Each key's sum over one train step's 22 tiled calls, for the first
+    and second timing of each version."""
+    by_case = {tuple(r["case"]): r for r in rows}
+    blocks = tiled_blocks()
+    sums = {}
+    for key in [k for k in rows[0] if k.endswith("ms")]:
+        for i in range(2):
+            sums.setdefault(f"train_{key}", []).append(
+                sum(nb * by_case[case][key][i] for case, nb in blocks))
+    for key, vals in sums.items():
+        print(f"per step (22 calls): {key} {' / '.join(cs.ms_text(x) for x in vals)}", flush=True)
+    return {"per_step": sums}
 
 
 # ----------------------------------------------------------- attention_h16
@@ -354,6 +429,9 @@ FAMILIES = {
     "window": {"names": ("window_attention_fwd", "window_attention_bwd"),
                "argtypes": window_argtypes, "versions": window_versions,
                "cases": window_cases, "summary": window_summary},
+    "window_tiled": {"names": ("window_attention_tiled_bwd",), "argtypes": window_argtypes,
+                     "versions": tiled_versions, "cases": tiled_cases,
+                     "summary": tiled_summary},
     "attention_h16": {"names": ("attention_h16_fwd", "attention_h16_bwd"),
                       "argtypes": lambda name, src_dir: h16_argtypes(
                           name, h16_params(src_dir, name)),
